@@ -1,0 +1,202 @@
+"""Persistent SCG→RHC inference daemon, the PyTorch counterpart of
+``scgrhc.pipeline.serve``.
+
+``python -m scgrhc_torch serve <dir> [ckpt|best|last]`` loads the
+generator onto the device once, optionally warms the streaming path
+(kernel build and first launches), then answers newline-delimited JSON
+requests on stdin with one JSON response line on stdout per request:
+
+    {"record": "PATIENT01"}                          → predict + save .npy
+    {"record": "...", "overlap_s": 0.5}              → overlap-and-blend
+    {"record": "...", "save": false}                 → waveform inline
+    {"cmd": "ping"}                                  → liveness check
+    {"cmd": "quit"}                                  → clean shutdown
+
+Responses carry per-request wall-clock latency.  Errors are per request:
+one bad request does not stop the daemon.  Not yet ported: the
+``continuous`` and ``calibrate`` request modes (each answered with a
+"not yet ported" error) and the daemon's ``--calibrate`` and ``--mesh``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import threading
+from time import perf_counter, time
+
+import numpy as np
+
+from scgrhc_torch.core.timelog import timelog
+from scgrhc_torch.io.catalog import SAMPLE_FREQ
+from scgrhc_torch.parallel.stream import STREAM_BATCH, stream_infer
+from scgrhc_torch.pipeline.predict import (
+    load_generator_params,
+    not_ported,
+    predict_record,
+    resolve_checkpoint,
+)
+
+
+def _valid_record_name(name) -> bool:
+    """Client-supplied record names feed both the WFDB read path and the
+    ``.npy`` save path, and the daemon may be network-exposed, so only a
+    bare basename is accepted."""
+    return (
+        isinstance(name, str)
+        and name not in ("", ".", "..")
+        and os.path.basename(name) == name
+        and (os.altsep is None or os.altsep not in name)
+    )
+
+
+def _handle_with_deadline(req: dict, ctx: dict, timeout_s) -> dict:
+    """Run one request with a wall-clock deadline (``--timeout S``).
+
+    On expiry the in-flight work is abandoned on its daemon thread, never
+    killed, and the client gets the standard error JSON; the daemon stays
+    alive for the next request."""
+    if not timeout_s:
+        return _handle(req, ctx)
+    box = {}
+
+    def work():
+        try:
+            box["resp"] = _handle(req, ctx)
+        except BaseException as e:  # re-raised on the request thread
+            box["exc"] = e
+
+    th = threading.Thread(target=work, daemon=True, name="serve-request")
+    th.start()
+    th.join(timeout_s)
+    if th.is_alive():
+        raise TimeoutError(
+            f"request exceeded --timeout {timeout_s}s; in-flight work "
+            "abandoned (not killed). Retry when the device recovers."
+        )
+    if "exc" in box:
+        raise box["exc"]
+    return box["resp"]
+
+
+def _handle(req: dict, ctx: dict) -> dict:
+    params = ctx["params"]
+    t0 = perf_counter()
+    name = req["record"]
+    if not _valid_record_name(name):
+        raise ValueError(f"invalid record name {name!r} (bare names only)")
+    if req.get("continuous", False):
+        raise not_ported("the continuous mode")
+    if req.get("calibrate", False):
+        raise not_ported("cohort calibration")
+    overlap = int(float(req.get("overlap_s", 0.0)) * SAMPLE_FREQ)
+    pred = predict_record(ctx["gen"], params, name, overlap,
+                          batch=ctx["stream_batch"])
+    resp = {
+        "record": name,
+        "mode": "windowed",
+        "n_samples": int(pred.shape[0]),
+        "seconds": round(pred.shape[0] / SAMPLE_FREQ, 3),
+        "checkpoint": ctx["ckpt_name"],
+        "calibrated": False,
+        "ms": round((perf_counter() - t0) * 1e3, 1),
+    }
+    if req.get("save", True):
+        out_dir = ctx["out_dir"]
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, f"{name}.npy")
+        np.save(path, pred.astype(np.float32))
+        resp["path"] = path
+    else:
+        resp["waveform"] = np.asarray(pred, dtype=np.float32).tolist()
+    return resp
+
+
+def _warm(ctx, n_windows: int):
+    """Run both request paths once at ``n_windows`` windows — the float32
+    path and the int16 ADC path with on-device calibration — so the kernel
+    build, library load and first launches happen before the first real
+    request."""
+    params = ctx["params"]
+    t = params.segment_samples
+    c = len(params.in_channels)
+    batch = ctx["stream_batch"]
+    rng = np.random.default_rng(0)
+    stream_infer(
+        ctx["gen"], rng.random((c, n_windows * t)).astype(np.float32),
+        segment_samples=t, batch=batch,
+    )
+    adc = rng.integers(-1000, 1000, (c, n_windows * t), dtype=np.int16)
+    cal = (np.ones(c, np.float32), np.zeros(c, np.float32),
+           np.full(c, -32768.0, np.float32))
+    stream_infer(ctx["gen"], adc, segment_samples=t, batch=batch, calibration=cal)
+
+
+def run(
+    params,
+    checkpoint: str = "best",
+    calibrate: bool = False,
+    out_dir: str | None = None,
+    warm: int = 0,
+    mesh: bool = False,
+    stream_batch: int = STREAM_BATCH,
+    stdin=None,
+    stdout=None,
+    timeout: float | None = None,
+    device=None,
+) -> int:
+    """Serve until EOF or ``{"cmd": "quit"}``.  Returns requests served.
+
+    ``device`` defaults to CUDA (``"cpu"`` runs the plain versions);
+    ``timeout`` (CLI ``--timeout S``) bounds each request's wall clock."""
+    if calibrate:
+        raise not_ported("cohort calibration (--calibrate)")
+    if mesh:
+        raise not_ported("mesh sharding (--mesh)")
+    stdin = stdin or sys.stdin
+    stdout = stdout or sys.stdout
+    start_time = time()
+
+    ckpt_name = resolve_checkpoint(params, checkpoint)
+    ctx = {
+        "params": params,
+        "ckpt_name": ckpt_name,
+        "gen": load_generator_params(params, ckpt_name, device),
+        "out_dir": out_dir or os.path.join(params.dir_path, "predictions"),
+        "stream_batch": stream_batch,
+    }
+    if warm:
+        _warm(ctx, warm)
+    print(
+        timelog(
+            f"Run waveform_serve for {params.dir_path} | {ckpt_name} | ready",
+            start_time,
+        ),
+        file=sys.stderr,
+        flush=True,
+    )
+
+    served = 0
+    for line in stdin:
+        line = line.strip()
+        if not line:
+            continue
+        try:
+            req = json.loads(line)
+            if req.get("cmd") == "quit":
+                break
+            if req.get("cmd") == "ping":
+                resp = {"ok": True, "checkpoint": ckpt_name}
+            else:
+                resp = _handle_with_deadline(req, ctx, timeout)
+                served += 1
+        except Exception as e:  # per-request isolation
+            resp = {"error": f"{type(e).__name__}: {e}"}
+        print(json.dumps(resp), file=stdout, flush=True)
+    print(
+        timelog(f"waveform_serve | {served} requests served", start_time),
+        file=sys.stderr,
+        flush=True,
+    )
+    return served

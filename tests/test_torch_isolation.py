@@ -1,0 +1,61 @@
+"""The port stands alone: no scgrhc_torch module and not chip_smoke.py
+imports JAX or the JAX package, at run time or in its source."""
+
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "scgrhc_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+_PROBE = r"""
+import importlib, importlib.util, json, pkgutil, sys
+import scgrhc_torch
+names = [m.name for m in pkgutil.walk_packages(scgrhc_torch.__path__, "scgrhc_torch.")]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "scgrhc"))
+print(json.dumps({"imported": names, "bad": bad}))
+"""
+
+
+def test_port_imports_pull_in_no_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "scgrhc_torch.pipeline.serve" in res["imported"]
+    assert "scgrhc_torch.ops.kernels.conv_block" in res["imported"]
+    assert res["bad"] == []
+
+
+_IMPORT = re.compile(
+    r"^\s*(?:from|import)\s+(?:jax|jaxlib|scgrhc(?!_torch))\b"
+    r"|import_module\(\s*['\"](?:jax|scgrhc(?!_torch))",
+    re.MULTILINE,
+)
+
+
+def test_port_sources_import_no_jax_or_scgrhc():
+    assert len(PORT_FILES) > 20
+    hits = {
+        str(p.relative_to(ROOT)): _IMPORT.findall(p.read_text())
+        for p in PORT_FILES
+    }
+    assert {k: v for k, v in hits.items() if v} == {}
+
+
+def test_scan_pattern_catches_what_it_must():
+    bad = ["import jax", "from scgrhc.io import wfdb", "    import scgrhc",
+           "importlib.import_module('scgrhc.core')"]
+    good = ["from scgrhc_torch.io import wfdb", "import scgrhc_torch",
+            "# see scgrhc/ops/pallas/dsp.py"]
+    assert all(_IMPORT.search(s) for s in bad)
+    assert not any(_IMPORT.search(s) for s in good)

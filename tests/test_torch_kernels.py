@@ -1,0 +1,88 @@
+"""The port's kernel modules: K1f (conv_in_relu) and K4 (normalize_windows).
+
+Each plain version against the JAX Pallas kernel it stands beside
+(interpret mode, as the JAX package's own tests run it), and the wrappers'
+CPU dispatch.  The CUDA kernels against their plain versions are in
+tests/test_torch_gpu.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from scgrhc.ops.pallas.conv_block import conv_in_relu as jax_conv_in_relu
+from scgrhc.ops.pallas.dsp import normalize_windows as jax_normalize_windows
+from scgrhc_torch.ops.kernels import conv_block as k1f
+from scgrhc_torch.ops.kernels import dsp as k4
+
+# the tolerance of tests/test_conv_block_kernel.py (f32 reassociation)
+K1F_ATOL = 2e-5
+K4_ATOL = 1e-6
+
+
+def _conv_inputs(n, ci, o, t, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, ci, t)).astype(np.float32)
+    bound = 1.0 / np.sqrt(ci * 3)
+    w = rng.uniform(-bound, bound, (o, ci, 3)).astype(np.float32)
+    b = rng.uniform(-bound, bound, o).astype(np.float32)
+    return x, w, b
+
+
+def _windows(seed=0, n=6, c=4, t=750, nan_window=2):
+    rng = np.random.default_rng(seed)
+    w = (rng.standard_normal((n, c, t)) * rng.uniform(0.1, 50, (n, 1, 1))
+         + rng.uniform(-10, 10, (n, 1, 1))).astype(np.float32)
+    if nan_window is not None:
+        w[nan_window, c // 2, t // 3] = np.nan
+    return w
+
+
+@pytest.mark.parametrize(
+    "ci,o,t", [(3, 64, 750), (64, 128, 750), (256, 512, 750), (4, 64, 747)]
+)
+def test_conv_in_relu_plain_matches_pallas(ci, o, t):
+    x, w, b = _conv_inputs(2, ci, o, t)
+    want = np.asarray(jax_conv_in_relu(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b)))
+    got = k1f.conv_in_relu_plain(torch.from_numpy(x), torch.from_numpy(w),
+                                 torch.from_numpy(b)).numpy()
+    assert got.dtype == np.float32 and got.shape == (2, o, t)
+    np.testing.assert_allclose(got, want, atol=K1F_ATOL)
+
+
+def test_conv_in_relu_cpu_takes_plain_path():
+    x, w, b = (torch.from_numpy(a) for a in _conv_inputs(2, 8, 16, 90))
+    k1f.conv_in_relu.launches = 0
+    got = k1f.conv_in_relu(x, w, b)
+    assert k1f.conv_in_relu.launches == 0
+    assert torch.equal(got, k1f.conv_in_relu_plain(x, w, b))
+
+
+def test_conv_in_relu_plain_bf16_accumulates_in_f32():
+    x, w, b = (torch.from_numpy(a) for a in _conv_inputs(2, 64, 64, 750, seed=3))
+    xb, wb, bb = x.bfloat16(), w.bfloat16(), b.bfloat16()
+    got = k1f.conv_in_relu_plain(xb, wb, bb)
+    assert got.dtype == torch.bfloat16
+    want = k1f.conv_in_relu_plain(xb.float(), wb.float(), bb.float())
+    np.testing.assert_allclose(got.float().numpy(), want.numpy(), atol=3e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("nan_window", [None, 2])
+def test_normalize_windows_plain_matches_pallas(nan_window):
+    w = _windows(nan_window=nan_window)
+    want = np.asarray(jax_normalize_windows(jnp.asarray(w)))
+    got = k4.normalize_windows_plain(torch.from_numpy(w)).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    if nan_window is not None:
+        assert np.isnan(got[nan_window]).all()
+        assert not np.isnan(np.delete(got, nan_window, axis=0)).any()
+    np.testing.assert_allclose(got, want, atol=K4_ATOL, equal_nan=True)
+
+
+def test_normalize_windows_cpu_takes_plain_path():
+    w = torch.from_numpy(_windows())
+    k4.normalize_windows.launches = 0
+    got = k4.normalize_windows(w)
+    assert k4.normalize_windows.launches == 0
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(k4.normalize_windows_plain(w)))
