@@ -1,6 +1,6 @@
-"""CLI entry point: ``python -m scgrhc_torch serve|predict ...``.
+"""CLI entry point: ``python -m scgrhc_torch train|serve|predict ...``.
 
-Argument handling follows ``scgrhc``'s ``serve`` and ``predict``
+Argument handling follows ``scgrhc``'s ``train``, ``serve`` and ``predict``
 subcommands, plus ``--device`` (default ``cuda``).  Flags of those
 subcommands that the port does not have yet are refused with a "not yet
 ported" message.
@@ -12,7 +12,8 @@ import os
 import sys
 
 USAGE = (
-    "usage: python -m scgrhc_torch serve <dir> [ckpt|best|last] [--warm N]\n"
+    "usage: python -m scgrhc_torch train <dir> [--device D]\n"
+    "       python -m scgrhc_torch serve <dir> [ckpt|best|last] [--warm N]\n"
     "                                [--timeout S] [--device D]\n"
     "       python -m scgrhc_torch predict <dir> <record> [ckpt|best|last]\n"
     "                                [--overlap S] [--device D]\n"
@@ -42,7 +43,7 @@ def main(argv: list[str] | None = None) -> int:
         print(USAGE)
         return 0
     cmd = argv[0]
-    min_args = {"serve": 2, "predict": 3}.get(cmd)
+    min_args = {"train": 2, "serve": 2, "predict": 3}.get(cmd)
     if min_args is None or len(argv) < min_args:
         raise SystemExit(USAGE)
     first = 3 if cmd == "predict" else 2
@@ -56,7 +57,11 @@ def main(argv: list[str] | None = None) -> int:
     from scgrhc_torch.core.params import Params
 
     params = Params(os.path.join(argv[1], "params.json"))
-    if cmd == "serve":
+    if cmd == "train":
+        from scgrhc_torch.train import run as train_run
+
+        train_run.run(params, device=device)
+    elif cmd == "serve":
         from scgrhc_torch.pipeline import serve
 
         serve.run(

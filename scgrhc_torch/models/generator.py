@@ -4,13 +4,15 @@ waveform_train.py:67-195).
 
 Encoder 64→128→256, bottleneck 512, decoder with attention-gated skip
 concatenation, ConvTranspose upsampling (k3 s1, L→L+2), MaxPool
-downsampling (k3 s1, L→L-2) and a final 1x1 conv to one channel.  The
-port serves only, so dropout (an eval-mode identity) is not applied.
+downsampling (k3 s1, L→L-2), dropout 0.3 after every pool and every
+upsampling in train mode, and a final 1x1 conv to one channel.
 
-The double-conv blocks run through the K1f kernel wrapper
-(:func:`scgrhc_torch.ops.kernels.conv_block.conv_in_relu`), which takes
-its plain version for tensors on the CPU.  ``block=plain_block`` runs the
-same weights through the plain version on any device.
+The double-conv blocks run through
+:class:`scgrhc_torch.ops.kernels.conv_block.ConvInReLU` (K1f forward, K1b
+backward), whose kernels take their plain versions for tensors on the
+CPU.  ``block=plain_block`` runs the same weights through the plain
+version on any device.  Dropout goes through the module-level name
+``dropout``, looked up at call time, so a test can inject masks.
 
 State-dict keys are the reference's (``enc1.0.weight``, ``enc1.3.bias``,
 ``att3.W_x.0.weight``, ``up3.weight``, ``final.bias``), registered in the
@@ -29,8 +31,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from scgrhc_torch.models.attention import AttentionGate, Conv
-from scgrhc_torch.ops.kernels.conv_block import conv_in_relu, conv_in_relu_plain
-from scgrhc_torch.ops.nn import conv1d, conv_transpose1d, max_pool1d_k3s1
+from scgrhc_torch.ops.kernels.conv_block import ConvInReLU, conv_in_relu_plain
+from scgrhc_torch.ops.nn import conv1d, conv_transpose1d, dropout, max_pool1d_k3s1
+
+DROPOUT_RATE = 0.3  # reference: waveform_train.py:117
 
 # (name, in, out) for the double-conv blocks, in forward order.
 BLOCKS = (
@@ -61,9 +65,10 @@ class DoubleConv(nn.Module):
 
 
 def fused_block(blk: DoubleConv, x):
-    """The double-conv block through the K1f wrapper (two launches)."""
+    """The double-conv block through :class:`ConvInReLU` (two K1f launches
+    forward, two K1b backward)."""
     for conv in blk.convs:
-        x = conv_in_relu(x, conv.weight, conv.bias)
+        x = ConvInReLU.apply(x, conv.weight, conv.bias)
     return x
 
 
@@ -127,16 +132,16 @@ class Generator(nn.Module):
                 child.to(dtype)
         return self
 
-    def encode(self, x, block=fused_block):
+    def encode(self, x, block=fused_block, drop=lambda a: a):
         """Encoder half: enc1..enc3 + bottleneck (reference:
         waveform_train.py:175-181).  Returns the skips and the bottleneck."""
         e1 = block(self.enc1, x)
-        e2 = block(self.enc2, max_pool1d_k3s1(e1))
-        e3 = block(self.enc3, max_pool1d_k3s1(e2))
-        b = block(self.bottleneck, max_pool1d_k3s1(e3))
+        e2 = block(self.enc2, drop(max_pool1d_k3s1(e1)))
+        e3 = block(self.enc3, drop(max_pool1d_k3s1(e2)))
+        b = block(self.bottleneck, drop(max_pool1d_k3s1(e3)))
         return e1, e2, e3, b
 
-    def decode(self, x, e1, e2, e3, b, block=fused_block):
+    def decode(self, x, e1, e2, e3, b, block=fused_block, drop=lambda a: a):
         """Decoder half: up/attention/dec ×3 + final 1×1 conv (reference:
         waveform_train.py:183-195).  ``x`` is only consulted for the
         output length reconciliation quirk (``_pad_size(f, x)``)."""
@@ -146,7 +151,7 @@ class Generator(nn.Module):
             (self.up2, self.att2, self.dec2, e2),
             (self.up1, self.att1, self.dec1, e1),
         ):
-            d = _pad_size(conv_transpose1d(d, up.weight, up.bias), skip)
+            d = _pad_size(drop(conv_transpose1d(d, up.weight, up.bias)), skip)
             a = att(d, skip)
             d = block(dec, torch.cat((d, a), dim=1))
         # output epilogue in the final weights' own dtype (f32 under a
@@ -154,7 +159,14 @@ class Generator(nn.Module):
         fw, fb = self.final.weight, self.final.bias
         return _pad_size(conv1d(d.to(fw.dtype), fw, fb), x)
 
-    def forward(self, x, block=fused_block):
+    def forward(self, x, block=fused_block, rng: torch.Generator | None = None,
+                train: bool = False):
+        """``train`` applies dropout at its six sites, drawing from ``rng``
+        (a generator on x's device), in forward order."""
+
+        def drop(a):
+            return dropout(a, DROPOUT_RATE, rng, train)
+
         x = x.to(self.dtype)
-        e1, e2, e3, b = self.encode(x, block)
-        return self.decode(x, e1, e2, e3, b, block)
+        e1, e2, e3, b = self.encode(x, block, drop)
+        return self.decode(x, e1, e2, e3, b, block, drop)

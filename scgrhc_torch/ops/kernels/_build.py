@@ -2,8 +2,8 @@
 
 Every ``scgrhc_torch/csrc/*.cu`` goes into one shared library, compiled by
 one ``nvcc`` call for ``sm_90a`` into ``build/scgrhc_torch/`` at the root
-of the checkout.  The library's name carries a hash of the sources and
-flags, so an edited source builds anew and a finished build is reused.
+of the checkout.  The library's name carries a hash of the sources, headers
+and flags, so an edited source builds anew and a finished build is reused.
 Each C entry point takes raw pointers, sizes and the CUDA stream, and
 returns the launch's ``cudaError_t``.
 """
@@ -31,7 +31,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # x, w, b, y, n, cin, cout, len, dtype, stream
     "scgrhc_conv_in_relu": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, w, b, dy, dx, dw, db, dc, part, n, cin, cout, len, nsplit, dtype, stream
+    "scgrhc_conv_in_relu_bwd": (_P,) * 9 + (_I,) * 6 + (_P,),
     "scgrhc_conv_in_relu_max_len": (),
+    # x, w, b, y, n, cin, cout, len, mode, dtype, stream
+    "scgrhc_critic_layer_fwd": (_P,) * 4 + (_I,) * 6 + (_P,),
+    # x, w, b, dy, dx, dw, db, dc, part, n, cin, cout, len, mode, nsplit, dtype, stream
+    "scgrhc_critic_layer_bwd": (_P,) * 9 + (_I,) * 7 + (_P,),
     # w, out, n, m, stream
     "scgrhc_normalize_windows": (_P, _P, _I, _I, _P),
 }
@@ -70,7 +76,7 @@ def build() -> Build:
             return _build
         sources = sorted(CSRC_DIR.glob("*.cu"))
         digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-        for src in sources:
+        for src in sorted(CSRC_DIR.glob("*.cu*")):
             digest.update(src.name.encode())
             digest.update(src.read_bytes())
         out = BUILD_DIR / f"libscgrhc_kernels-{digest.hexdigest()[:12]}.so"

@@ -1,83 +1,80 @@
-"""K1f: fused ``relu(instance_norm(conv1d(x, w, b, padding=1)))``, forward.
+"""K1f and K1b: fused ``relu(instance_norm(conv1d(x, w, b, padding=1)))``,
+forward and backward, and :class:`ConvInReLU`, the autograd Function that
+joins them.
 
-Replaces the TPU kernel ``scgrhc/ops/pallas/conv_block.py::conv_in_relu``
-(its ``_fwd_kernel``).  The CUDA source is ``scgrhc_torch/csrc/
-conv_in_relu.cu``; its header says what bounds it on the H100
-(operations: 6·C_in·O·T FLOPs per sample, on the f32 FMA units) and how
-the design keeps a layer's intermediate out of device memory without the
-TPU's whole-sample VMEM tile (one block per sample and 16 output
-channels, conv sums in registers, input channels staged through shared
-memory in chunks of 8).
+Replaces the TPU kernel ``scgrhc/ops/pallas/conv_block.py::conv_in_relu``:
+K1f its ``_fwd_kernel``, K1b its ``_bwd_kernel`` (the custom_vjp's
+``_cir_bwd``).  The CUDA source is ``scgrhc_torch/csrc/conv_in_relu.cu``
+over ``conv3.cuh``; its header says what bounds both on the H100
+(operations on the f32 FMA units) and how the design keeps the layer's
+intermediate out of device memory.  The plain versions are
+:mod:`.conv3`'s in the ``in_relu`` mode.
 
-Serving needs no gradient, so there is no ``autograd.Function`` yet; the
-backward (TPU ``_bwd_kernel``) comes with the training slice.
+The layer is first-order only, like the TPU kernel: the generator is never
+under a second-order gradient.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
-from scgrhc_torch.ops.kernels import _build
-from scgrhc_torch.ops.nn import instance_norm, stats_dtype
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+from scgrhc_torch.ops.kernels import conv3
 
 
 def conv_in_relu_plain(x, w, b):
-    """The plain PyTorch version: conv in f32 (f64 for f64 input) on the
+    """The plain PyTorch forward: conv in f32 (f64 for f64 input) on the
     upcast inputs, one-pass instance norm, relu, cast to x's dtype."""
-    acc = stats_dtype(x.dtype)
-    c = F.conv1d(x.to(acc), w.to(acc), padding=1) + b.to(acc)[None, :, None]
-    return torch.relu(instance_norm(c)).to(x.dtype)
+    return conv3.layer_plain(x, w, b, "in_relu")
+
+
+def conv_in_relu_bwd_plain(x, w, b, dy, need_dx: bool = True):
+    """The plain backward ``(dx, dw, db)`` at the output cotangent ``dy``:
+    dx in x's dtype (None unless ``need_dx``), dw (O, C_in, 3) and db (O,)
+    in f32, summed over samples."""
+    return conv3.layer_bwd_plain(x, w, b, dy, "in_relu", need_dx=need_dx)
 
 
 def conv_in_relu(x, w, b):
-    """x (N, C_in, T), w (O, C_in, 3), b (O,) → (N, O, T) in x's dtype.
+    """K1f: x (N, C_in, T), w (O, C_in, 3), b (O,) → (N, O, T) in x's dtype.
 
     A tensor on the CPU takes :func:`conv_in_relu_plain`.  A CUDA tensor
     launches the kernel, or raises on what the kernel does not take
-    (dtype other than float32/bfloat16, mixed dtypes or devices, wrong
-    shapes, non-contiguous tensors, T over the kernel's limit)."""
-    if x.device.type == "cpu":
+    (:func:`.conv3.check_inputs`)."""
+    if conv3.on_cpu(x, "conv_in_relu"):
         return conv_in_relu_plain(x, w, b)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv_in_relu: unsupported device {x.device}")
-    if x.dtype not in _DTYPE_CODE or w.dtype != x.dtype or b.dtype != x.dtype:
-        raise TypeError(
-            "conv_in_relu kernel takes float32 or bfloat16 x, w, b of one dtype, "
-            f"got {x.dtype}, {w.dtype}, {b.dtype}"
-        )
-    if x.dim() != 3 or w.dim() != 3 or b.dim() != 1:
-        raise ValueError("conv_in_relu expects x (N, C_in, T), w (O, C_in, 3), b (O,)")
-    n, cin, t = x.shape
-    o = w.shape[0]
-    if w.shape != (o, cin, 3) or b.shape != (o,):
-        raise ValueError(
-            f"conv_in_relu shape mismatch: x {tuple(x.shape)}, w {tuple(w.shape)}, "
-            f"b {tuple(b.shape)}"
-        )
-    if not (x.is_contiguous() and w.is_contiguous() and b.is_contiguous()):
-        raise ValueError("conv_in_relu kernel takes contiguous tensors")
-    if w.device != x.device or b.device != x.device:
-        raise ValueError("conv_in_relu: x, w and b must be on one device")
-    lib = _build.library()
-    max_len = lib.scgrhc_conv_in_relu_max_len()
-    if not (1 <= n <= 65535 and 1 <= t <= max_len):
-        raise ValueError(
-            f"conv_in_relu kernel takes 1 <= N <= 65535 and 1 <= T <= {max_len}, "
-            f"got N={n}, T={t}"
-        )
-    y = torch.empty((n, o, t), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.scgrhc_conv_in_relu(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-            n, cin, o, t, _DTYPE_CODE[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    _build.check(err, "conv_in_relu")
+    y = conv3.launch_fwd("scgrhc_conv_in_relu", "conv_in_relu", x, w, b)
     conv_in_relu.launches += 1
     return y
 
 
+def conv_in_relu_bwd(x, w, b, dy, need_dx: bool = True):
+    """K1b: :func:`conv_in_relu_bwd_plain` on the CPU; on CUDA one kernel
+    launch (its dc, dx and dw/db passes), dx skipped unless ``need_dx``."""
+    if conv3.on_cpu(x, "conv_in_relu_bwd"):
+        return conv_in_relu_bwd_plain(x, w, b, dy, need_dx)
+    out = conv3.launch_bwd("scgrhc_conv_in_relu_bwd", "conv_in_relu_bwd", x, w, b, dy,
+                           None, need_dx, True)
+    conv_in_relu_bwd.launches += 1
+    return out
+
+
 conv_in_relu.launches = 0
+conv_in_relu_bwd.launches = 0
+
+
+class ConvInReLU(torch.autograd.Function):
+    """K1f forward, K1b backward.  No residual beyond the inputs is kept: the
+    backward recomputes the conv, as the TPU kernel does.  dx is not
+    computed for an input that needs no gradient (the generator's SCG
+    input)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w, b)
+        return conv_in_relu(x, w, b)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, b = ctx.saved_tensors
+        dx, dw, db = conv_in_relu_bwd(x, w, b, dy.contiguous(), ctx.needs_input_grad[0])
+        return dx, dw.to(w.dtype), db.to(b.dtype)

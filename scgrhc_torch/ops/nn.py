@@ -11,6 +11,8 @@ carry over by relabeling alone:
                           ``scgrhc.ops.nn.instance_norm`` uses; the two-pass
                           ``nn.InstanceNorm1d`` differs in f32
   * ``max_pool1d_k3s1``   kernel 3, stride 1 (L → L-2)
+  * ``dropout``           inverted dropout, train-only, drawing from an
+                          explicit ``torch.Generator``
 
 These are plain PyTorch: the JAX package runs them outside Pallas too.
 The bias is added after the convolution, in the output dtype, as the JAX
@@ -62,6 +64,18 @@ def instance_norm(x, eps: float = IN_EPS):
 def max_pool1d_k3s1(x):
     """kernel 3, stride 1; ceil_mode is a no-op at stride 1 → L-2."""
     return F.max_pool1d(x, kernel_size=3, stride=1)
+
+
+def dropout(x, rate: float, rng: torch.Generator | None, train: bool):
+    """Inverted dropout (``nn.Dropout``): keeps each element with
+    probability 1 - rate and scales it by 1 / (1 - rate); the identity
+    when not training.  The mask is drawn from ``rng``, a generator on x's
+    device."""
+    if not train or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
 
 
 def relu(x):
