@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments:
 
 It builds the port's CUDA kernels from ``scgrhc_torch/csrc``, holds each
 kernel against its plain PyTorch version at the shapes its path gives it
-(f32 and bf16) and times both, then drives two paths end to end at the
+(f32 and bf16) and times both, then drives three paths end to end at the
 model's full width, counting kernel launches from 0 just before each:
 
   * serving, through ``scgrhc_torch.pipeline.serve.run`` on synthetic
@@ -19,14 +19,23 @@ model's full width, counting kernel launches from 0 just before each:
     (``python -m scgrhc_torch train``), each held bit for bit to an
     uninterrupted 3-epoch run; one bfloat16 epoch beside the f32 losses;
     the step's gradients and losses cross-checked against the same step
-    on the CPU with the same dropout masks and eps.
+    on the CPU with the same dropout masks and eps;
+  * the experiment pipeline, ``python -m scgrhc_torch <dir>`` in a new
+    process (data with K3 → train 2 epochs → test valid all → select →
+    test test best) on a synthetic database of 4 records x 1800 s, its
+    loader files held to the host-gated data stage's, its comparison CSVs'
+    scores to a float64 recomputation and a few predictions to the CPU's;
+    then ``test <dir> train last``, timed.
 
 Any failure exits non-zero before the result lines; without a CUDA device,
 or without the package beside it, it exits non-zero at once.
 
 The last three lines of standard output are the card (``nvidia-smi``'s
 name and power limit), one ``{"kernels": [...]}`` JSON object, and
-``{"ok": true, "device": {...}}``.  Details go to
+``{"ok": true, "device": {...}}``.  A kernel's ``ms`` is the time of
+back-to-back calls of its wrapper; K3 and K4, whose wrappers cost more
+on the host than their kernels on the card, also carry ``graph_ms``, the
+same calls replayed from a CUDA graph.  Details go to
 ``build/chip_smoke.json``.
 """
 
@@ -102,6 +111,14 @@ ALPHA = 1e-4
 # low-variance windows; outputs span about [-3.9, 3.1]).
 TOL_SERVE = 5e-3
 
+# The pipeline's comparison CSVs: each metric column against its float64
+# recomputation from the row's own real_rhc/pred_rhc strings (the device
+# computes them in float32), relative to max(1, |value|); reading 1.3e-7 on
+# an H100.
+TOL_METRIC = 1e-5
+MIN_RHC = -50.0
+PIPELINE_RECORDS, PIPELINE_SECONDS = 4, 1800.0
+
 OUT_DIR = "build"
 
 
@@ -128,6 +145,22 @@ def _time_ms(torch, fn, reps=5, warmup=2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _graph_ms(torch, fn, reps=20) -> float:
+    """The card's time per call of ``fn``: ``reps`` calls captured in one
+    CUDA graph and replayed, so the wrapper's host cost (checks,
+    allocations, the ctypes call) is out of the timing."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the capture, as graph capture requires
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):  # a failed capture fails the run
+        for _ in range(reps):
+            fn()
+    return _time_ms(torch, graph.replay, reps=5, warmup=1) / reps
 
 
 def _layer_shapes(in_channels: int):
@@ -218,6 +251,7 @@ def check_normalize_windows(torch, smoke: Smoke) -> dict:
     rec = {
         "max_abs_err": err,
         "ms": _time_ms(torch, lambda: normalize_windows(w), reps=20),
+        "graph_ms": _graph_ms(torch, lambda: normalize_windows(w)),
         "plain_ms": _time_ms(torch, lambda: normalize_windows_plain(w), reps=20),
         "bound_ms": max(nbytes / PEAK_BYTES, 3.0 * w.numel() / PEAK_F32_FLOPS) * 1e3,
         "bound_by": "bytes",
@@ -225,12 +259,82 @@ def check_normalize_windows(torch, smoke: Smoke) -> dict:
     print(
         f"normalize_windows N={N_CHUNK} C={c} T={T}: err {err:.3g} (tol {TOL_K4:g}), "
         f"NaN window all-NaN {nan_window}, NaN pattern equal {same_nan}, kernel "
-        f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+        f"{rec['ms']:.4f} ms ({rec['graph_ms']:.4f} ms in a CUDA graph), plain "
+        f"{rec['plain_ms']:.4f} ms, bound "
         f"{rec['bound_ms']:.4f} ms, library call none",
         flush=True,
     )
     smoke.check(same_nan and nan_window, "normalize_windows NaN propagation")
     smoke.check(err <= TOL_K4, f"normalize_windows err {err}")
+    return rec
+
+
+def _gate_windows(torch, n: int, c: int):
+    """Pressure-like windows away from the gate's thresholds, with window 3
+    flat, 5 a ramp, 7 dipping below MIN_RHC and 11 holding a NaN."""
+    rng = np.random.default_rng(n + c)
+    tt = np.arange(T) / 500.0
+    rhc = (20 + 10 * np.sin(2 * np.pi * rng.uniform(0.9, 1.5, (n, 1)) * tt)
+           + rng.standard_normal((n, T)))
+    scg = rng.standard_normal((n, c, T)) * rng.uniform(0.01, 2, (n, 1, 1))
+    rhc[3] = 7.25
+    rhc[5] = np.linspace(0, 30, T) + 0.01 * rng.standard_normal(T)
+    rhc[7, 100] = MIN_RHC - 30
+    rhc[11, 250] = np.nan
+    scg[11, 0, 375] = np.nan
+    return (torch.from_numpy(scg.astype(np.float32)).cuda(),
+            torch.from_numpy(rhc.astype(np.float32)).cuda())
+
+
+def check_gate_normalize(torch, smoke: Smoke) -> dict:
+    """K3 at the data stage's shapes: a 450-s chamber interval (300 windows)
+    with 4 and with 1 SCG channel, and a ragged 37 windows; times at
+    (300, 4, 750)."""
+    from scgrhc_torch.ops.kernels.dsp import gate_and_normalize, gate_and_normalize_plain
+
+    errs = []
+    for n, c in ((300, 4), (300, 1), (37, 4)):
+        scg, rhc = _gate_windows(torch, n, c)
+        got = gate_and_normalize(scg, rhc, MIN_RHC)
+        ref = gate_and_normalize_plain(scg, rhc, MIN_RHC)
+        torch.cuda.synchronize()
+        keep_equal = bool(torch.equal(got[0], ref[0]))
+        nan_equal = all(bool(torch.equal(torch.isnan(g), torch.isnan(r)))
+                        for g, r in zip(got[1:], ref[1:]))
+        mm_equal = all(bool(torch.equal(torch.nan_to_num(g), torch.nan_to_num(r)))
+                       for g, r in zip(got[3:], ref[3:]))
+        err = max(float((torch.nan_to_num(g) - torch.nan_to_num(r)).abs().max())
+                  for g, r in zip(got[1:3], ref[1:3]))
+        edges = not bool(got[0][[3, 5, 7, 11]].any()) and int(got[0].sum()) == n - 4
+        errs.append(err)
+        print(f"gate_and_normalize N={n} C={c} T={T}: keep equal {keep_equal} (kept "
+              f"{int(got[0].sum())}, edge windows dropped {edges}), (lo, hi) equal {mm_equal}, "
+              f"NaN pattern equal {nan_equal}, normalized err {err:.3g} (tol {TOL_K4:g})",
+              flush=True)
+        smoke.check(keep_equal and edges, f"gate_and_normalize {n}x{c}: keep")
+        smoke.check(mm_equal and nan_equal, f"gate_and_normalize {n}x{c}: (lo, hi) or NaN")
+        smoke.check(err <= TOL_K4, f"gate_and_normalize {n}x{c}: err {err}")
+    n, c = 300, len(CHANNELS)
+    scg, rhc = _gate_windows(torch, n, c)
+    # bytes: each input read once, each output written once; operations per
+    # rhc sample: a sliding max and min (3 comparisons each, van Herk), the
+    # flat test, the mean, yc, yc*xc, yc^2 and the range test, the window's
+    # min and max, and the normalizing subtraction and division (16); per scg
+    # sample its min, max, subtraction and division (4)
+    nbytes = 2.0 * 4 * n * (c + 1) * T + n * (1 + 2 * 2 * 4)
+    ops = n * T * 16.0 + n * c * T * 4.0
+    rec = {
+        "max_abs_err": max(errs),
+        "ms": _time_ms(torch, lambda: gate_and_normalize(scg, rhc, MIN_RHC), reps=20),
+        "graph_ms": _graph_ms(torch, lambda: gate_and_normalize(scg, rhc, MIN_RHC)),
+        "plain_ms": _time_ms(torch, lambda: gate_and_normalize_plain(scg, rhc, MIN_RHC), reps=20),
+        "bound_ms": max(nbytes / PEAK_BYTES, ops / PEAK_F32_FLOPS) * 1e3,
+        "bound_by": "bytes" if nbytes / PEAK_BYTES >= ops / PEAK_F32_FLOPS else "operations",
+    }
+    print(f"gate_and_normalize N={n} C={c} T={T}: kernel {rec['ms']:.4f} ms "
+          f"({rec['graph_ms']:.4f} ms in a CUDA graph), plain "
+          f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+          f"library call none", flush=True)
     return rec
 
 
@@ -585,13 +689,6 @@ TRAIN_KERNELS = ("conv_in_relu", "conv_in_relu_bwd", "critic_layer", "critic_lay
                  "critic_layer_bwd_dwdb")
 
 
-def _kernel_fns():
-    from scgrhc_torch.ops.kernels import conv_block, critic_fused
-
-    return {name: getattr(conv_block if name.startswith("conv") else critic_fused, name)
-            for name in TRAIN_KERNELS}
-
-
 def write_train_data(root: str, duration_s: float = 600.0) -> tuple[str, int]:
     """The windows of a synthetic record (400 for 600 s), min-max
     normalized per window, as a native loader file; returns its path and
@@ -648,7 +745,7 @@ def train_end_to_end(torch, smoke: Smoke, root: str, card: str) -> dict:
     from scgrhc_torch.train.wgan import TrainConfig, launches_per_step
 
     loader, n_windows = write_train_data(root)
-    fns = _kernel_fns()
+    fns = {k: fn for k, fn in _kernel_counters().items() if k in TRAIN_KERNELS}
 
     def drive(params):
         for fn in fns.values():
@@ -878,6 +975,259 @@ def cross_check_step(torch, smoke: Smoke) -> dict:
                                  "reversed_critic_loss_rel_diffs": rel_rev.tolist(),
                                  "first_moment_rel_l2": mom}}
 
+# ---- the experiment pipeline ------------------------------------------------
+
+ALL_KERNELS = {"conv_in_relu": "conv_block", "conv_in_relu_bwd": "conv_block",
+               "critic_layer": "critic_fused", "critic_layer_bwd_dx": "critic_fused",
+               "critic_layer_bwd_dwdb": "critic_fused", "gate_and_normalize": "dsp",
+               "normalize_windows": "dsp"}
+N_EVAL = 1024  # eval_batch
+
+# ``python -m scgrhc_torch <dir>`` as ``-m`` runs it (runpy, run_name
+# __main__) in a new process, with the kernel launch counts set to 0 just
+# before and printed as the last line just after.
+_PIPELINE_PROC = r"""
+import importlib, json, runpy, sys
+kernels = json.loads(sys.argv[2])
+fns = {k: getattr(importlib.import_module("scgrhc_torch.ops.kernels." + m), k)
+       for k, m in kernels.items()}
+for fn in fns.values():
+    fn.launches = 0
+sys.argv = ["scgrhc_torch", sys.argv[1]]
+try:
+    runpy.run_module("scgrhc_torch", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    if e.code not in (0, None):
+        raise
+print(json.dumps({k: fn.launches for k, fn in fns.items()}))
+"""
+
+
+def _kernel_counters() -> dict:
+    import importlib
+
+    return {k: getattr(importlib.import_module(f"scgrhc_torch.ops.kernels.{m}"), k)
+            for k, m in ALL_KERNELS.items()}
+
+
+def _loader_files(params) -> dict:
+    import pickle
+
+    out = {}
+    for path in (params.train_path, params.valid_path, params.test_path):
+        with open(path, "rb") as f:
+            out[os.path.basename(path)] = pickle.load(f)
+    return out
+
+
+def _same_loaders(a: dict, b: dict) -> bool:
+    """Two sets of loader files equal array for array."""
+    head = ("format", "batch_size", "shuffle", "seed")
+    for name, x in a.items():
+        y = b[name]
+        if [x[k] for k in head] != [y[k] for k in head] or x["store"].keys() != y["store"].keys():
+            return False
+        for k, v in x["store"].items():
+            w = y["store"][k]
+            if isinstance(v, np.ndarray):
+                if v.dtype != w.dtype or v.shape != w.shape or not np.array_equal(v, w):
+                    return False
+            elif v != w:
+                return False
+    return True
+
+
+def _read_csv(path: str) -> list[dict]:
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def _metric_errs(rows: list[dict]) -> float:
+    """The largest distance of a CSV metric column from its float64
+    recomputation from the row's own real_rhc/pred_rhc, relative to
+    max(1, |value|); NaN must sit where the recomputation has NaN."""
+    from scgrhc_torch.eval.metrics import global_scores
+    from scgrhc_torch.select.run import get_float_array
+
+    worst = 0.0
+    for row in rows:
+        ref = global_scores(get_float_array(row["real_rhc"]), get_float_array(row["pred_rhc"]))
+        for k, v in ref.items():
+            got = float(row[k]) if row[k] else math.nan
+            if math.isnan(v) or math.isnan(got):
+                worst = max(worst, 0.0 if math.isnan(v) and math.isnan(got) else math.inf)
+            else:
+                worst = max(worst, abs(got - v) / max(1.0, abs(v)))
+    return worst
+
+
+def pipeline_end_to_end(torch, smoke: Smoke, root: str, card: str) -> dict:
+    """The data stage on both backends in this process (timed, K3 counted),
+    then the whole pipeline through ``python -m scgrhc_torch <dir>`` in a new
+    process, its artifacts checked, then ``test <dir> train last`` here."""
+    from scgrhc_torch.core import paths
+    from scgrhc_torch.core.params import Params
+    from scgrhc_torch.data import run as data_run
+    from scgrhc_torch.data.loaders import load_dataloader
+    from scgrhc_torch.eval import infer
+    from scgrhc_torch.eval import run as eval_run
+    from scgrhc_torch.models.convert import generator_from_state_dict
+    from scgrhc_torch.select.run import get_float_array
+    from scgrhc_torch.train import checkpoint as ckpt_io
+    from scgrhc_torch.train.wgan import TrainConfig, launches_per_step
+    from scgrhc_torch.utils.synth import make_synthetic_database
+
+    t0 = time.perf_counter()
+    db = make_synthetic_database(os.path.join(root, "db"), n_records=PIPELINE_RECORDS,
+                                 duration_s=PIPELINE_SECONDS, seed=0)
+    db_s = time.perf_counter() - t0
+    data_root = os.path.dirname(db)
+    paths.set_data_path(data_root)
+    fns = _kernel_counters()
+
+    def exp(name, **extra):
+        d = os.path.join(root, name)
+        os.makedirs(d)
+        return Params(_write_params(d, total_epochs=2, eval_stack=8, eval_batch=N_EVAL,
+                                    seed=0, **extra))
+
+    report = {"db_s": db_s, "data_stage": {}}
+    for backend in ("host", "device"):
+        params = exp(f"data_{backend}", data_backend=backend)
+        for fn in fns.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        data_run.run(params)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        k3 = fns["gate_and_normalize"].launches
+        report["data_stage"][backend] = {"s": secs, "k3_launches": k3}
+        print(f"data stage, data_backend {backend}: {secs:.2f} s for {PIPELINE_RECORDS} records "
+              f"x {PIPELINE_SECONDS:.0f} s, K3 launches {k3} on {card}", flush=True)
+        smoke.check(k3 == (PIPELINE_RECORDS if backend == "device" else 0),
+                    f"data stage {backend}: {k3} K3 launches")
+    host = _loader_files(Params(os.path.join(root, "data_host", "params.json")))
+    smoke.check(_same_loaders(_loader_files(params), host),
+                "data stage: device-gated loader files differ from the host-gated ones")
+
+    # the main path: a new process, as a user runs it
+    params = exp("pipeline", data_backend="device")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _PIPELINE_PROC, params.dir_path, json.dumps(ALL_KERNELS)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=900, env=dict(os.environ, SCGRHC_DATA=data_root),
+    )
+    wall = time.perf_counter() - t0
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_pipeline.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    if not smoke.check(proc.returncode == 0, f"python -m scgrhc_torch <dir>: rc "
+                                             f"{proc.returncode}\n{proc.stderr[-3000:]}"):
+        return report
+    launches = json.loads(proc.stdout.strip().splitlines()[-1])
+    report.update(wall_s=wall, launches=launches)
+
+    # (a) the loader files, (b) K3 once per PA interval
+    files = _loader_files(params)
+    smoke.check(_same_loaders(files, host), "pipeline: loader files differ from the host run's")
+    smoke.check(launches["gate_and_normalize"] == PIPELINE_RECORDS,
+                f"pipeline: {launches['gate_and_normalize']} K3 launches")
+    # (c) every artifact of the reference contract, parsed
+    stores = {k: load_dataloader(getattr(params, f"{k}_path")).dataset
+              for k in ("train", "valid", "test")}
+    log = open(os.path.join(params.dir_path, "record_log.txt")).read().splitlines()
+    counts = {k: len(v) for k, v in stores.items()}
+    smoke.check(log[1:] == [f"All segments: {sum(counts.values())}",
+                            f"Valid segments: {counts['valid']}",
+                            f"Train segments: {counts['train']}",
+                            f"Test segments: {counts['test']}"], f"record_log.txt {log}")
+    ckpts = ckpt_io.list_checkpoints(params.checkpoint_dir_path)
+    smoke.check(ckpts == ["000.checkpoint", "001.checkpoint"], f"checkpoints {ckpts}")
+    best = open(os.path.join(params.dir_path, "checkpoint_best.txt")).read()
+    best_name = best.splitlines()[0].split()[1]
+    scores = _read_csv(os.path.join(params.dir_path, "checkpoint_scores.csv"))
+    smoke.check([r["checkpoint"] for r in scores] == ckpts, "checkpoint_scores.csv")
+    top = max(scores, key=lambda r: float(r["pcc_r"]))
+    smoke.check(top["checkpoint"] == best_name, f"checkpoint_best.txt names {best_name}")
+    csvs = {f"valid/{c.split('.')[0]}.csv": counts["valid"] for c in ckpts}
+    csvs[f"test/{best_name.split('.')[0]}.csv"] = counts["test"]
+    worst, rows = 0.0, {}
+    for rel, n in csvs.items():
+        path = os.path.join(params.comparison_dir_path, rel)
+        if not smoke.check(os.path.exists(path), f"missing comparisons/{rel}"):
+            continue
+        rows[rel] = _read_csv(path)
+        smoke.check(len(rows[rel]) == n and list(rows[rel][0]) == eval_run.CSV_COLUMNS,
+                    f"comparisons/{rel}: {len(rows[rel])} rows, expected {n}")
+        # (d) the metric columns against float64
+        worst = max(worst, _metric_errs(rows[rel]))
+    smoke.check(worst <= TOL_METRIC, f"comparison metrics against float64: {worst}")
+    # (e) a few test windows' predictions against the checkpoint on the CPU
+    test_rows = {(r["filename"], int(r["start_idx"])): r
+                 for r in rows.get(f"test/{best_name.split('.')[0]}.csv", [])}
+    store, k = stores["test"], min(4, counts["test"])
+    gen = generator_from_state_dict(ckpt_io.load(os.path.join(
+        params.checkpoint_dir_path, best_name))["g_state_dict"]).eval()
+    with torch.inference_mode():
+        cpu = gen(torch.from_numpy(store.scg[:k]))[:, 0].double().numpy()
+    mm = store.minmax_rhc[:k].astype(np.float32).astype(np.float64)
+    try:
+        card_pred = np.stack([get_float_array(test_rows[(store.record_names[i],
+                                                         int(store.start_idx[i]))]["pred_rhc"])
+                              for i in range(k)])
+        pred_err = float(np.abs((card_pred - mm[:, :1]) / (mm[:, 1:] - mm[:, :1]) - cpu).max())
+    except KeyError:
+        pred_err = math.inf
+    smoke.check(pred_err <= TOL_SERVE, f"pipeline test predictions against the CPU: {pred_err}")
+    # the launches of the whole run: two epochs of training steps, then one
+    # generator forward per chunk and checkpoint (valid all, test best)
+    steps = 2 * math.ceil(counts["train"] / N_TRAIN)
+    per_step = launches_per_step(TrainConfig.from_params(params))
+    eval_chunks = 2 * math.ceil(counts["valid"] / N_EVAL) + math.ceil(counts["test"] / N_EVAL)
+    want = {k: per_step.get(k, 0) * steps for k in ALL_KERNELS}
+    want["conv_in_relu"] += 14 * eval_chunks
+    want["gate_and_normalize"] = PIPELINE_RECORDS
+    smoke.check(launches == want, f"pipeline launches {launches}, expected {want}")
+    print(f"pipeline: python -m scgrhc_torch <dir> in {wall:.1f} s (process start included): "
+          f"{counts} windows, {steps} training steps, best {best_name}; metric columns against "
+          f"float64 {worst:.3g} (tol {TOL_METRIC:g}); test predictions against the CPU "
+          f"{pred_err:.3g} (tol {TOL_SERVE:g}); launches {launches} on {card}", flush=True)
+    report.update(windows=counts, steps=steps, best=best_name, metric_err=worst,
+                  pred_vs_cpu_err=pred_err)
+
+    # test <dir> train last, in this process
+    for fn in fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    eval_run.run(params, "train", "last")
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    got = {k: fn.launches for k, fn in fns.items()}
+    chunks = math.ceil(counts["train"] / N_EVAL)
+    smoke.check(got == {k: 14 * chunks if k == "conv_in_relu" else 0 for k in ALL_KERNELS},
+                f"test train last: launches {got} for {chunks} chunks")
+    # its device part alone: the split's forward, denormalization and scores
+    gen = generator_from_state_dict(ckpt_io.load(os.path.join(
+        params.checkpoint_dir_path, ckpts[-1]))["g_state_dict"], "cuda").eval()
+    infer.predict_split(gen, stores["train"], batch=N_EVAL)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    infer.predict_split(gen, stores["train"], batch=N_EVAL)
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    rate, device_rate = counts["train"] / stage_s, counts["train"] / predict_s
+    print(f"test train last: {counts['train']} windows in {chunks} chunks, {stage_s:.2f} s "
+          f"({rate:.1f} windows/s, checkpoint load and CSV write included); the scoring alone "
+          f"{predict_s * 1e3:.1f} ms ({device_rate:.1f} windows/s); K1f launches "
+          f"{got['conv_in_relu']} on {card}", flush=True)
+    report.update(eval_train={"windows": counts["train"], "chunks": chunks, "s": stage_s,
+                              "windows_per_s": rate, "predict_s": predict_s,
+                              "predict_windows_per_s": device_rate, "launches": got})
+    return report
+
 
 def main() -> int:
     import torch
@@ -918,6 +1268,7 @@ def main() -> int:
 
     k1f = check_conv_in_relu(torch, smoke)
     k4 = check_normalize_windows(torch, smoke)
+    k3 = check_gate_normalize(torch, smoke)
     k1b = check_conv_in_relu_bwd(torch, smoke)
     k2 = check_critic_layers(torch, smoke)
 
@@ -925,6 +1276,7 @@ def main() -> int:
     try:
         serve = serve_end_to_end(torch, smoke, os.path.join(root, "serve"), card)
         train = train_end_to_end(torch, smoke, os.path.join(root, "train"), card)
+        pipeline = pipeline_end_to_end(torch, smoke, os.path.join(root, "pipeline"), card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -940,7 +1292,7 @@ def main() -> int:
          "source": "scgrhc_torch/csrc/normalize_windows.cu",
          "replaces": "scgrhc/ops/pallas/dsp.py:157",
          "launches": serve["launches"]["normalize_windows"],
-         "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
+         "max_abs_err": k4["max_abs_err"], "ms": k4["ms"], "graph_ms": k4["graph_ms"],
          "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
          "bound_by": k4["bound_by"], "library_ms": None},
         {"name": "conv_in_relu_bwd", "route": "cuda",
@@ -965,6 +1317,15 @@ def main() -> int:
             "bound_by": rec["bound_by"], "library_ms": lin["library_ms"],
             "library_covers": "conv4 (512->1, linear) only", "library_layer_ms": lin["ms"],
         })
+    kernels.append({
+        "name": "gate_and_normalize", "route": "cuda",
+        "source": "scgrhc_torch/csrc/gate_normalize.cu",
+        "replaces": "scgrhc/ops/pallas/dsp.py:39",
+        "launches": pipeline.get("launches", {}).get("gate_and_normalize", 0),
+        "max_abs_err": k3["max_abs_err"], "ms": k3["ms"], "graph_ms": k3["graph_ms"],
+        "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": None,
+    })
     for k in kernels:
         k["status"] = "fail" if smoke.errors else "ok"
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -972,7 +1333,8 @@ def main() -> int:
         json.dump({"card": card, "kind": kind, "count": count,
                    "build_seconds": build.seconds, "build_log": build.log,
                    "conv_in_relu": k1f, "normalize_windows": k4,
-                   "conv_in_relu_bwd": k1b, **k2, "serve": serve, "train": train,
+                   "conv_in_relu_bwd": k1b, **k2, "gate_and_normalize": k3,
+                   "serve": serve, "train": train, "pipeline": pipeline,
                    "errors": smoke.errors}, f, indent=1)
     if smoke.errors:
         print(f"chip_smoke: {len(smoke.errors)} check(s) failed", file=sys.stderr)
@@ -980,7 +1342,7 @@ def main() -> int:
             print(f"  {e}", file=sys.stderr)
         return 1
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels}, allow_nan=False))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0

@@ -1,9 +1,10 @@
-"""CLI entry point: ``python -m scgrhc_torch train|serve|predict ...``.
+"""CLI entry point: ``python -m scgrhc_torch <dir> | all | data | train |
+test | select | serve | predict ...``.
 
-Argument handling follows ``scgrhc``'s ``train``, ``serve`` and ``predict``
-subcommands, plus ``--device`` (default ``cuda``).  Flags of those
-subcommands that the port does not have yet are refused with a "not yet
-ported" message.
+Argument handling follows ``python -m scgrhc`` (``scgrhc/pipeline/run.py``),
+plus ``--device`` (default ``cuda``).  Subcommands and flags of ``scgrhc``
+that the port does not have yet are refused with a "not yet ported"
+message.
 """
 
 from __future__ import annotations
@@ -12,12 +13,20 @@ import os
 import sys
 
 USAGE = (
-    "usage: python -m scgrhc_torch train <dir> [--device D]\n"
+    "usage: python -m scgrhc_torch <dir> [--device D]     the pipeline: data, train,\n"
+    "                                                     test valid all, select,\n"
+    "                                                     test test best\n"
+    "       python -m scgrhc_torch all [--device D]       the pipeline on waveform_06..33\n"
+    "       python -m scgrhc_torch data <dir> [--device D]\n"
+    "       python -m scgrhc_torch train <dir> [--device D]\n"
+    "       python -m scgrhc_torch test <dir> <train|valid|test> <all|last|ckpt> [--device D]\n"
+    "       python -m scgrhc_torch select <dir>            (host only)\n"
     "       python -m scgrhc_torch serve <dir> [ckpt|best|last] [--warm N]\n"
     "                                [--timeout S] [--device D]\n"
     "       python -m scgrhc_torch predict <dir> <record> [ckpt|best|last]\n"
     "                                [--overlap S] [--device D]\n"
-    "D is cuda (default) or cpu."
+    "D is cuda (default) or cpu.  Not yet ported: sweep, report, plots, demo,\n"
+    "export, export-loaders, summary."
 )
 
 _NOT_PORTED = {
@@ -25,6 +34,10 @@ _NOT_PORTED = {
     "--calibrate": "cohort calibration (--calibrate)",
     "--mesh": "mesh sharding (--mesh)",
 }
+_NOT_PORTED_COMMANDS = ("sweep", "report", "plots", "demo", "export", "export-loaders",
+                        "summary")
+# subcommand: (arguments before the flags, including the subcommand)
+_MIN_ARGS = {"data": 2, "train": 2, "test": 4, "select": 2, "serve": 2, "predict": 3}
 
 
 def _option(rest: list[str], flag: str, kind, default):
@@ -37,30 +50,55 @@ def _option(rest: list[str], flag: str, kind, default):
         raise SystemExit(USAGE)
 
 
+def _params(dir_name: str):
+    from scgrhc_torch.core.params import Params
+
+    return Params(os.path.join(dir_name, "params.json"))
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
         print(USAGE)
         return 0
     cmd = argv[0]
-    min_args = {"train": 2, "serve": 2, "predict": 3}.get(cmd)
-    if min_args is None or len(argv) < min_args:
+    if cmd in _NOT_PORTED_COMMANDS:
+        raise SystemExit(f"the {cmd} subcommand is not yet ported to scgrhc_torch")
+    first = _MIN_ARGS.get(cmd, 1)
+    if len(argv) < first or cmd.startswith("-"):
         raise SystemExit(USAGE)
-    first = 3 if cmd == "predict" else 2
     rest = argv[first:]
     for flag, feature in _NOT_PORTED.items():
         if flag in rest:
             raise SystemExit(f"{feature} is not yet ported to scgrhc_torch")
-    which = rest[0] if rest and not rest[0].startswith("--") else "best"
     device = _option(rest, "--device", str, None)
 
-    from scgrhc_torch.core.params import Params
+    if cmd not in _MIN_ARGS:  # the pipeline on one dir, or the reference's `all`
+        from scgrhc_torch.pipeline import run as pipeline_run
 
-    params = Params(os.path.join(argv[1], "params.json"))
-    if cmd == "train":
+        dirs = ([f"waveform_{i:02d}" for i in range(6, 34)] if cmd == "all" else [cmd])
+        for dir_name in dirs:
+            pipeline_run.run(_params(dir_name), device=device)
+        return 0
+
+    params = _params(argv[1])
+    which = rest[0] if rest and not rest[0].startswith("--") else "best"
+    if cmd == "data":
+        from scgrhc_torch.data import run as data_run
+
+        data_run.run(params, device=device)
+    elif cmd == "train":
         from scgrhc_torch.train import run as train_run
 
         train_run.run(params, device=device)
+    elif cmd == "test":
+        from scgrhc_torch.eval import run as eval_run
+
+        eval_run.run(params, argv[2], argv[3], device=device)
+    elif cmd == "select":
+        from scgrhc_torch.select import run as select_run
+
+        select_run.run(params)
     elif cmd == "serve":
         from scgrhc_torch.pipeline import serve
 

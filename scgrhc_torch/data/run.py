@@ -1,0 +1,78 @@
+"""Dataset-build stage, the port's copy of ``scgrhc.data.run`` (reference
+parity: recordutil.py:172-230).
+
+Builds the experiment's segments (:func:`scgrhc_torch.dsp.segment.get_segments`,
+K3 on the device with ``data_backend: "device"``), splits them 90/5/5
+(seeded), makes each split a dense :class:`SegmentStore`, and writes the
+native loader files at the paths of ``params.json``.  Overwrite guards and
+``record_log.txt`` match the reference (recordutil.py:176-181, 211-216).
+
+Single process: a multi-process launch (``WORLD_SIZE`` > 1) and
+``loader_backend: "torch"`` (the reference's pickled torch DataLoaders)
+are not yet ported and raise.
+"""
+
+from __future__ import annotations
+
+import os
+from datetime import datetime
+from time import time
+
+from scgrhc_torch.core.timelog import timelog
+from scgrhc_torch.data.loaders import SegmentLoader
+from scgrhc_torch.data.split import split_segments
+from scgrhc_torch.data.store import SegmentStore, get_global_minmax_vals
+from scgrhc_torch.dsp.segment import get_segments
+
+
+def save_dataloaders(params, device=None) -> None:
+    """``device``: where K3 runs with ``data_backend: "device"`` (default
+    CUDA); the host backend touches no device."""
+    if os.path.exists(params.train_path):
+        raise Exception("Train file already exists!")
+    elif os.path.exists(params.valid_path):
+        raise Exception("Valid file already exists!")
+    elif os.path.exists(params.test_path):
+        raise Exception("Test file already exists!")
+    if getattr(params, "loader_backend", "native") == "torch":
+        raise NotImplementedError(
+            "loader_backend 'torch' (pickled torch DataLoaders) is not yet ported to scgrhc_torch"
+        )
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError(
+            "building the dataset from more than one process is not yet ported to scgrhc_torch"
+        )
+
+    all_segments = get_segments(params, device=device)
+    if not all_segments:
+        raise Exception("No clean segments found")
+
+    if params.use_global_min_max:
+        minmax_scg, minmax_rhc = get_global_minmax_vals(all_segments)
+    else:
+        minmax_scg = None
+        minmax_rhc = None
+
+    train_segments, valid_segments, test_segments = split_segments(all_segments, params.seed)
+
+    def make(segs):
+        return SegmentStore.from_segments(segs, params.segment_size, minmax_scg, minmax_rhc)
+
+    SegmentLoader(make(train_segments), params.batch_size, shuffle=True,
+                  seed=params.seed).save(params.train_path)
+    SegmentLoader(make(valid_segments), 1, shuffle=True, seed=params.seed).save(params.valid_path)
+    SegmentLoader(make(test_segments), 1, shuffle=True, seed=params.seed).save(params.test_path)
+
+    with open(os.path.join(params.dir_path, "record_log.txt"), "w") as f:
+        f.write(f"Dataset created: {datetime.now()}\n")
+        f.write(f"All segments: {len(all_segments)}\n")
+        f.write(f"Valid segments: {len(valid_segments)}\n")
+        f.write(f"Train segments: {len(train_segments)}\n")
+        f.write(f"Test segments: {len(test_segments)}\n")
+
+
+def run(params, device=None) -> None:
+    start_time = time()
+    # log-line parity with the reference stage banner (recordutil.py:229)
+    print(timelog(f"Run recordutil for {params.dir_path}", start_time))
+    save_dataloaders(params, device)

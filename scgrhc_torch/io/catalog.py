@@ -1,13 +1,14 @@
-"""Record catalog: read records and slice named channels (the port's copy
-of the serving part of ``scgrhc.io.catalog``).
+"""Record catalog: enumerate records and slice named channels (the port's
+copy of ``scgrhc.io.catalog``).
 
 Mirrors the reference's record access layer (reference: recordutil.py:19,
-113-119) on top of the port's WFDB reader.
+82-90, 113-119) on top of the port's WFDB reader.
 """
 
 from __future__ import annotations
 
 import os
+from pathlib import Path
 
 import numpy as np
 
@@ -15,6 +16,17 @@ from scgrhc_torch.core import paths
 from scgrhc_torch.io.wfdb import Record, rdrecord, rdrecord_digital, read_header
 
 SAMPLE_FREQ = 500  # Hz (reference: recordutil.py:19)
+
+
+def get_record_names(processed_dir: str | None = None) -> list[str]:
+    """Record stems present in the processed-data directory (any file with a
+    ``.dat`` or ``.hea`` extension; reference: recordutil.py:82-90)."""
+    base = processed_dir if processed_dir is not None else paths.PROCESSED_DATA_PATH
+    names = set()
+    for filename in os.listdir(base):
+        if filename.endswith(".dat") or filename.endswith(".hea"):
+            names.add(Path(filename).stem)
+    return sorted(names)
 
 
 def read_record(record_name: str, processed_dir: str | None = None) -> Record:

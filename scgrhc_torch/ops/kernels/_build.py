@@ -40,6 +40,8 @@ _SIGNATURES = {
     "scgrhc_critic_layer_bwd": (_P,) * 9 + (_I,) * 7 + (_P,),
     # w, out, n, m, stream
     "scgrhc_normalize_windows": (_P, _P, _I, _I, _P),
+    # scg, rhc, scg_out, rhc_out, keep, mm_scg, mm_rhc, n, c, t, win, min_rhc, stream
+    "scgrhc_gate_normalize": (_P,) * 7 + (_I,) * 4 + (ctypes.c_float, _P),
 }
 
 

@@ -32,8 +32,6 @@ from scgrhc_torch.models.convert import generator_from_state_dict
 from scgrhc_torch.parallel.stream import STREAM_BATCH, stream_infer
 from scgrhc_torch.train import checkpoint as ckpt_io
 
-ORBAX_SUFFIX = ".orbax"
-
 
 def not_ported(feature: str) -> NotImplementedError:
     return NotImplementedError(f"{feature} is not yet ported to scgrhc_torch")
@@ -51,8 +49,8 @@ def resolve_checkpoint(params, which: str) -> str:
                 f"no complete checkpoint in {params.checkpoint_dir_path}"
             )
     full = os.path.join(params.checkpoint_dir_path, which)
-    if which.endswith(ORBAX_SUFFIX) or (
-        not os.path.exists(full) and os.path.isdir(full + ORBAX_SUFFIX)
+    if which.endswith(ckpt_io.ORBAX_SUFFIX) or (
+        not os.path.exists(full) and os.path.isdir(full + ckpt_io.ORBAX_SUFFIX)
     ):
         raise not_ported("reading Orbax checkpoints")
     return which

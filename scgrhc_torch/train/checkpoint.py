@@ -22,6 +22,7 @@ import torch
 from scgrhc_torch.models.convert import critic_from_state_dict, generator_from_state_dict
 
 NATIVE_TAG = "scgrhc-checkpoint.v1"
+ORBAX_SUFFIX = ".orbax"  # an Orbax checkpoint directory (not yet ported)
 
 
 def is_complete_checkpoint(dirpath: str, name: str) -> bool:

@@ -11,7 +11,9 @@ products in different orders; outputs are instance-normalized, O(1));
 bf16 3e-2 absolute plus 1e-2 relative against the f32 plain version on
 the same bf16-rounded inputs (the kernel's only extra rounding is the bf16
 store, 2^-9 relative); K4 1e-6 (it performs the plain version's exact
-f32 operations).
+f32 operations).  K3: ``keep`` and the (lo, hi) pairs equal (min, max and
+the gate's tests away from its thresholds), the normalized windows within
+1e-6 (the plain version's exact f32 operations), NaN in the same places.
 
 The backward kernels (K1b, K2dx, K2dw) and the critic's forward (K2f) are
 held by the relative L2 error ``|got - want| / |want|``: 1e-4 for forward
@@ -116,6 +118,62 @@ def test_normalize_windows_kernel(cuda, n, c, t):
     assert torch.equal(torch.isnan(got), torch.isnan(want))
     assert torch.isnan(got[n // 2]).all()
     torch.testing.assert_close(got, want, atol=1e-6, rtol=0, equal_nan=True)
+
+
+def _gate_windows(n, c, t, seed=0):
+    """Pressure-like windows away from the gate's thresholds; with n > 11,
+    window 3 flat, 5 a ramp, 7 dipping below -50 and 11 holding a NaN."""
+    rng = np.random.default_rng(seed)
+    tt = np.arange(t) / 500.0
+    rhc = 20 + 10 * np.sin(2 * np.pi * rng.uniform(0.9, 1.5, (n, 1)) * tt) + rng.standard_normal((n, t))
+    scg = rng.standard_normal((n, c, t)) * rng.uniform(0.01, 2, (n, 1, 1))
+    if n > 11:
+        rhc[3] = 7.25
+        rhc[5] = np.linspace(0, 30, t) + 0.01 * rng.standard_normal(t)
+        rhc[7, t // 7] = -80.0
+        rhc[11, t // 3] = np.nan
+        scg[11, 0, t // 2] = np.nan
+    return scg.astype(np.float32), rhc.astype(np.float32)
+
+
+@pytest.mark.parametrize("n,c,t", [(300, 4, 750), (300, 1, 750), (37, 4, 750), (1, 2, 750),
+                                   (13, 3, 32)])
+def test_gate_and_normalize_kernel(cuda, n, c, t):
+    scg, rhc = (torch.from_numpy(a).to(cuda) for a in _gate_windows(n, c, t))
+    before = k4.gate_and_normalize.launches
+    got = k4.gate_and_normalize(scg, rhc, -50.0)
+    torch.cuda.synchronize()
+    assert k4.gate_and_normalize.launches == before + 1
+    want = k4.gate_and_normalize_plain(scg, rhc, -50.0)
+    assert got[0].dtype == torch.bool and torch.equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+    for g, w in zip(got[3:], want[3:]):
+        assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))
+    for g, w in zip(got[1:3], want[1:3]):
+        torch.testing.assert_close(g, w, atol=1e-6, rtol=0, equal_nan=True)
+    if n > 11:
+        assert not got[0][[3, 5, 7, 11]].any()
+        # at T = 32 (64 ms) a sine window reads as a straight line
+        assert t < 50 or int(got[0].sum()) == n - 4
+        assert torch.isnan(got[2][11]).all() and torch.isnan(got[1][11]).all()
+    again = k4.gate_and_normalize(scg, rhc, -50.0)
+    assert all(torch.equal(torch.nan_to_num(a), torch.nan_to_num(g)) for a, g in zip(again, got))
+
+
+def test_gate_and_normalize_kernel_rejects(cuda):
+    scg, rhc = (torch.from_numpy(a).to(cuda) for a in _gate_windows(4, 2, 750))
+    with pytest.raises(ValueError):
+        k4.gate_and_normalize(scg.double(), rhc.double(), -50.0)
+    with pytest.raises(ValueError):
+        k4.gate_and_normalize(scg.transpose(1, 2).contiguous().transpose(1, 2), rhc, -50.0)
+    with pytest.raises(ValueError):
+        k4.gate_and_normalize(scg, rhc[:, ::2], -50.0)
+    with pytest.raises(ValueError):
+        k4.gate_and_normalize(scg, rhc.cpu(), -50.0)
+    with pytest.raises(ValueError):
+        k4.gate_and_normalize(scg, rhc[:3], -50.0)
 
 
 def test_generator_fused_matches_plain_block(cuda):

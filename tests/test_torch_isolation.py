@@ -1,5 +1,7 @@
 """The port stands alone: no scgrhc_torch module and not chip_smoke.py
-imports JAX or the JAX package, at run time or in its source."""
+imports JAX or the JAX package, at run time or in its source, and none
+imports pandas, sklearn or matplotlib at module level (the card's machine
+has none of them)."""
 
 import json
 import os
@@ -20,7 +22,7 @@ for name in names:
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "scgrhc"))
+             if m.split(".")[0] in ("jax", "jaxlib", "scgrhc", "pandas", "sklearn", "matplotlib"))
 print(json.dumps({"imported": names, "bad": bad}))
 """
 
@@ -33,6 +35,9 @@ def test_port_imports_pull_in_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "scgrhc_torch.pipeline.serve" in res["imported"]
     assert "scgrhc_torch.ops.kernels.conv_block" in res["imported"]
+    for name in ("scgrhc_torch.ops.kernels.dsp", "scgrhc_torch.pipeline.run",
+                 "scgrhc_torch.select.run"):
+        assert name in res["imported"]
     assert res["bad"] == []
 
 
@@ -59,3 +64,16 @@ def test_scan_pattern_catches_what_it_must():
             "# see scgrhc/ops/pallas/dsp.py"]
     assert all(_IMPORT.search(s) for s in bad)
     assert not any(_IMPORT.search(s) for s in good)
+
+
+# module level: an unindented import; a lazy import inside a function or a
+# try (train/run.py's matplotlib) is allowed
+_HOST_ONLY = re.compile(r"^(?:from|import)\s+(?:pandas|sklearn|matplotlib)\b", re.MULTILINE)
+
+
+def test_port_sources_import_no_pandas_sklearn_matplotlib_at_module_level():
+    hits = {str(p.relative_to(ROOT)): _HOST_ONLY.findall(p.read_text()) for p in PORT_FILES}
+    assert {k: v for k, v in hits.items() if v} == {}
+    assert _HOST_ONLY.search("import pandas as pd") and _HOST_ONLY.search("from sklearn import x")
+    assert not _HOST_ONLY.search("        import matplotlib")
+    assert not _HOST_ONLY.search("import pandasx")
