@@ -63,8 +63,11 @@ CHANNELS = ["patch_ACC_lat", "patch_ACC_hf", "patch_ACC_dv", "patch_ECG"]
 RECORDS = (("SYN000", 600.0), ("LONG030", 1800.0), ("SHORT030", 30.0))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): f32 outside the
-# tensor cores, and HBM3 bandwidth.
+# tensor cores, the tensor cores in TF32 (the dw product in f32 runs three
+# TF32 passes, so a third of it) and in bf16, and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32X3_FLOPS = 495e12 / 3
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 # f32 kernel vs plain: summation order only; outputs are O(1).
@@ -84,6 +87,10 @@ TOL_K4 = 1e-6
 # plain version on the same bf16-rounded inputs: bf16 stores, dc rounded
 # to bf16 for dx and dw, and more mask flips.
 TOL_TRAIN = {"fwd": 1e-4, "bwd": 1e-3, "bf16": 3e-2}
+# The dw product alone in f32 (K2dw's dw, K1b's dw): 3xTF32 on the tensor
+# cores sits within f32 rounding of the plain product; one TF32 pass would
+# read about 5e-4, inside TOL_TRAIN["bwd"].
+TOL_DW_F32 = 1e-5
 # One WGAN-GP step on the card against the same step on the CPU (same
 # weights, masks, eps; cross_check_step).  Gradients, as Adam's first
 # moments after one step, by relative L2: a gradient of the wrong sign
@@ -173,6 +180,42 @@ def _layer_shapes(in_channels: int):
         cin = in_channels if cin is None else cin
         shapes += [(cin, cout, t), (cout, cout, t)]
     return shapes
+
+
+def dw_sass(smoke: Smoke, lib_path) -> dict | None:
+    """HMMA (tensor-core) instructions in the built library's SASS, per dw
+    kernel instance (``cuobjdump -sass``); every dw_mma_kernel must hold
+    some.  None when the toolkit has no cuobjdump."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    tool = tool if os.path.isfile(tool) else shutil.which("cuobjdump")
+    if tool is None:
+        print("sass: no cuobjdump; HMMA count not measured", flush=True)
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"(dw_mma_kernel|dw_stream_kernel)I(\w*?)EvPK", line)
+            name = None
+            if m:
+                dtype = "bf16" if "nv_bfloat16" in m.group(2) else "f32"
+                if m.group(1) == "dw_mma_kernel":
+                    width = 8 if "Lb1E" in m.group(2) else 4
+                    detail = f"{width}-byte copies"
+                else:
+                    omax, vec = re.search(r"Li(\d+)ELi(\d+)E", m.group(2)).groups()
+                    detail = f"O <= {omax}, {vec} a load"
+                tu = "critic_layer" if "critic_layer" in line else "conv_in_relu"
+                name = f"{m.group(1)}<{dtype}, {detail}> ({tu})"
+                counts[name] = 0
+        elif name and "HMMA" in line:
+            counts[name] += 1
+    mma = {k: v for k, v in counts.items() if k.startswith("dw_mma_kernel")}
+    smoke.check(len(mma) > 0 and all(v > 0 for v in mma.values()),
+                f"sass: dw_mma_kernel instances without HMMA: {mma}")
+    print(f"sass: HMMA instructions per dw kernel instance {counts}", flush=True)
+    return counts
 
 
 def check_conv_in_relu(torch, smoke: Smoke) -> dict:
@@ -551,6 +594,28 @@ def _hold(smoke, what, outs, refs, floors, tol) -> tuple[float, float]:
     return rel, err
 
 
+def _hold_dw(smoke, what, torch, again, got, ref) -> float:
+    """The f32 dw alone (``got[-2]``) against the plain version, checked
+    against TOL_DW_F32, and ``again()``, a second launch, equal to ``got``
+    bit for bit."""
+    rel = _rel(got[-2], ref[-2])
+    smoke.check(rel <= TOL_DW_F32, f"{what}: dw relative error {rel} over {TOL_DW_F32}")
+    smoke.check(all(torch.equal(a, g) for a, g in zip(again(), got)),
+                f"{what}: a repeated launch gave other bits")
+    return rel
+
+
+def _rate_bounds(fma_flops: float, dw_flops: float, nbytes: float, path: str) -> dict:
+    """Bounds at the rates the kernels use: the dc and dx passes (and db) on
+    the f32 FMA units, the dw product on the tensor cores (3xTF32 for f32;
+    bf16) or, on the streaming path, on the FMA units; bytes at 3.35 TB/s
+    (half as many in bf16)."""
+    tc32, tc16 = (PEAK_TF32X3_FLOPS, PEAK_BF16_FLOPS) if path == "mma" else (PEAK_F32_FLOPS,) * 2
+    f32 = max(fma_flops / PEAK_F32_FLOPS + dw_flops / tc32, nbytes / PEAK_BYTES)
+    b16 = max(fma_flops / PEAK_F32_FLOPS + dw_flops / tc16, nbytes / 2 / PEAK_BYTES)
+    return {"rate_bound_ms": f32 * 1e3, "bf16_rate_bound_ms": b16 * 1e3}
+
+
 def _summary(per_shape: dict, keys) -> dict:
     """Sums over the layers of one pass (duplicated shapes counted once per
     layer), and the worst errors."""
@@ -564,6 +629,9 @@ def _summary(per_shape: dict, keys) -> dict:
         bf16_rel_err=max(r["bf16_rel_err"] for r in recs),
         per_shape=per_shape,
     )
+    for k in ("dw_rel_err", "bf16_dw_rel_err"):
+        if k in recs[0]:
+            out[k] = max(r[k] for r in recs)
     return out
 
 
@@ -587,18 +655,22 @@ def check_conv_in_relu_bwd(torch, smoke: Smoke) -> dict:
         ref = [r for r in conv_in_relu_bwd_plain(x, w, b, dy, need_dx) if r is not None]
         torch.cuda.synchronize()
         rel, err = _hold(smoke, what, got, ref, floors[-len(got):], TOL_TRAIN["bwd"])
+        dw_rel = _hold_dw(smoke, what, torch, lambda: [g for g in conv_in_relu_bwd(
+            x, w, b, dy, need_dx) if g is not None], got, ref)
         xb, wb, bb, dyb = (v.bfloat16() for v in (x, w, b, dy))
         got = [g for g in conv_in_relu_bwd(xb, wb, bb, dyb, need_dx) if g is not None]
         ref = [r for r in conv_in_relu_bwd_plain(*(v.float() for v in (xb, wb, bb, dyb)), need_dx)
                if r is not None]
         rel16, _ = _hold(smoke, what + " bf16", got, ref, floors[-len(got):], TOL_TRAIN["bf16"])
+        dw_rel16 = _rel(got[-2], ref[-2])
         n_conv = 3 if need_dx else 2  # recompute, dw, and dx
-        flops = 6.0 * cin * o * t * N_TRAIN * n_conv
+        conv = 6.0 * cin * o * t * N_TRAIN
         nbytes = 4.0 * (N_TRAIN * t * (cin * (2 if need_dx else 1) + o) + 6 * o * cin + 2 * o)
-        fb, bb_ = _bound_ms(flops, nbytes)
+        fb, bb_ = _bound_ms(conv * n_conv, nbytes)
+        rates = _rate_bounds(conv * (n_conv - 1), conv, nbytes, "mma")
         rec = {
             "layers": shapes.count((cin, o, t, need_dx)), "rel_err": rel, "max_abs_err": err,
-            "bf16_rel_err": rel16,
+            "bf16_rel_err": rel16, "dw_rel_err": dw_rel, "bf16_dw_rel_err": dw_rel16, **rates,
             "ms": _time_ms(torch, lambda: conv_in_relu_bwd(x, w, b, dy, need_dx)),
             "plain_ms": _time_ms(torch, lambda: conv_in_relu_bwd_plain(x, w, b, dy, need_dx)),
             "bf16_ms": _time_ms(torch, lambda: conv_in_relu_bwd(xb, wb, bb, dyb, need_dx)),
@@ -607,20 +679,23 @@ def check_conv_in_relu_bwd(torch, smoke: Smoke) -> dict:
         }
         per_shape[f"{cin}x{o}x{t}{'' if need_dx else ' no dx'}"] = rec
         print(f"conv_in_relu_bwd N={N_TRAIN} C_in={cin} O={o} T={t} dx={need_dx}: rel err "
-              f"{rel:.3g} (tol {TOL_TRAIN['bwd']:g}), max abs err {err:.3g}, bf16 rel err "
-              f"{rel16:.3g} (tol {TOL_TRAIN['bf16']:g}), kernel {rec['ms']:.3f} ms, plain "
+              f"{rel:.3g} (tol {TOL_TRAIN['bwd']:g}), max abs err {err:.3g}, dw rel err "
+              f"{dw_rel:.3g} (tol {TOL_DW_F32:g}), bf16 rel err {rel16:.3g} (dw {dw_rel16:.3g}; "
+              f"tol {TOL_TRAIN['bf16']:g}), kernel {rec['ms']:.3f} ms, plain "
               f"{rec['plain_ms']:.3f} ms, bf16 kernel {rec['bf16_ms']:.3f} ms, bound "
-              f"{max(fb, bb_):.3f} ms, library call none; K1f at N={N_TRAIN} "
-              f"{rec['fwd_ms']:.3f} ms", flush=True)
+              f"{max(fb, bb_):.3f} ms (f32 FMA), {rates['rate_bound_ms']:.3f} ms (dw on tensor "
+              f"cores; bf16 {rates['bf16_rate_bound_ms']:.3f}), library call none; K1f at "
+              f"N={N_TRAIN} {rec['fwd_ms']:.3f} ms", flush=True)
         del x, w, b, dy, xb, wb, bb, dyb, got, ref
     return _summary(per_shape, ("ms", "plain_ms", "bf16_ms", "fwd_ms", "flop_bound_ms",
-                                "byte_bound_ms"))
+                                "byte_bound_ms", "rate_bound_ms", "bf16_rate_bound_ms"))
 
 
 def check_critic_layers(torch, smoke: Smoke) -> dict:
     """K2f, K2dx and K2dw at the 5 critic layer shapes, N = 32, T = 750."""
     import torch.nn.functional as F
 
+    from scgrhc_torch.ops.kernels import conv3
     from scgrhc_torch.ops.kernels import critic_fused as k2
 
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -659,27 +734,53 @@ def check_critic_layers(torch, smoke: Smoke) -> dict:
             got, ref = kern(x, w, b, dy), plain(x, w, b, dy)
             torch.cuda.synchronize()
             rel, err = _hold(smoke, what, got, ref, floors, TOL_TRAIN[kind])
-            rel16, _ = _hold(smoke, what + " bf16", kern(xb, wb, bb, dyb), plain(*f16), floors,
-                             TOL_TRAIN["bf16"])
+            got16, ref16 = kern(xb, wb, bb, dyb), plain(*f16)
+            rel16, _ = _hold(smoke, what + " bf16", got16, ref16, floors, TOL_TRAIN["bf16"])
             fb, byb = _bound_ms(flops, nbytes)
+            extra = _rate_bounds(flops, 0.0, nbytes, "fma")
+            if name == "critic_layer_bwd_dwdb":
+                extra = _rate_bounds(flops - conv_flops, conv_flops, nbytes,
+                                     conv3.dw_plan(N_TRAIN, cin, o).path)
+                extra.update(
+                    path=conv3.dw_plan(N_TRAIN, cin, o).path,
+                    dw_rel_err=_hold_dw(smoke, what, torch, lambda: kern(x, w, b, dy), got, ref),
+                    bf16_dw_rel_err=_rel(got16[0], ref16[0]))
             rec = {
                 "layers": 1, "mode": mode, "rel_err": rel, "max_abs_err": err,
-                "bf16_rel_err": rel16,
+                "bf16_rel_err": rel16, **extra,
                 "ms": _time_ms(torch, lambda: kern(x, w, b, dy), reps=10),
                 "plain_ms": _time_ms(torch, lambda: plain(x, w, b, dy), reps=10),
                 "bf16_ms": _time_ms(torch, lambda: kern(xb, wb, bb, dyb), reps=10),
                 "library_ms": None if lib is None else _time_ms(torch, lib, reps=10),
                 "flop_bound_ms": fb, "byte_bound_ms": byb,
             }
+            if name == "critic_layer_bwd_dwdb" and lin:
+                # the card's time alone, the wrappers' host costs out (a
+                # library call that cannot be captured reads None)
+                rec["graph_ms"] = _graph_ms(torch, lambda: kern(x, w, b, dy))
+                try:
+                    rec["library_graph_ms"] = _graph_ms(torch, lib)
+                except RuntimeError:
+                    rec["library_graph_ms"] = None
             out[name][f"{cin}x{o}x{T} {mode}"] = rec
             lib_txt = "none" if lib is None else f"{rec['library_ms']:.4f} ms"
+            dw_txt = "" if "dw_rel_err" not in rec else (
+                f", {rec['path']} path, dw rel err {rec['dw_rel_err']:.3g} (tol {TOL_DW_F32:g}), "
+                f"bf16 dw rel err {rec['bf16_dw_rel_err']:.3g}, bound with dw on its units "
+                f"{rec['rate_bound_ms']:.4f} ms (bf16 {rec['bf16_rate_bound_ms']:.4f})")
             print(f"{name} N={N_TRAIN} C={cin} O={o} T={T} {mode}: rel err {rel:.3g} (tol "
                   f"{TOL_TRAIN[kind]:g}), max abs err {err:.3g}, bf16 rel err {rel16:.3g} "
                   f"(tol {TOL_TRAIN['bf16']:g}), kernel {rec['ms']:.4f} ms, plain "
                   f"{rec['plain_ms']:.4f} ms, bf16 kernel {rec['bf16_ms']:.4f} ms, bound "
-                  f"{max(fb, byb):.4f} ms, library call {lib_txt}", flush=True)
+                  f"{max(fb, byb):.4f} ms (f32 FMA){dw_txt}, library call {lib_txt}", flush=True)
         del x, w, b, dy, xb, wb, bb, dyb, f16
-    keys = ("ms", "plain_ms", "bf16_ms", "flop_bound_ms", "byte_bound_ms")
+    keys = ("ms", "plain_ms", "bf16_ms", "flop_bound_ms", "byte_bound_ms", "rate_bound_ms",
+            "bf16_rate_bound_ms")
+    lin = out["critic_layer_bwd_dwdb"][f"{CRITIC_LAYERS[-1][0]}x1x{T} linear"]
+    print(f"critic_layer_bwd_dwdb at the 512 -> 1 layer: kernel {lin['ms']:.4f} ms, "
+          f"conv1d_weight {lin['library_ms']:.4f} ms, timed alike: kernel faster "
+          f"{lin['ms'] < lin['library_ms']}; in a CUDA graph kernel {lin['graph_ms']:.4f} ms, "
+          f"conv1d_weight {lin['library_graph_ms']} ms", flush=True)
     return {name: _summary(per, keys) for name, per in out.items()}
 
 
@@ -1266,6 +1367,7 @@ def main() -> int:
           f"{max(regs, default=0)}, {sum(n > 0 for n in spills)} with spill stores (up to "
           f"{max(spills, default=0)} bytes); full log in {OUT_DIR}/chip_smoke.json", flush=True)
 
+    sass = dw_sass(smoke, build.path)
     k1f = check_conv_in_relu(torch, smoke)
     k4 = check_normalize_windows(torch, smoke)
     k3 = check_gate_normalize(torch, smoke)
@@ -1300,7 +1402,8 @@ def main() -> int:
          "replaces": "scgrhc/ops/pallas/conv_block.py:82", "launches":
          train["launches"]["conv_in_relu_bwd"], "max_abs_err": k1b["max_abs_err"],
          "ms": k1b["ms"], "plain_ms": k1b["plain_ms"], "bound_ms": k1b["bound_ms"],
-         "bound_by": k1b["bound_by"], "library_ms": None},
+         "bound_by": k1b["bound_by"], "library_ms": None,
+         "rate_bound_ms": k1b["rate_bound_ms"], "dw_rel_err": k1b["dw_rel_err"]},
     ]
     # K2: one critic pass (the 5 layers).  One PyTorch call computes only
     # the linear layer (conv4, 512 -> 1): library_ms is that call's time,
@@ -1315,6 +1418,7 @@ def main() -> int:
             "launches": train["launches"][name], "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": lin["library_ms"],
+            "rate_bound_ms": rec["rate_bound_ms"],
             "library_covers": "conv4 (512->1, linear) only", "library_layer_ms": lin["ms"],
         })
     kernels.append({
@@ -1333,7 +1437,7 @@ def main() -> int:
         json.dump({"card": card, "kind": kind, "count": count,
                    "build_seconds": build.seconds, "build_log": build.log,
                    "conv_in_relu": k1f, "normalize_windows": k4,
-                   "conv_in_relu_bwd": k1b, **k2, "gate_and_normalize": k3,
+                   "conv_in_relu_bwd": k1b, **k2, "gate_and_normalize": k3, "dw_sass_hmma": sass,
                    "serve": serve, "train": train, "pipeline": pipeline,
                    "errors": smoke.errors}, f, indent=1)
     if smoke.errors:

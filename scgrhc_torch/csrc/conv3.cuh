@@ -28,9 +28,9 @@
 // steps), staging C_in through shared memory kCiChunk channels at a time
 // with a zero halo, so the statistics over T are block reductions and c
 // never touches device memory.  The dx pass is the same conv loop over dc.
-// The dw pass is a tiled product over the (sample, step) axis, split over
-// samples into per-block partial sums that a second kernel adds in a fixed
-// order: no float atomics, so a run gives the same bits every time.
+// The dw pass (its own note is above dw_mma_kernel) is split over samples
+// into per-block partial sums that a second kernel adds in a fixed order:
+// no float atomics, so a run gives the same bits every time.
 //
 // NaN propagates as in the plain versions: a relu is `v < 0 ? 0 : v` and a
 // mask is a multiply by (v > 0 ? 1 : 0), never fmaxf.
@@ -39,6 +39,9 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace scgrhc {
 namespace {  // internal linkage: each including source has its own copy
@@ -363,95 +366,429 @@ dx_kernel(const float* __restrict__ dc, const T* __restrict__ w, T* __restrict__
   }
 }
 
-// dw pass, stage 1: part[z][o][j] over the samples of split z, with
-// j = i * 3 + tap over the 3 * cin columns (dw's (O, C, 3) layout).
-constexpr int kBM = 64, kBN = 64, kBK = 32;
+// ---- dw pass ----------------------------------------------------------------
+//
+// dw[o, i, k] = sum_{n,t} dc[n, o, t] * x[n, i, t + k - 1] is a product
+// with M = O, N = 3 * C_in and K = N * T, both operands contiguous along
+// K.  Stage 1 writes per-split partial sums part[z][o][j], j = i * 3 + k
+// (dw's layout), over the samples [n*z/nsplit, n*(z+1)/nsplit); stage 2
+// (dw_reduce_kernel) adds the splits in split order.  Two stage-1 paths:
+//
+// O >= kDwStreamBelow (every generator layer; the critic's 5->64 ...
+// 256->512): dw_mma_kernel, the product on tensor cores with mma.sync.
+//   Bound: operations.  256->512 at N=32, T=750 is 18.9 GFLOP against 74 MB
+//   of dc and x: 0.11 ms at the 3xTF32 rate (495/3 TFLOP/s), 0.02 ms of
+//   bytes.  The f32 FMA kernel it replaces ran at 11 % of the f32 peak,
+//   held back by scalar shared loads, a gathered im2col (x fetched three
+//   times) and no overlap of loads and math.
+//   Design (DwMain): a block owns 64 output channels x 32 input channels x
+//   3 taps, 8 warps of 32 rows x 8 channels x 3 taps.  64 rows: the O = 64
+//   layers would leave half of a 128-row tile empty.  Timed on an H100
+//   (bench/dw_tiles.cu): the fastest of five tilings at 64->128, where the
+//   larger tiles give too few blocks (1.6-2.7x slower); at 256->512 and
+//   512->512, 64 x 64 is 11 % faster and 128 x 64 (253 registers, one
+//   block an SM) 20 %.  Per slice of 64 steps it stages dc (64 x 64) and
+//   an x slab (32 x 68, with its zero halo) once, and the three taps read
+//   the slab at offsets 0, 1 and 2, so each value comes from device memory
+//   once per block.  A 3-stage cp.async ring (78 KB, two blocks an SM) keeps two
+//   slices in flight under the mma of a third, in 8-byte copies where T is
+//   even.
+//   f32: m16n8k8 TF32 with the 3xTF32 split (v = big + small; big*big +
+//   big*small + small*big), within f32 rounding of the f32 product; one
+//   TF32 pass would lose about three decimal digits; each slice's sums are
+//   added in f32 outside the tensor cores.  bf16: m16n8k16 on dc
+//   rounded to bf16 (the contract's rounding) and x; f32 accumulation.
+//   db comes from db_kernel, one more pass over dc.
+//
+// O < kDwStreamBelow (the critic's 512 -> 1 score layer): dw_stream_kernel.
+//   Bound: bytes.  x is 49 MB at N=32, T=750 against 3 FMAs per value:
+//   14.7 us at 3.35 TB/s.  A 64-row tile would leave 63 rows empty and
+//   fetch x three times.
+//   Design: x is read once, in vector loads (16 or 8 bytes as T allows).
+//   A block holds one sample's dc (O x (T+2), zero halo) in shared memory
+//   and gives each warp one x row at a time: three shifted dot products per
+//   output channel, reduced across the warp and added to the block's sums
+//   in a fixed order.  Blocks over (32-channel slab, sample split), about
+//   four per SM; db comes from the same dc in shared memory and goes into
+//   part's last column, so one reduce gives dw and db.
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-dw_partial_kernel(const float* __restrict__ dc, const T* __restrict__ x,
-                  float* __restrict__ part, int n, int cin, int cout, int len, int nsplit) {
-  __shared__ float as[kBK][kBM + 4];
-  __shared__ float bs[kBK][kBN + 4];
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int m0 = blockIdx.x * kBM;
-  const int j0 = blockIdx.y * kBN;
-  const int z = blockIdx.z;
-  const int ncols = 3 * cin;
-  const int s_begin = (int)(((long long)n * z) / nsplit);
-  const int s_end = (int)(((long long)n * (z + 1)) / nsplit);
-  float acc[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+constexpr int kDwStreamBelow = 16;  // O below this takes the streaming path
+constexpr int kDwStreamC = 32;      // input channels of a streaming block
 
-  for (int s = s_begin; s < s_end; ++s) {
-    const float* dcs = dc + (size_t)s * cout * len;
-    const T* xs = x + (size_t)s * cin * len;
-    for (int t0 = 0; t0 < len; t0 += kBK) {
-      __syncthreads();
-      for (int e = tid; e < kBK * kBM; e += kThreads) {
-        const int m = e / kBK;
-        const int kk = e - m * kBK;
-        const int o = m0 + m;
-        const int t = t0 + kk;
-        as[kk][m] = (o < cout && t < len) ? round_to<T>(dcs[(size_t)o * len + t]) : 0.f;
+// The tensor-core path's tiling: a block of kThreads owns BM output
+// channels x BC input channels (x 3 taps) and walks slices of BK steps
+// through a ring of STAGES buffers; WROWS warps split the rows, the rest
+// the channels.  A stage holds a[m][kk] = dc[s, o0 + m, t0 + kk] and
+// x[c][j] = x[s, c0 + c, t0 - 2 + j] (zero outside [0, T)), rows padded to
+// kLd = BK + 4 floats: kLd = 4 (mod 32) puts a fragment's 32 lanes on 32
+// banks, and the 2-step offset of x keeps 8-byte copies aligned.
+template <int BM_, int BC_, int BK_, int STAGES_, int WROWS_, int MINB_>
+struct DwTile {
+  static constexpr int BM = BM_, BC = BC_, BK = BK_, STAGES = STAGES_, WROWS = WROWS_;
+  static constexpr int MINB = MINB_;                     // blocks per SM to fit registers for
+  static constexpr int kMI = BM / WROWS / 16;            // m16 tiles per warp
+  static constexpr int kNI = BC / (kWarps / WROWS) / 8;  // n8 tiles per warp
+  static constexpr int kLd = BK + 4;
+  static constexpr int kStage = (BM + BC) * kLd;  // floats
+  static constexpr int kSmemBytes = (int)sizeof(float) * STAGES * kStage;
+  static_assert(kLd % 32 == 4 && kMI >= 1 && kNI >= 1, "DwTile: bad shape");
+};
+
+// 4-byte asynchronous copy; zero-fills the destination when !full.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool full) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(full ? 4 : 0));
+}
+// 8-byte asynchronous copy; both addresses 8-byte aligned.
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem, bool full) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(full ? 8 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ unsigned to_tf32(float v) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+// v = big + small, both TF32: the 3xTF32 split
+__device__ __forceinline__ void split_tf32(float v, unsigned& big, unsigned& small) {
+  big = to_tf32(v);
+  small = to_tf32(v - __uint_as_float(big));
+}
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// c += a (16 x 8, row) * b (8 x 8, col), TF32 in, f32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Stage slice (sample s, steps t0 ..) of dc and x into the stage at st.
+// PAIRS (T even, pointers 8-byte aligned): dc, and x in f32, go in 8-byte
+// copies, each pair wholly inside or outside [0, T) as t0 is even.  bf16 x
+// is converted on its way in, with plain loads: cp.async cannot convert.
+template <typename Tile, typename T, bool PAIRS>
+__device__ __forceinline__ void dw_fill(float* st, const float* __restrict__ dc,
+                                        const T* __restrict__ x, int s, int t0, int o0,
+                                        int c0, int cin, int cout, int len) {
+  constexpr int kLd = Tile::kLd, W = PAIRS ? 2 : 1;
+  const float* dcs = dc + (size_t)s * cout * len;
+#pragma unroll
+  for (int e = threadIdx.x; e < Tile::BM * Tile::BK / W; e += kThreads) {
+    const int m = e / (Tile::BK / W), kk = e % (Tile::BK / W) * W;
+    const bool in = o0 + m < cout && t0 + kk < len;
+    const float* src = in ? dcs + (size_t)(o0 + m) * len + t0 + kk : dc;
+    if constexpr (PAIRS)
+      cp_async8(st + m * kLd + kk, src, in);
+    else
+      cp_async4(st + m * kLd + kk, src, in);
+  }
+  float* xs = st + Tile::BM * kLd;
+  const T* xn = x + (size_t)s * cin * len;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int WX = kF32 ? W : 1;
+#pragma unroll
+  for (int e = threadIdx.x; e < Tile::BC * kLd / WX; e += kThreads) {
+    const int c = e / (kLd / WX), j = e % (kLd / WX) * WX;
+    const int t = t0 - 2 + j;
+    const bool in = c0 + c < cin && t >= 0 && t < len;
+    const T* src = in ? xn + (size_t)(c0 + c) * len + t : x;
+    if constexpr (!kF32)
+      xs[c * kLd + j] = in ? to_f32(*src) : 0.f;
+    else if constexpr (PAIRS)
+      cp_async8(xs + c * kLd + j, src, in);
+    else
+      cp_async4(xs + c * kLd + j, src, in);
+  }
+}
+
+// acc[mi][ni][tap] += the warp's share of the staged slice at st: rows
+// (wr * kMI + mi) * 16 .., channels (wc * kNI + ni) * 8 .., three taps.
+// g = lane / 4 and q = lane % 4 index the fragments as the PTX ISA lays
+// them out.
+template <typename Tile, typename T>
+__device__ __forceinline__ void dw_mma_slice(const float* st, int wr, int wc, int g, int q,
+                                             float (&acc)[Tile::kMI][Tile::kNI][3][4]) {
+  constexpr int kLd = Tile::kLd, kMI = Tile::kMI, kNI = Tile::kNI;
+  const float* A = st + (wr * kMI * 16 + g) * kLd;
+  // column j of x is step t0 - 2 + j: tap k of step t0 + kk reads kk + k + 1
+  const float* X = st + (Tile::BM + wc * kNI * 8 + g) * kLd + 1;
+  if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+    for (int kk = 0; kk < Tile::BK; kk += 8) {
+      unsigned ab[kMI][4], as[kMI][4];
+#pragma unroll
+      for (int mi = 0; mi < kMI; ++mi) {
+        const float* r = A + mi * 16 * kLd + kk + q;
+        split_tf32(r[0], ab[mi][0], as[mi][0]);
+        split_tf32(r[8 * kLd], ab[mi][1], as[mi][1]);
+        split_tf32(r[4], ab[mi][2], as[mi][2]);
+        split_tf32(r[8 * kLd + 4], ab[mi][3], as[mi][3]);
       }
-      for (int e = tid; e < kBK * kBN; e += kThreads) {
-        const int jj = e / kBK;
-        const int kk = e - jj * kBK;
-        const int j = j0 + jj;
-        const int t = t0 + kk;
-        float v = 0.f;
-        if (j < ncols && t < len) {
-          const int i = j / 3;
-          const int ts = t + (j - 3 * i) - 1;
-          if (ts >= 0 && ts < len) v = to_f32(xs[(size_t)i * len + ts]);
+#pragma unroll
+      for (int ni = 0; ni < kNI; ++ni) {
+#pragma unroll
+        for (int tap = 0; tap < 3; ++tap) {
+          const float* xr = X + ni * 8 * kLd + kk + q + tap;
+          unsigned b0, b0s, b1, b1s;
+          split_tf32(xr[0], b0, b0s);
+          split_tf32(xr[4], b1, b1s);
+#pragma unroll
+          for (int mi = 0; mi < kMI; ++mi) {
+            mma_tf32(acc[mi][ni][tap], as[mi], b0, b1);
+            mma_tf32(acc[mi][ni][tap], ab[mi], b0s, b1s);
+            mma_tf32(acc[mi][ni][tap], ab[mi], b0, b1);
+          }
         }
-        bs[kk][jj] = v;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < kBK; ++kk) {
-        float a[4], bv[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          a[r] = as[kk][ty * 4 + r];
-          bv[r] = bs[kk][tx * 4 + r];
-        }
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], bv[c], acc[r][c]);
       }
     }
-  }
+  } else {
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int o = m0 + ty * 4 + r;
-    if (o >= cout) continue;
+    for (int kk = 0; kk < Tile::BK; kk += 16) {
+      unsigned a[kMI][4];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = j0 + tx * 4 + c;
-      if (j < ncols) part[((size_t)z * cout + o) * ncols + j] = acc[r][c];
+      for (int mi = 0; mi < kMI; ++mi) {
+        const float* r = A + mi * 16 * kLd + kk + 2 * q;
+        a[mi][0] = pack_bf16(r[0], r[1]);
+        a[mi][1] = pack_bf16(r[8 * kLd], r[8 * kLd + 1]);
+        a[mi][2] = pack_bf16(r[8], r[9]);
+        a[mi][3] = pack_bf16(r[8 * kLd + 8], r[8 * kLd + 9]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < kNI; ++ni) {
+#pragma unroll
+        for (int tap = 0; tap < 3; ++tap) {
+          const float* xr = X + ni * 8 * kLd + kk + 2 * q + tap;
+          const unsigned b0 = pack_bf16(xr[0], xr[1]);
+          const unsigned b1 = pack_bf16(xr[8], xr[9]);
+#pragma unroll
+          for (int mi = 0; mi < kMI; ++mi) mma_bf16(acc[mi][ni][tap], a[mi], b0, b1);
+        }
+      }
     }
   }
 }
 
-// dw pass, stage 2: dw = sum over the splits, in split order.
+// Stage 1, tensor-core path: one block per (BM output channels, BC input
+// channels, sample split), walking the split's (sample, slice) pairs in
+// order through the cp.async ring.  Each slice's products sum from zero in
+// the tensor cores and are added to the block's sums with an f32 add: the
+// tensor cores' own accumulation rounds less finely than f32 (one running
+// sum over 5952 steps read 1.4e-5 from the f32 product at 512 -> 512).
+template <typename Tile, typename T, bool PAIRS>
+__global__ void __launch_bounds__(kThreads, Tile::MINB)
+dw_mma_kernel(const float* __restrict__ dc, const T* __restrict__ x, float* __restrict__ part,
+              int n, int cin, int cout, int len, int nsplit) {
+  extern __shared__ __align__(16) float dw_smem[];
+  constexpr int kMI = Tile::kMI, kNI = Tile::kNI, S = Tile::STAGES;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int wr = warp % Tile::WROWS, wc = warp / Tile::WROWS;
+  const int o0 = blockIdx.x * Tile::BM, c0 = blockIdx.y * Tile::BC, z = blockIdx.z;
+  const int s0 = (int)(((long long)n * z) / nsplit);
+  const int s1 = (int)(((long long)n * (z + 1)) / nsplit);
+  const int slices = (len + Tile::BK - 1) / Tile::BK;
+  const int nq = (s1 - s0) * slices;
+  float acc[kMI][kNI][3][4] = {};
+
+#pragma unroll
+  for (int st = 0; st < S - 1; ++st) {
+    if (st < nq)
+      dw_fill<Tile, T, PAIRS>(dw_smem + st * Tile::kStage, dc, x, s0 + st / slices,
+                              st % slices * Tile::BK, o0, c0, cin, cout, len);
+    cp_async_commit();
+  }
+  for (int i = 0; i < nq; ++i) {
+    cp_async_wait<S - 2>();  // slice i has landed
+    __syncthreads();         // ... for every thread; slice i-1's stage is free
+    const int next = i + S - 1;
+    if (next < nq)
+      dw_fill<Tile, T, PAIRS>(dw_smem + next % S * Tile::kStage, dc, x, s0 + next / slices,
+                              next % slices * Tile::BK, o0, c0, cin, cout, len);
+    cp_async_commit();
+    float sl[kMI][kNI][3][4] = {};
+    dw_mma_slice<Tile, T>(dw_smem + i % S * Tile::kStage, wr, wc, g, q, sl);
+#pragma unroll
+    for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < kNI; ++ni)
+#pragma unroll
+        for (int tap = 0; tap < 3; ++tap)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][ni][tap][e] += sl[mi][ni][tap][e];
+  }
+
+  const int ncols = 3 * cin;
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kNI; ++ni)
+#pragma unroll
+      for (int tap = 0; tap < 3; ++tap)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int o = o0 + (wr * kMI + mi) * 16 + g + (e >= 2 ? 8 : 0);
+          const int c = c0 + (wc * kNI + ni) * 8 + 2 * q + (e & 1);
+          if (o < cout && c < cin)
+            part[((size_t)z * cout + o) * ncols + c * 3 + tap] = acc[mi][ni][tap][e];
+        }
+}
+
+// Launches a stage-1 kernel of dw with smem bytes of dynamic shared memory
+// (allowed past 48 KB first).
+template <typename T>
+cudaError_t launch_dw_stage1(void (*kernel)(const float*, const T*, float*, int, int, int, int,
+                                            int),
+                             dim3 grid, int smem, const float* dc, const T* x, float* part,
+                             int n, int cin, int cout, int len, int nsplit, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<grid, kThreads, smem, stream>>>(dc, x, part, n, cin, cout, len, nsplit);
+  return cudaGetLastError();
+}
+
+// Stage 1 on the tensor-core path with the tiling Tile.
+template <typename Tile, typename T>
+cudaError_t launch_dw_mma(const float* dc, const T* x, float* part, int n, int cin, int cout,
+                          int len, int nsplit, cudaStream_t stream) {
+  const dim3 grid((cout + Tile::BM - 1) / Tile::BM, (cin + Tile::BC - 1) / Tile::BC, nsplit);
+  const bool pairs = len % 2 == 0 && reinterpret_cast<uintptr_t>(dc) % 8 == 0 &&
+                     reinterpret_cast<uintptr_t>(x) % 8 == 0;
+  const auto kernel = pairs ? &dw_mma_kernel<Tile, T, true> : &dw_mma_kernel<Tile, T, false>;
+  return launch_dw_stage1<T>(kernel, grid, Tile::kSmemBytes, dc, x, part, n, cin, cout, len,
+                             nsplit, stream);
+}
+
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) VecOf {
+  T v[VEC];
+};
+
+// Stage 1, streaming path: one block per (32-channel slab, sample split);
+// OMAX >= cout.  part rows hold 3 * cin + 1 columns, the last one db's.
+template <typename T, int OMAX, int VEC>
+__global__ void __launch_bounds__(kThreads)
+dw_stream_kernel(const float* __restrict__ dc, const T* __restrict__ x, float* __restrict__ part,
+                 int n, int cin, int cout, int len, int nsplit) {
+  extern __shared__ float dcs[];  // dcs[o * (len + 2) + j] = dc[s, o, j - 1], zero halo
+  __shared__ float sums[kDwStreamC][OMAX * 3];
+  __shared__ float dbs[OMAX];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c0 = blockIdx.x * kDwStreamC, z = blockIdx.y;
+  const int s0 = (int)(((long long)n * z) / nsplit);
+  const int s1 = (int)(((long long)n * (z + 1)) / nsplit);
+  const int ld = len + 2;
+  for (int e = threadIdx.x; e < kDwStreamC * OMAX * 3; e += kThreads) (&sums[0][0])[e] = 0.f;
+  if (threadIdx.x < OMAX) dbs[threadIdx.x] = 0.f;
+
+  for (int s = s0; s < s1; ++s) {
+    __syncthreads();  // the previous sample's reads are done
+    const float* dcn = dc + (size_t)s * cout * len;
+    for (int e = threadIdx.x; e < cout * ld; e += kThreads) {
+      const int o = e / ld, t = e - o * ld - 1;
+      dcs[e] = (t >= 0 && t < len) ? dcn[(size_t)o * len + t] : 0.f;
+    }
+    __syncthreads();
+    if (blockIdx.x == 0) {  // db: warp o % kWarps owns channel o, samples in order
+      for (int o = warp; o < cout; o += kWarps) {
+        float v = 0.f;
+        for (int t = lane; t < len; t += 32) v += dcs[o * ld + t + 1];
+        v = warp_sum(v);
+        if (lane == 0) dbs[o] += v;
+      }
+    }
+    for (int c = warp; c < kDwStreamC && c0 + c < cin; c += kWarps) {
+      const T* row = x + ((size_t)s * cin + c0 + c) * len;
+      float acc[OMAX][3];
+#pragma unroll
+      for (int o = 0; o < OMAX; ++o) acc[o][0] = acc[o][1] = acc[o][2] = 0.f;
+#pragma unroll 4
+      for (int v = lane; v * VEC < len; v += 32) {
+        const VecOf<T, VEC> p = reinterpret_cast<const VecOf<T, VEC>*>(row)[v];
+#pragma unroll
+        for (int u = 0; u < VEC; ++u) {
+          const int t = v * VEC + u;
+          const float xv = to_f32(p.v[u]);
+#pragma unroll
+          for (int o = 0; o < OMAX; ++o) {
+            if (o < cout) {
+              // x at step t meets dc at t + 1 (tap 0), t (tap 1), t - 1 (tap 2)
+              const float* d = dcs + o * ld + t;
+              acc[o][0] = fmaf(round_to<T>(d[2]), xv, acc[o][0]);
+              acc[o][1] = fmaf(round_to<T>(d[1]), xv, acc[o][1]);
+              acc[o][2] = fmaf(round_to<T>(d[0]), xv, acc[o][2]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int o = 0; o < OMAX; ++o) {
+        if (o < cout) {
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            const float v = warp_sum(acc[o][k]);
+            if (lane == 0) sums[c][o * 3 + k] += v;
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+  const int stride = 3 * cin + 1;
+  for (int e = threadIdx.x; e < cout * kDwStreamC * 3; e += kThreads) {
+    const int o = e / (kDwStreamC * 3), r = e - o * (kDwStreamC * 3);
+    const int c = r / 3, k = r - c * 3;
+    if (c0 + c < cin) part[((size_t)z * cout + o) * stride + (c0 + c) * 3 + k] = sums[c][o * 3 + k];
+  }
+  if (blockIdx.x == 0 && threadIdx.x < cout)
+    part[((size_t)z * cout + threadIdx.x) * stride + 3 * cin] = dbs[threadIdx.x];
+}
+
+// Stage 2: the splits added in split order.  A part row of stride columns
+// holds dw's 3 * cin, then (streaming path) db's partial sum.
 __global__ void dw_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw,
-                                 int count, int nsplit) {
+                                 float* __restrict__ db, int cin, int cout, int stride,
+                                 int nsplit) {
+  const int count = cout * stride;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= count) return;
   float v = 0.f;
   for (int z = 0; z < nsplit; ++z) v += part[(size_t)z * count + i];
-  dw[i] = v;
+  const int o = i / stride, j = i - o * stride;
+  if (j < 3 * cin)
+    dw[o * 3 * cin + j] = v;
+  else
+    db[o] = v;
 }
 
-// db[o] = sum over samples and steps of dc[n, o, t]: one block per channel.
+// db[o] = sum over samples and steps of dc[n, o, t] (tensor-core path):
+// one block per channel.
 __global__ void __launch_bounds__(kThreads)
 db_kernel(const float* __restrict__ dc, float* __restrict__ db, int n, int cout, int len) {
   __shared__ float red[kWarps];
@@ -498,10 +835,33 @@ cudaError_t launch_fwd(const void* x, const void* w, const void* b, void* y, int
   return cudaGetLastError();
 }
 
-// The backward of one layer: dc into the f32 scratch dc (n, cout, len),
+// The tiling of the tensor-core path (conv3.py: DW_TILE_O, DW_TILE_C).
+using DwMain = DwTile<64, 32, 64, 3, 2, 2>;
+
+// Stage 1 of dw on the streaming path, with the vector width that x's
+// alignment and len allow (16 bytes at most).
+template <typename T, int OMAX>
+cudaError_t launch_dw_stream(const float* dc, const T* x, float* part, int n, int cin, int cout,
+                             int len, int nsplit, cudaStream_t stream) {
+  const size_t smem = (size_t)cout * (len + 2) * sizeof(float);
+  const dim3 grid((cin + kDwStreamC - 1) / kDwStreamC, nsplit);
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(x);
+  constexpr int kWide = 16 / sizeof(T);
+  const auto kernel = len % kWide == 0 && addr % (kWide * sizeof(T)) == 0
+                          ? &dw_stream_kernel<T, OMAX, kWide>
+                      : len % 2 == 0 && addr % (2 * sizeof(T)) == 0
+                          ? &dw_stream_kernel<T, OMAX, 2>
+                          : &dw_stream_kernel<T, OMAX, 1>;
+  return launch_dw_stage1<T>(kernel, grid, (int)smem, dc, x, part, n, cin, cout, len, nsplit,
+                             stream);
+}
+
+// The backward of one layer: dc into the f32 scratch dc (n, cout, len)
+// (in the linear mode on f32, dc is dy itself and the scratch is unused),
 // then dx (n, cin, len) in T unless dx is null, then dw (cout, cin, 3) and
 // db (cout,) in f32 unless dw is null, through the f32 scratch part
-// (nsplit, cout, 3 * cin).
+// (nsplit, cout, 3 * cin), or (nsplit, cout, 3 * cin + 1) on the streaming
+// path (cout < kDwStreamBelow).
 template <typename T, int MODE>
 cudaError_t launch_bwd(const void* x, const void* w, const void* b, const void* dy,
                        void* dx, void* dw, void* db, void* dc, void* part, int n,
@@ -510,15 +870,17 @@ cudaError_t launch_bwd(const void* x, const void* w, const void* b, const void* 
   const T* wp = static_cast<const T*>(w);
   const T* bp = static_cast<const T*>(b);
   const T* dyp = static_cast<const T*>(dy);
-  float* dcp = static_cast<float*>(dc);
-  if constexpr (MODE == kLinear) {
+  const float* dcp = static_cast<const float*>(dc);
+  if constexpr (MODE == kLinear && std::is_same<T, float>::value) {
+    dcp = static_cast<const float*>(dy);
+  } else if constexpr (MODE == kLinear) {
     const size_t count = (size_t)n * cout * len;
     dc_linear_kernel<T><<<(unsigned)((count + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-        dyp, dcp, count);
+        dyp, static_cast<float*>(dc), count);
   } else {
     const dim3 grid((cout + kOTile - 1) / kOTile, n);
     SCGRHC_TPT_SWITCH(len, dc_kernel<T, MODE, TPT><<<grid, kThreads, 0, stream>>>(
-        xp, wp, bp, dyp, dcp, cin, cout, len));
+        xp, wp, bp, dyp, static_cast<float*>(dc), cin, cout, len));
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -529,18 +891,26 @@ cudaError_t launch_bwd(const void* x, const void* w, const void* b, const void* 
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  if (dw != nullptr) {
-    const int ncols = 3 * cin;
-    const dim3 grid((cout + kBM - 1) / kBM, (ncols + kBN - 1) / kBN, nsplit);
-    dw_partial_kernel<T><<<grid, kThreads, 0, stream>>>(dcp, xp, static_cast<float*>(part), n,
-                                                        cin, cout, len, nsplit);
-    const int count = cout * ncols;
-    dw_reduce_kernel<<<(count + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-        static_cast<const float*>(part), static_cast<float*>(dw), count, nsplit);
+  if (dw == nullptr) return err;
+  float* partp = static_cast<float*>(part);
+  int stride = 3 * cin;
+  if (cout < kDwStreamBelow) {
+    stride += 1;  // db's partial sums ride in part's last column
+    err = cout == 1
+              ? launch_dw_stream<T, 1>(dcp, xp, partp, n, cin, cout, len, nsplit, stream)
+              : launch_dw_stream<T, kDwStreamBelow - 1>(dcp, xp, partp, n, cin, cout, len,
+                                                         nsplit, stream);
+  } else {
+    err = launch_dw_mma<DwMain, T>(dcp, xp, partp, n, cin, cout, len, nsplit, stream);
+    if (err != cudaSuccess) return err;
     db_kernel<<<cout, kThreads, 0, stream>>>(dcp, static_cast<float*>(db), n, cout, len);
     err = cudaGetLastError();
   }
-  return err;
+  if (err != cudaSuccess) return err;
+  const int count = cout * stride;
+  dw_reduce_kernel<<<(count + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      partp, static_cast<float*>(dw), static_cast<float*>(db), cin, cout, stride, nsplit);
+  return cudaGetLastError();
 }
 
 }  // namespace

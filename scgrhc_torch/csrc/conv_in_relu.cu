@@ -12,8 +12,9 @@
 // sample in the forward on (C_in + O)*T elements of traffic (the
 // bottleneck layer: 1.17 GFLOP against 3 MB per window), far above the
 // H100's f32 ridge point; the backward does three times that (recompute,
-// dx, dw).  All of it runs on the f32 FMA units (67 TFLOP/s); tensor cores
-// (wgmma, TMA) are later work.
+// dx, dw).  The forward, the recompute and dx run on the f32 FMA units
+// (67 TFLOP/s); the backward's dw product runs on the tensor cores
+// (mma.sync, 3xTF32 for f32; conv3.cuh, above dw_mma_kernel).
 //
 // Design: the TPU kernel held a whole (C_in, T) sample in VMEM; a 512 x 750
 // f32 sample is 1.5 MB, far over a block's shared memory.  Here a block
@@ -46,7 +47,8 @@ extern "C" int scgrhc_conv_in_relu(const void* x, const void* w, const void* b,
 // The backward of scgrhc_conv_in_relu for the output cotangent dy
 // (n, cout, len): dx (n, cin, len) in the dtype, or skipped when dx is
 // null; dw (cout, cin, 3) and db (cout,) in float32.  dc is an f32
-// scratch of n*cout*len, part one of nsplit*cout*3*cin (1 <= nsplit <= n).
+// scratch of n*cout*len, part one of nsplit*cout*(3*cin + (cout < 16))
+// (1 <= nsplit <= n; conv3.py's dw_plan).
 extern "C" int scgrhc_conv_in_relu_bwd(const void* x, const void* w, const void* b,
                                        const void* dy, void* dx, void* dw, void* db,
                                        void* dc, void* part, int n, int cin, int cout,

@@ -11,16 +11,19 @@
 // The TPU's dx is unmasked at its pad columns and those values never reach a
 // result, so the two agree on every real column.
 //
-// What bounds it: operations on the f32 FMA units at the critic's widths
-// (6*C*O*T FLOPs per sample for the conv; K2dx and K2dw add a recompute of
-// c except in the linear mode), except the 512 -> 1 linear layer, where
-// reading x dominates.  The second-order pass of the gradient penalty is
-// not a kernel: it differentiates the plain PyTorch version, as the JAX
-// package differentiates its reference under XLA.
+// What bounds it: operations at the critic's widths (6*C*O*T FLOPs per
+// sample for the conv; K2dx and K2dw add a recompute of c except in the
+// linear mode), except the 512 -> 1 linear layer, where reading x
+// dominates.  K2f, K2dx and K2dw's dc pass run on the f32 FMA units; K2dw's
+// dw product runs on the tensor cores, or for the score layer as a stream
+// over x at the byte bound (conv3.cuh, above dw_mma_kernel).  The
+// second-order pass of the gradient penalty is not a kernel: it
+// differentiates the plain PyTorch version, as the JAX package
+// differentiates its reference under XLA.
 //
-// Design: as conv_in_relu.cu.  O = 1 (conv4) fills one of a block's 16
-// channel slots and C_in = 5 (conv0) one chunk of 8; both are masked
-// inside the block.
+// Design: as conv_in_relu.cu.  In the forward, dc and dx passes, O = 1
+// (conv4) fills one of a block's 16 channel slots and C_in = 5 (conv0) one
+// chunk of 8; both are masked inside the block.
 
 #include "conv3.cuh"
 
@@ -75,7 +78,8 @@ extern "C" int scgrhc_critic_layer_fwd(const void* x, const void* w, const void*
 // The layer's backward for the output cotangent dy (n, cout, len): dx
 // (n, cin, len) in the dtype unless dx is null (K2dx); dw (cout, cin, 3) and
 // db (cout,) in float32 unless dw is null (K2dw).  dc is an f32 scratch of
-// n*cout*len; part one of nsplit*cout*3*cin when dw is wanted.
+// n*cout*len; part one of nsplit*cout*(3*cin + (cout < 16)) when dw is
+// wanted (conv3.py's dw_plan).
 extern "C" int scgrhc_critic_layer_bwd(const void* x, const void* w, const void* b,
                                        const void* dy, void* dx, void* dw, void* db,
                                        void* dc, void* part, int n, int cin, int cout,

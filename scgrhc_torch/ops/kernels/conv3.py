@@ -22,6 +22,8 @@ second-order gradient can differentiate it.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 import torch.nn.functional as F
 
@@ -31,10 +33,25 @@ from scgrhc_torch.ops.nn import IN_EPS, instance_norm, stats_dtype
 MODES = ("linear", "relu", "in_relu")
 MODE_CODE = {m: i for i, m in enumerate(MODES)}
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# dw's first stage splits the samples so that about this many blocks run
-# (two per SM of an H100)
-DW_BLOCKS = 264
-DW_TILE = 64  # the kernel's output tile, both axes
+
+# dw's first stage (csrc/conv3.cuh) takes one of two paths by O: the
+# tensor-core product, a block per DW_TILE_O output channels x DW_TILE_C
+# input channels (x 3 taps); below DW_STREAM_BELOW output channels (the
+# critic's 512 -> 1 score layer), a stream over x, a block per DW_STREAM_C
+# input channels, with db's partial sums in one more column of the scratch.
+# Each splits the samples so that at most DW_BLOCKS (two per SM of an H100:
+# one wave) or DW_STREAM_BLOCKS (four per SM, to keep loads in flight)
+# blocks run, as many as the samples allow.
+DW_STREAM_BELOW = 16
+DW_TILE_O, DW_TILE_C, DW_STREAM_C = 64, 32, 32
+DW_BLOCKS, DW_STREAM_BLOCKS = 264, 528
+
+
+@dataclass(frozen=True)
+class DwPlan:
+    path: str  # "mma" or "stream"
+    nsplit: int  # the kernels' sample splits, 1 <= nsplit <= N
+    part_shape: tuple[int, int, int]  # the f32 scratch of per-split partial sums
 
 
 def conv(x, w, b):
@@ -95,10 +112,21 @@ def layer_bwd_plain(x, w, b, dy, mode: str, need_dx: bool = True, need_dw: bool 
     return dx, dw, db
 
 
-def dw_splits(n: int, cin: int, cout: int) -> int:
-    """Sample splits of dw's first stage (the kernel's ``nsplit``)."""
-    tiles = -(-cout // DW_TILE) * -(-(3 * cin) // DW_TILE)
-    return max(1, min(n, -(-DW_BLOCKS // tiles)))
+def dw_plan(n: int, cin: int, cout: int) -> DwPlan:
+    """The path, sample splits and scratch shape of dw's first stage for x
+    (n, cin, T) and cout output channels, as the kernels take them."""
+    if cout < DW_STREAM_BELOW:
+        path, tiles, blocks, cols = "stream", -(-cin // DW_STREAM_C), DW_STREAM_BLOCKS, 3 * cin + 1
+    else:
+        path, blocks, cols = "mma", DW_BLOCKS, 3 * cin
+        tiles = -(-cout // DW_TILE_O) * -(-cin // DW_TILE_C)
+    nsplit = max(1, min(n, blocks // tiles))
+    return DwPlan(path, nsplit, (nsplit, cout, cols))
+
+
+def dw_split_bounds(n: int, nsplit: int) -> list[tuple[int, int]]:
+    """The samples ``[begin, end)`` of each split, as the kernels take them."""
+    return [(n * z // nsplit, n * (z + 1) // nsplit) for z in range(nsplit)]
 
 
 def check_inputs(what: str, x, w, b, dy=None) -> None:
@@ -156,7 +184,8 @@ def launch_bwd(entry: str, what: str, x, w, b, dy, mode: str | None, need_dx: bo
                need_dw: bool):
     """The backward kernel ``entry`` on CUDA tensors → ``(dx, dw, db)`` as
     :func:`layer_bwd_plain` gives them.  The f32 scratch for dc (N, O, T)
-    and for dw's per-split partial sums is allocated here."""
+    and for dw's per-split partial sums (:func:`dw_plan`) is allocated
+    here."""
     check_inputs(what, x, w, b, dy)
     n, cin, t = x.shape
     o = w.shape[0]
@@ -164,16 +193,16 @@ def launch_bwd(entry: str, what: str, x, w, b, dy, mode: str | None, need_dx: bo
     dc = torch.empty((n, o, t), **f32)
     dx = torch.empty_like(x) if need_dx else None
     dw = db = part = None
-    nsplit = dw_splits(n, cin, o)
+    plan = dw_plan(n, cin, o)
     if need_dw:
         dw = torch.empty((o, cin, 3), **f32)
         db = torch.empty((o,), **f32)
-        part = torch.empty((nsplit, o, 3 * cin), **f32)
+        part = torch.empty(plan.part_shape, **f32)
     extra = () if mode is None else (MODE_CODE[mode],)
     ptrs = [None if v is None else v.data_ptr() for v in (x, w, b, dy, dx, dw, db, dc, part)]
     with torch.cuda.device(x.device):
         err = getattr(_build.library(), entry)(
-            *ptrs, n, cin, o, t, *extra, nsplit, DTYPE_CODE[x.dtype], _stream(x)
+            *ptrs, n, cin, o, t, *extra, plan.nsplit, DTYPE_CODE[x.dtype], _stream(x)
         )
     _build.check(err, what)
     return dx, dw, db

@@ -57,7 +57,7 @@ def _t(a):
 
 
 @pytest.mark.parametrize("mode", k2.MODES)
-@pytest.mark.parametrize("shape", [(3, 5, 8), (2, 8, 16)])  # (B, C_in, O)
+@pytest.mark.parametrize("shape", [(3, 5, 8), (2, 8, 16), (2, 16, 1)])  # (B, C_in, O)
 def test_layer_plain_matches_pallas_interpret(mode, shape):
     b, c, o = shape
     x, dy = _rand((b, c, T), 0), _rand((b, o, T), 3)

@@ -29,25 +29,38 @@ import numpy as np
 import pytest
 import torch
 
+from scgrhc_torch.core.device import resolve_device
 from scgrhc_torch.models.critic import Critic
-from scgrhc_torch.models.generator import Generator, plain_block
+from scgrhc_torch.models.generator import Generator, fused_block, plain_block
 from scgrhc_torch.ops.kernels import conv_block as k1f
 from scgrhc_torch.ops.kernels import critic_fused as k2
 from scgrhc_torch.ops.kernels import dsp as k4
 from scgrhc_torch.train import wgan
 
 FWD_TOL, BWD_TOL, BF16_TOL = 1e-4, 1e-3, 3e-2
+# The dw product alone (K2dw, and K1b's dw stage) in f32: 3xTF32 on the
+# tensor cores sits within f32 rounding of the plain product (about 1e-6);
+# one TF32 pass would read about 5e-4, which BWD_TOL would let through.
+DW_F32_TOL = 1e-5
+# A whole generator's weight gradients in f32 against float64: f32
+# rounding flips a few relu masks among the U-Net's 8.4 M activations, and
+# each flip moves the weight gradients by up to a few 1e-3; on an H100 the
+# plain f32 block itself reads 2.0e-3 from float64 and the kernel path
+# 4.0e-3 (the test prints both).  Two f32 paths can sit that far apart, so
+# they are each held to float64, not to each other.
+GEN_GRAD_TOL = 1e-2
 
 pytestmark = pytest.mark.gpu
 
 
 @pytest.fixture()
 def cuda():
+    """The card as the port's entry points set it up: TF32 off, and cuDNN
+    held to deterministic algorithms (without, its convolution backward
+    sums in an order that changes from run to run)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
+    return resolve_device("cuda")
 
 
 def _conv_inputs(n, ci, o, t, seed=0):
@@ -298,29 +311,41 @@ def test_generator_backward_reaches_every_parameter(cuda):
     """Through ConvInReLU (K1f forward, K1b backward) every generator
     parameter gets a finite gradient on the card, nonzero for every weight
     and for every bias not followed by an instance norm (those are zero up
-    to rounding), and the gradients match the plain block's."""
+    to rounding); the same backward again gives the same bits; and the
+    gradients sit within the f32 envelope of the plain block's in float64,
+    as the plain block's own f32 gradients do (both readings printed)."""
     gen = Generator(4, torch.Generator().manual_seed(5)).to(cuda)
     x = torch.rand(4, 4, 750, generator=torch.Generator().manual_seed(6)).to(cuda)
+    names = [n for n, _ in gen.named_parameters()]
+
+    def grads(module, block, inputs):
+        module.zero_grad()
+        module(inputs, block=block, rng=torch.Generator(device=cuda).manual_seed(0),
+               train=True).square().mean().backward()
+        return [p.grad.clone() for p in module.parameters()]
+
     before = k1f.conv_in_relu_bwd.launches
-    rng = torch.Generator(device=cuda).manual_seed(0)
-    gen(x, rng=rng, train=True).square().mean().backward()
+    got = grads(gen, fused_block, x)
     torch.cuda.synchronize()
     assert k1f.conv_in_relu_bwd.launches == before + 14
     normed = {f"{blk}.{i}.bias" for blk in ("enc1", "enc2", "enc3", "bottleneck", "dec3",
                                             "dec2", "dec1") for i in (0, 3)}
     normed |= {f"{a}.{s}.0.bias" for a in ("att3", "att2", "att1") for s in ("W_x", "W_g",
                                                                             "psi")}
-    for name, p in gen.named_parameters():
-        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+    for name, g in zip(names, got):
+        assert torch.isfinite(g).all(), name
         if name not in normed:
-            assert p.grad.abs().max() > 0, name
-    # the same backward through the plain block
-    names = [n for n, _ in gen.named_parameters()]
-    got = [p.grad.clone() for p in gen.parameters()]
-    gen.zero_grad()
-    gen(x, block=plain_block, rng=torch.Generator(device=cuda).manual_seed(0),
-        train=True).square().mean().backward()
-    _grads_close(got, [p.grad for p in gen.parameters()], names)
+            assert g.abs().max() > 0, name
+    assert all(torch.equal(a, b) for a, b in zip(grads(gen, fused_block, x), got))
+    plain32 = grads(gen, plain_block, x)
+    g64 = Generator(4, torch.Generator().manual_seed(5)).to(cuda, torch.float64)
+    want = grads(g64, plain_block, x.double())
+    worst = {}
+    for what, gs in (("kernel path", got), ("plain f32", plain32)):
+        rels = {n: _rel(g, r) for n, g, r in zip(names, gs, want) if g.dim() > 1}
+        worst[what] = max(rels.items(), key=lambda kv: kv[1])
+        print(f"generator weight gradients, {what} against float64: worst {worst[what]}")
+        assert worst[what][1] <= GEN_GRAD_TOL, (what, worst[what])
 
 
 def test_critic_gradient_penalty_matches_float64_plain(cuda):
@@ -351,3 +376,70 @@ def test_critic_gradient_penalty_matches_float64_plain(cuda):
     gp_p, grads_p = gp_and_grads(c64, plain, *(v.double() for v in (scg, rhc, pred, eps)))
     assert abs(gp_k - gp_p) <= FWD_TOL * abs(gp_p)
     _grads_close(grads_k, grads_p, [n for n, _ in critic.named_parameters()])
+
+
+CRITIC_LAYERS = [(5, 64, "relu"), (64, 128, "in_relu"), (128, 256, "in_relu"),
+                 (256, 512, "in_relu"), (512, 1, "linear")]
+GENERATOR_LAYERS = [(4, 64, 750), (64, 64, 750), (64, 128, 748), (128, 128, 748),
+                    (128, 256, 746), (256, 256, 746), (256, 512, 744), (512, 512, 744),
+                    (512, 256, 746), (256, 128, 748), (128, 64, 750)]
+
+
+def _dw_paths(x, w, b, dy, mode):
+    """(name, kernel, plain) for the two dw launches of a layer: K2dw in
+    ``mode`` and K1b's dw stage (in_relu), each → (dw, db)."""
+    return (
+        ("K2dw", lambda *v: k2.critic_layer_bwd_dwdb(*v, mode),
+         lambda *v: k2.critic_layer_bwd_dwdb_plain(*v, mode)),
+        ("K1b", lambda *v: k1f.conv_in_relu_bwd(*v, need_dx=False)[1:],
+         lambda *v: k1f.conv_in_relu_bwd_plain(*v, need_dx=False)[1:]),
+    )
+
+
+def _hold_dw(x, w, b, dy, mode, paths=("K2dw", "K1b")):
+    """Each path's dw within DW_F32_TOL and db within DW_F32_TOL of the
+    plain version (db over its scale in in_relu mode), and a repeated
+    launch equal bit for bit."""
+    for name, kern, plain in _dw_paths(x, w, b, dy, mode):
+        if name not in paths:
+            continue
+        m = mode if name == "K2dw" else "in_relu"
+        dw, db = kern(x, w, b, dy)
+        want_dw, want_db = plain(x, w, b, dy)
+        assert dw.shape == want_dw.shape and db.shape == want_db.shape, name
+        assert _rel(dw, want_dw) <= DW_F32_TOL, (name, _rel(dw, want_dw))
+        assert _rel(db, want_db, _db_scale(x, w, b, dy, m)) <= DW_F32_TOL, name
+        again = kern(x, w, b, dy)
+        assert torch.equal(again[0], dw) and torch.equal(again[1], db), name
+
+
+@pytest.mark.parametrize("ci,o,mode", CRITIC_LAYERS)
+def test_critic_dw_f32_within_rounding(cuda, ci, o, mode):
+    _hold_dw(*_bwd_inputs(cuda, 8, ci, o, 750), mode, paths=("K2dw",))
+
+
+@pytest.mark.parametrize("ci,o,t", GENERATOR_LAYERS)
+def test_conv_in_relu_dw_f32_within_rounding(cuda, ci, o, t):
+    _hold_dw(*_bwd_inputs(cuda, 8, ci, o, t), "in_relu", paths=("K1b",))
+
+
+@pytest.mark.parametrize("n", [1, 33])
+@pytest.mark.parametrize("ci,o,t", [(512, 1, 750), (64, 1, 33), (3, 5, 1), (100, 24, 1024),
+                                    (7, 5, 1), (3, 17, 300)])
+def test_dw_narrow_and_ragged(cuda, n, ci, o, t):
+    """O = 1 and 5 stream; O = 17 and 24 take ragged tensor-core tiles;
+    T = 1, 33 and 1024 ragged slices; N = 1 a single split.  K2dw in the
+    linear mode (dc = dy), K1b in its in_relu mode."""
+    _hold_dw(*_bwd_inputs(cuda, n, ci, o, t), "linear")
+
+
+def test_dw_bf16_at_widest_critic_layer(cuda):
+    x, w, b, dy = _bwd_inputs(cuda, 4, 256, 512, 750, dtype=torch.bfloat16)
+    f = [v.float() for v in (x, w, b, dy)]
+    for name, kern, plain in _dw_paths(x, w, b, dy, "in_relu"):
+        got, want = kern(x, w, b, dy), plain(*f)
+        assert got[0].dtype == torch.float32
+        assert _rel(got[0], want[0]) <= BF16_TOL, name
+        assert _rel(got[1], want[1], _db_scale(*f, "in_relu")) <= BF16_TOL, name
+        again = kern(x, w, b, dy)
+        assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1]), name

@@ -1,4 +1,5 @@
-"""The port's kernel modules: K1f (conv_in_relu) and K4 (normalize_windows).
+"""The port's kernel modules: K1f (conv_in_relu), K4 (normalize_windows),
+and the plan of the conv layer's dw stage (conv3.dw_plan).
 
 Each plain version against the JAX Pallas kernel it stands beside
 (interpret mode, as the JAX package's own tests run it), and the wrappers'
@@ -13,6 +14,7 @@ import torch
 
 from scgrhc.ops.pallas.conv_block import conv_in_relu as jax_conv_in_relu
 from scgrhc.ops.pallas.dsp import normalize_windows as jax_normalize_windows
+from scgrhc_torch.ops.kernels import conv3
 from scgrhc_torch.ops.kernels import conv_block as k1f
 from scgrhc_torch.ops.kernels import dsp as k4
 
@@ -86,3 +88,45 @@ def test_normalize_windows_cpu_takes_plain_path():
     got = k4.normalize_windows(w)
     assert k4.normalize_windows.launches == 0
     assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(k4.normalize_windows_plain(w)))
+
+
+# (N, C_in, O) of the main path's dw launches: the critic's five layers and
+# the generator's at N = 32, and narrow or ragged ones
+DW_SHAPES = [(32, 5, 64), (32, 64, 128), (32, 128, 256), (32, 256, 512), (32, 512, 1),
+             (32, 4, 64), (32, 512, 512), (32, 128, 64), (1, 3, 5), (33, 100, 24),
+             (33, 7, 5), (1, 3, 17), (1, 64, 1), (65535, 512, 15), (2, 1, 16)]
+
+
+@pytest.mark.parametrize("n,cin,cout", DW_SHAPES)
+def test_dw_plan_path_and_scratch(n, cin, cout):
+    plan = conv3.dw_plan(n, cin, cout)
+    stream = cout < conv3.DW_STREAM_BELOW
+    assert plan.path == ("stream" if stream else "mma")
+    assert 1 <= plan.nsplit <= n
+    # the streaming path carries db's partial sums in one more column
+    assert plan.part_shape == (plan.nsplit, cout, 3 * cin + stream)
+    if stream:
+        tiles, blocks = -(-cin // conv3.DW_STREAM_C), conv3.DW_STREAM_BLOCKS
+    else:
+        tiles = -(-cout // conv3.DW_TILE_O) * -(-cin // conv3.DW_TILE_C)
+        blocks = conv3.DW_BLOCKS
+    # one wave of blocks, as full as the samples allow
+    assert tiles * plan.nsplit <= blocks or plan.nsplit == 1
+    assert tiles * (plan.nsplit + 1) > blocks or plan.nsplit == n
+    assert conv3.dw_plan(n, cin, cout) == plan  # a pure function of the shape
+
+
+def test_dw_plan_main_path():
+    # the score layer streams one sample a block; the widest critic layer
+    # splits its 32 samples four ways over 64 tiles (256 blocks)
+    assert conv3.dw_plan(32, 512, 1) == conv3.DwPlan("stream", 32, (32, 1, 1537))
+    assert conv3.dw_plan(32, 256, 512) == conv3.DwPlan("mma", 4, (4, 512, 768))
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 32, 33, 1000])
+def test_dw_splits_cover_every_sample_once_in_order(n):
+    for nsplit in sorted({1, 2, 3, 5, 17, 32, n} & set(range(1, n + 1))):
+        bounds = conv3.dw_split_bounds(n, nsplit)
+        assert len(bounds) == nsplit
+        assert [s for lo, hi in bounds for s in range(lo, hi)] == list(range(n))
+        assert all(hi > lo for lo, hi in bounds)  # no split is empty
