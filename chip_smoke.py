@@ -182,10 +182,33 @@ def _layer_shapes(in_channels: int):
     return shapes
 
 
-def dw_sass(smoke: Smoke, lib_path) -> dict | None:
-    """HMMA (tensor-core) instructions in the built library's SASS, per dw
-    kernel instance (``cuobjdump -sass``); every dw_mma_kernel must hold
-    some.  None when the toolkit has no cuobjdump."""
+def _kernel_label(kernel: str, args: str) -> str:
+    """A short name for a conv3.cuh kernel instance from its mangled
+    template arguments."""
+    dtype = "bf16" if "nv_bfloat16" in args else "f32"
+    if kernel == "dw_mma_kernel":
+        return f"<{dtype}, {8 if 'Lb1E' in args else 4}-byte copies>"
+    if kernel == "conv_mma_kernel":
+        transw, relu, pairs = (f == "1" for f in re.findall(r"Lb(\d)E", args))
+        types = args[:args.index("Lb")]
+        out = ", f32 out" if dtype == "bf16" and not transw and types.endswith("f") else ""
+        return (f"<{dtype}, {'dx' if transw else 'conv'}{', relu' if relu else ''}{out}, "
+                f"{8 if pairs else 4}-byte copies>")
+    omax, vec = re.search(r"Li(\d+)ELi(\d+)E", args).groups()
+    out = ", f32 out" if kernel == "conv_stream_kernel" and dtype == "bf16" and args[
+        :args.index("Li")].endswith("f") else ""
+    return f"<{dtype}{out}, O <= {omax}, {vec} a load>"
+
+
+TC_KERNELS = ("dw_mma_kernel", "conv_mma_kernel")  # every instance must hold HMMA
+
+
+def sass_hmma(smoke: Smoke, lib_path) -> dict | None:
+    """HMMA (tensor-core) instructions in the built library's SASS
+    (``cuobjdump -sass``), per instance of the dw stage's and the critic
+    conv core's kernels; every dw_mma_kernel and conv_mma_kernel instance
+    must hold some, and the conv core's must be there.  None when the
+    toolkit has no cuobjdump."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     tool = tool if os.path.isfile(tool) else shutil.which("cuobjdump")
     if tool is None:
@@ -196,26 +219,54 @@ def dw_sass(smoke: Smoke, lib_path) -> dict | None:
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"(dw_mma_kernel|dw_stream_kernel)I(\w*?)EvPK", line)
+            m = re.search(r"(dw_mma_kernel|dw_stream_kernel|conv_mma_kernel|conv_stream_kernel)"
+                          r"I(\w*?)EvPK", line)
             name = None
             if m:
-                dtype = "bf16" if "nv_bfloat16" in m.group(2) else "f32"
-                if m.group(1) == "dw_mma_kernel":
-                    width = 8 if "Lb1E" in m.group(2) else 4
-                    detail = f"{width}-byte copies"
-                else:
-                    omax, vec = re.search(r"Li(\d+)ELi(\d+)E", m.group(2)).groups()
-                    detail = f"O <= {omax}, {vec} a load"
                 tu = "critic_layer" if "critic_layer" in line else "conv_in_relu"
-                name = f"{m.group(1)}<{dtype}, {detail}> ({tu})"
+                name = f"{m.group(1)}{_kernel_label(m.group(1), m.group(2))} ({tu})"
                 counts[name] = 0
         elif name and "HMMA" in line:
             counts[name] += 1
-    mma = {k: v for k, v in counts.items() if k.startswith("dw_mma_kernel")}
-    smoke.check(len(mma) > 0 and all(v > 0 for v in mma.values()),
-                f"sass: dw_mma_kernel instances without HMMA: {mma}")
-    print(f"sass: HMMA instructions per dw kernel instance {counts}", flush=True)
+    tc = {k: v for k, v in counts.items() if k.startswith(TC_KERNELS)}
+    smoke.check(any(k.startswith("conv_mma_kernel") for k in tc),
+                "sass: no conv_mma_kernel instance in the library")
+    smoke.check(all(v > 0 for v in tc.values()),
+                f"sass: tensor-core kernel instances without HMMA: "
+                f"{ {k: v for k, v in tc.items() if v == 0} }")
+    for kernel in ("dw_mma_kernel", "dw_stream_kernel", "conv_mma_kernel", "conv_stream_kernel"):
+        print(f"sass: HMMA instructions per {kernel} instance "
+              f"{ {k[len(kernel):]: v for k, v in counts.items() if k.startswith(kernel)} }",
+              flush=True)
     return counts
+
+
+ROW_MODES = ("in_relu fwd", "relu fwd", "in_relu dc", "relu dc")  # conv3.cuh: RowMode
+
+
+def ptxas_lines(log: str) -> dict:
+    """Registers and spill bytes per kernel instance of the critic's conv
+    core, from the build's ``-Xptxas -v`` lines."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?(conv_mma_kernel|conv_stream_kernel|"
+                      r"row_kernel)I(\w*?)EEv\w*'", line)
+        if "Compiling entry function" in line:
+            name = None
+            if m and "critic_layer" in line:
+                if m.group(1) == "row_kernel":
+                    mode = int(re.search(r"Li(\d)E", m.group(2)).group(1))
+                    label = (f"<{'bf16' if 'nv_bfloat16' in m.group(2) else 'f32'}, "
+                             f"{ROW_MODES[mode]}>")
+                else:
+                    label = _kernel_label(m.group(1), m.group(2))
+                name = m.group(1) + label
+                out[name] = {"registers": 0, "spill_bytes": 0}
+        elif name and "spill stores" in line:
+            out[name]["spill_bytes"] = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif name and "Used" in line and "registers" in line:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return out
 
 
 def check_conv_in_relu(torch, smoke: Smoke) -> dict:
@@ -605,14 +656,44 @@ def _hold_dw(smoke, what, torch, again, got, ref) -> float:
     return rel
 
 
-def _rate_bounds(fma_flops: float, dw_flops: float, nbytes: float, path: str) -> dict:
-    """Bounds at the rates the kernels use: the dc and dx passes (and db) on
-    the f32 FMA units, the dw product on the tensor cores (3xTF32 for f32;
-    bf16) or, on the streaming path, on the FMA units; bytes at 3.35 TB/s
-    (half as many in bf16)."""
-    tc32, tc16 = (PEAK_TF32X3_FLOPS, PEAK_BF16_FLOPS) if path == "mma" else (PEAK_F32_FLOPS,) * 2
-    f32 = max(fma_flops / PEAK_F32_FLOPS + dw_flops / tc32, nbytes / PEAK_BYTES)
-    b16 = max(fma_flops / PEAK_F32_FLOPS + dw_flops / tc16, nbytes / 2 / PEAK_BYTES)
+def _dwdb_on_masks(torch, x, w, b, dy, mode, mask) -> list:
+    """[dw, db] from the plain backward's formulas in float64, with the relu
+    mask ``mask`` in place of the plain version's own sign test.  With the
+    kernel's own masks (K2f's output > 0) this is the reference for K2dw's
+    dw product alone: the kernel's dc pass sums the conv in another order
+    than cuDNN, so a mask can flip between the kernel and the plain f32
+    version where c or x̂ lies within f32 rounding of 0, and one flip moves
+    dw by a few 1e-5 at N = 32."""
+    from scgrhc_torch.ops.kernels import conv3
+
+    x64, w64, b64, dy64 = (v.double() for v in (x, w, b, dy))
+    g = dy64 * mask.double()
+    if mode == "in_relu":
+        c = conv3.conv(x64, w64, b64)
+        mean = c.mean(dim=-1, keepdim=True)
+        rsig = torch.rsqrt(torch.clamp_min((c * c).mean(dim=-1, keepdim=True) - mean * mean, 0.0)
+                           + conv3.IN_EPS)
+        xhat = (c - mean) * rsig
+        dc = rsig * (g - g.mean(dim=-1, keepdim=True)
+                     - xhat * (g * xhat).mean(dim=-1, keepdim=True))
+        del c, xhat
+    else:
+        dc = dy64 if mode == "linear" else g
+    dw = torch.nn.grad.conv1d_weight(x64, w.shape, dc.to(x.dtype).double(), padding=1)
+    return [dw, dc.sum(dim=(0, 2))]
+
+
+# The share of relu masks on which the kernels' forward and the plain f32
+# version may disagree (a few in a million lie within f32 rounding of 0).
+MASK_FLIP_SHARE = 1e-5
+
+
+def _rate_bounds(fma_flops: float, tc_flops: float, nbytes: float) -> dict:
+    """Bounds at the rates the kernels use: ``fma_flops`` on the f32 FMA
+    units, ``tc_flops`` on the tensor cores (3xTF32 for f32; bf16); bytes
+    at 3.35 TB/s (half as many in bf16)."""
+    f32 = max(fma_flops / PEAK_F32_FLOPS + tc_flops / PEAK_TF32X3_FLOPS, nbytes / PEAK_BYTES)
+    b16 = max(fma_flops / PEAK_F32_FLOPS + tc_flops / PEAK_BF16_FLOPS, nbytes / 2 / PEAK_BYTES)
     return {"rate_bound_ms": f32 * 1e3, "bf16_rate_bound_ms": b16 * 1e3}
 
 
@@ -667,7 +748,7 @@ def check_conv_in_relu_bwd(torch, smoke: Smoke) -> dict:
         conv = 6.0 * cin * o * t * N_TRAIN
         nbytes = 4.0 * (N_TRAIN * t * (cin * (2 if need_dx else 1) + o) + 6 * o * cin + 2 * o)
         fb, bb_ = _bound_ms(conv * n_conv, nbytes)
-        rates = _rate_bounds(conv * (n_conv - 1), conv, nbytes, "mma")
+        rates = _rate_bounds(conv * (n_conv - 1), conv, nbytes)
         rec = {
             "layers": shapes.count((cin, o, t, need_dx)), "rel_err": rel, "max_abs_err": err,
             "bf16_rel_err": rel16, "dw_rel_err": dw_rel, "bf16_dw_rel_err": dw_rel16, **rates,
@@ -729,22 +810,46 @@ def check_critic_layers(torch, smoke: Smoke) -> dict:
                 (lambda: torch.nn.grad.conv1d_weight(x, w.shape, dy, padding=1)) if lin else None,
                 "bwd"),
         }
+        # the operations on each unit: the conv core (recompute, forward, dx) on
+        # the tensor cores from 16 output channels, else the stream and
+        # dx_kernel on the FMA units; the dw product on its path's units
+        # ("stream": the FMA units), db on the FMA units
+        core = "mma" if o >= conv3.CONV_STREAM_BELOW else "fma"
+        dw_path = conv3.dw_plan(N_TRAIN, cin, o).path
+        units = {
+            "critic_layer": {core: conv_flops},
+            "critic_layer_bwd_dx": {core: conv_flops * (1 + recompute)},
+            "critic_layer_bwd_dwdb": {core: conv_flops * recompute},
+        }
+        dwdb = units["critic_layer_bwd_dwdb"]
+        dwdb[dw_path] = dwdb.get(dw_path, 0.0) + conv_flops
+        dwdb["fma"] = dwdb.get("fma", 0.0) + N_TRAIN * o * T
         for name, (kern, plain, floors, flops, nbytes, lib, kind) in cases.items():
             what = f"{name} {mode} {cin}x{o}x{T}"
             got, ref = kern(x, w, b, dy), plain(x, w, b, dy)
             torch.cuda.synchronize()
+            if name == "critic_layer":
+                ref_y = ref[0]  # the plain forward's relu masks, for K2dw's reference
             rel, err = _hold(smoke, what, got, ref, floors, TOL_TRAIN[kind])
             got16, ref16 = kern(xb, wb, bb, dyb), plain(*f16)
             rel16, _ = _hold(smoke, what + " bf16", got16, ref16, floors, TOL_TRAIN["bf16"])
             fb, byb = _bound_ms(flops, nbytes)
-            extra = _rate_bounds(flops, 0.0, nbytes, "fma")
+            extra = _rate_bounds(units[name].get("fma", 0.0) + units[name].get("stream", 0.0),
+                                 units[name].get("mma", 0.0), nbytes)
             if name == "critic_layer_bwd_dwdb":
-                extra = _rate_bounds(flops - conv_flops, conv_flops, nbytes,
-                                     conv3.dw_plan(N_TRAIN, cin, o).path)
+                y = k2.critic_layer(x, w, b, mode)
+                flips = 0 if lin else int(((y > 0) != (ref_y > 0)).sum())
+                smoke.check(flips <= MASK_FLIP_SHARE * y.numel(),
+                            f"{what}: {flips} relu masks differ from the plain version's")
                 extra.update(
-                    path=conv3.dw_plan(N_TRAIN, cin, o).path,
-                    dw_rel_err=_hold_dw(smoke, what, torch, lambda: kern(x, w, b, dy), got, ref),
+                    path=dw_path, mask_flips=flips,
+                    dw_rel_err=_hold_dw(smoke, what, torch, lambda: kern(x, w, b, dy), got,
+                                        _dwdb_on_masks(torch, x, w, b, dy, mode, y > 0)),
                     bf16_dw_rel_err=_rel(got16[0], ref16[0]))
+                del y
+            else:
+                smoke.check(all(torch.equal(a, g) for a, g in zip(kern(x, w, b, dy), got)),
+                            f"{what}: a repeated launch gave other bits")
             rec = {
                 "layers": 1, "mode": mode, "rel_err": rel, "max_abs_err": err,
                 "bf16_rel_err": rel16, **extra,
@@ -754,34 +859,40 @@ def check_critic_layers(torch, smoke: Smoke) -> dict:
                 "library_ms": None if lib is None else _time_ms(torch, lib, reps=10),
                 "flop_bound_ms": fb, "byte_bound_ms": byb,
             }
-            if name == "critic_layer_bwd_dwdb" and lin:
-                # the card's time alone, the wrappers' host costs out (a
+            if name != "critic_layer_bwd_dwdb" or lin:
+                # the card's time alone, the wrapper's host cost out (a
                 # library call that cannot be captured reads None)
                 rec["graph_ms"] = _graph_ms(torch, lambda: kern(x, w, b, dy))
-                try:
-                    rec["library_graph_ms"] = _graph_ms(torch, lib)
-                except RuntimeError:
-                    rec["library_graph_ms"] = None
+                if lib is not None:
+                    try:
+                        rec["library_graph_ms"] = _graph_ms(torch, lib)
+                    except RuntimeError:
+                        rec["library_graph_ms"] = None
             out[name][f"{cin}x{o}x{T} {mode}"] = rec
             lib_txt = "none" if lib is None else f"{rec['library_ms']:.4f} ms"
             dw_txt = "" if "dw_rel_err" not in rec else (
-                f", {rec['path']} path, dw rel err {rec['dw_rel_err']:.3g} (tol {TOL_DW_F32:g}), "
-                f"bf16 dw rel err {rec['bf16_dw_rel_err']:.3g}, bound with dw on its units "
-                f"{rec['rate_bound_ms']:.4f} ms (bf16 {rec['bf16_rate_bound_ms']:.4f})")
+                f", dw on the {rec['path']} path, dw rel err {rec['dw_rel_err']:.3g} (tol "
+                f"{TOL_DW_F32:g}), bf16 dw rel err {rec['bf16_dw_rel_err']:.3g}")
+            graph_txt = f" ({rec['graph_ms']:.4f} ms in a CUDA graph)" if "graph_ms" in rec else ""
             print(f"{name} N={N_TRAIN} C={cin} O={o} T={T} {mode}: rel err {rel:.3g} (tol "
                   f"{TOL_TRAIN[kind]:g}), max abs err {err:.3g}, bf16 rel err {rel16:.3g} "
-                  f"(tol {TOL_TRAIN['bf16']:g}), kernel {rec['ms']:.4f} ms, plain "
+                  f"(tol {TOL_TRAIN['bf16']:g}), kernel {rec['ms']:.4f} ms{graph_txt}, plain "
                   f"{rec['plain_ms']:.4f} ms, bf16 kernel {rec['bf16_ms']:.4f} ms, bound "
-                  f"{max(fb, byb):.4f} ms (f32 FMA){dw_txt}, library call {lib_txt}", flush=True)
+                  f"{max(fb, byb):.4f} ms (f32 FMA), {rec['rate_bound_ms']:.4f} ms at the units "
+                  f"it runs on (bf16 {rec['bf16_rate_bound_ms']:.4f}){dw_txt}, library call "
+                  f"{lib_txt}", flush=True)
         del x, w, b, dy, xb, wb, bb, dyb, f16
     keys = ("ms", "plain_ms", "bf16_ms", "flop_bound_ms", "byte_bound_ms", "rate_bound_ms",
             "bf16_rate_bound_ms")
-    lin = out["critic_layer_bwd_dwdb"][f"{CRITIC_LAYERS[-1][0]}x1x{T} linear"]
-    print(f"critic_layer_bwd_dwdb at the 512 -> 1 layer: kernel {lin['ms']:.4f} ms, "
-          f"conv1d_weight {lin['library_ms']:.4f} ms, timed alike: kernel faster "
-          f"{lin['ms'] < lin['library_ms']}; in a CUDA graph kernel {lin['graph_ms']:.4f} ms, "
-          f"conv1d_weight {lin['library_graph_ms']} ms", flush=True)
-    return {name: _summary(per, keys) for name, per in out.items()}
+    for name, call in (("critic_layer", "F.conv1d"), ("critic_layer_bwd_dx", "conv1d_input"),
+                       ("critic_layer_bwd_dwdb", "conv1d_weight")):
+        lin = out[name][f"{CRITIC_LAYERS[-1][0]}x1x{T} linear"]
+        print(f"{name} at the 512 -> 1 layer: kernel {lin['ms']:.4f} ms, {call} "
+              f"{lin['library_ms']:.4f} ms, timed alike: kernel faster "
+              f"{lin['ms'] < lin['library_ms']}; in a CUDA graph kernel {lin['graph_ms']:.4f} ms, "
+              f"{call} {lin['library_graph_ms']} ms", flush=True)
+    return {name: _summary(per, keys + (("graph_ms",) if all(
+        "graph_ms" in r for r in per.values()) else ())) for name, per in out.items()}
 
 
 # ---- training end to end ----------------------------------------------------
@@ -1367,7 +1478,14 @@ def main() -> int:
           f"{max(regs, default=0)}, {sum(n > 0 for n in spills)} with spill stores (up to "
           f"{max(spills, default=0)} bytes); full log in {OUT_DIR}/chip_smoke.json", flush=True)
 
-    sass = dw_sass(smoke, build.path)
+    core = ptxas_lines(build.log)
+    for kernel in ("conv_mma_kernel", "conv_stream_kernel", "row_kernel"):
+        recs = {k: v for k, v in core.items() if k.startswith(kernel)}
+        regs = [v["registers"] for v in recs.values()]
+        spills = {k[len(kernel):]: v["spill_bytes"] for k, v in recs.items() if v["spill_bytes"]}
+        print(f"ptxas: {kernel}: {len(recs)} instances, registers {min(regs, default=0)}-"
+              f"{max(regs, default=0)}, spill stores {spills or 'none'}", flush=True)
+    sass = sass_hmma(smoke, build.path)
     k1f = check_conv_in_relu(torch, smoke)
     k4 = check_normalize_windows(torch, smoke)
     k3 = check_gate_normalize(torch, smoke)
@@ -1420,6 +1538,7 @@ def main() -> int:
             "bound_by": rec["bound_by"], "library_ms": lin["library_ms"],
             "rate_bound_ms": rec["rate_bound_ms"],
             "library_covers": "conv4 (512->1, linear) only", "library_layer_ms": lin["ms"],
+            **({"graph_ms": rec["graph_ms"]} if "graph_ms" in rec else {}),
         })
     kernels.append({
         "name": "gate_and_normalize", "route": "cuda",
@@ -1437,7 +1556,8 @@ def main() -> int:
         json.dump({"card": card, "kind": kind, "count": count,
                    "build_seconds": build.seconds, "build_log": build.log,
                    "conv_in_relu": k1f, "normalize_windows": k4,
-                   "conv_in_relu_bwd": k1b, **k2, "gate_and_normalize": k3, "dw_sass_hmma": sass,
+                   "conv_in_relu_bwd": k1b, **k2, "gate_and_normalize": k3, "sass_hmma": sass,
+                   "ptxas_critic_conv": core,
                    "serve": serve, "train": train, "pipeline": pipeline,
                    "errors": smoke.errors}, f, indent=1)
     if smoke.errors:

@@ -23,14 +23,20 @@
 // As in the Pallas kernels, dx and dw take dc rounded to x's dtype
 // (a no-op in f32); db sums the f32 dc.
 //
-// The forward and dc passes keep a block's kOTile output channels for the
-// whole of T in registers (each of kThreads threads owns up to kMaxTpt
-// steps), staging C_in through shared memory kCiChunk channels at a time
-// with a zero halo, so the statistics over T are block reductions and c
-// never touches device memory.  The dx pass is the same conv loop over dc.
+// Two conv cores compute c (and dx, the same conv over dc):
+//   * the generator's layer (K1f, K1b: fwd_kernel, dc_kernel, dx_kernel)
+//     keeps a block's kOTile output channels for the whole of T in
+//     registers (each of kThreads threads owns up to kMaxTpt steps),
+//     staging C_in through shared memory kCiChunk channels at a time with a
+//     zero halo, on the f32 FMA units, so the statistics over T are block
+//     reductions and c never touches device memory;
+//   * the critic's layer (K2f, K2dx, K2dw: conv_mma_kernel, with
+//     conv_stream_kernel below 16 output channels, then row_kernel for the
+//     modes that need a whole row of c) is an implicit GEMM on the tensor
+//     cores over (O, T) tiles; its note is above conv_mma_kernel.
 // The dw pass (its own note is above dw_mma_kernel) is split over samples
-// into per-block partial sums that a second kernel adds in a fixed order:
-// no float atomics, so a run gives the same bits every time.
+// into per-block partial sums that a second kernel adds in a fixed order.
+// No pass uses float atomics, so a run gives the same bits every time.
 //
 // NaN propagates as in the plain versions: a relu is `v < 0 ? 0 : v` and a
 // mask is a multiply by (v > 0 ? 1 : 0), never fmaxf.
@@ -234,8 +240,9 @@ __device__ __forceinline__ void in_stats(const float (&acc)[kOTile][TPT], int le
   __syncthreads();
 }
 
-// Forward: one block per (tile of kOTile output channels, sample).
-template <typename T, int MODE, int TPT>
+// The generator's forward (in_relu): one block per (tile of kOTile output
+// channels, sample).
+template <typename T, int TPT>
 __global__ void __launch_bounds__(kThreads)
 fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b,
            T* __restrict__ y, int cin, int cout, int len) {
@@ -245,31 +252,23 @@ fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict
   const int n = blockIdx.y;
   float acc[kOTile][TPT];
   conv_bias<T, TPT>(x + (size_t)n * cin * len, w, b, cin, cout, len, o0, sm, acc);
-  if (MODE == kInRelu) in_stats<TPT>(acc, len, rs);
+  in_stats<TPT>(acc, len, rs);
 #pragma unroll
   for (int o = 0; o < kOTile; ++o) {
     if (o0 + o >= cout) break;
     T* yo = y + ((size_t)n * cout + o0 + o) * len;
-    float mean = 0.f, rsig = 1.f;
-    if (MODE == kInRelu) {
-      mean = rs.st[o][0];
-      rsig = rs.st[o][1];
-    }
+    const float mean = rs.st[o][0];
+    const float rsig = rs.st[o][1];
 #pragma unroll
     for (int k = 0; k < TPT; ++k) {
       const int t = threadIdx.x + k * kThreads;
-      if (t < len) {
-        float v = acc[o][k];
-        if (MODE == kInRelu) v = relu((v - mean) * rsig);
-        if (MODE == kRelu) v = relu(v);
-        store(yo + t, v);
-      }
+      if (t < len) store(yo + t, relu((acc[o][k] - mean) * rsig));
     }
   }
 }
 
-// dc pass of the relu and in_relu modes (linear: dc_linear_kernel).
-template <typename T, int MODE, int TPT>
+// The generator's dc pass (in_relu).
+template <typename T, int TPT>
 __global__ void __launch_bounds__(kThreads)
 dc_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b,
           const T* __restrict__ dy, float* __restrict__ dc, int cin, int cout, int len) {
@@ -280,21 +279,6 @@ dc_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict_
   const size_t base = ((size_t)n * cout + o0) * len;
   float acc[kOTile][TPT];
   conv_bias<T, TPT>(x + (size_t)n * cin * len, w, b, cin, cout, len, o0, sm, acc);
-  if (MODE == kRelu) {
-#pragma unroll
-    for (int o = 0; o < kOTile; ++o) {
-      if (o0 + o >= cout) break;
-#pragma unroll
-      for (int k = 0; k < TPT; ++k) {
-        const int t = threadIdx.x + k * kThreads;
-        if (t < len) {
-          const size_t i = base + (size_t)o * len + t;
-          dc[i] = to_f32(dy[i]) * step(acc[o][k]);
-        }
-      }
-    }
-    return;
-  }
   in_stats<TPT>(acc, len, rs);
   // acc becomes xhat; then the sums of g and g * xhat over T
   float s[kOTile], q[kOTile];
@@ -809,6 +793,423 @@ db_kernel(const float* __restrict__ dc, float* __restrict__ db, int n, int cout,
   }
 }
 
+// ---- the critic's conv core ------------------------------------------------
+//
+// Replaces, with the row pass below, scgrhc/ops/pallas/critic_fused.py's
+// _fwd_kernel (K2f) and the conv halves of _bwd_dx_kernel (K2dx: the
+// recompute of c at the head of the dc pass, and dx) and of
+// _bwd_dwdb_kernel's dc pass (K2dw).
+//
+// c[n, o, t] = b[o] + sum_i sum_k w[o, i, k] * x[n, i, t + k - 1] is one
+// product per sample with M = O, N = T and K = 3 * C_in; dx is the same
+// product over dc with A[i][(o, tap)] = w[o, i, 2 - tap] (M = C_in, K = 3 *
+// O), as conv_accumulate's TRANSW staging.
+//
+// Bound: operations.  256 -> 512 at N = 32, T = 750 is 18.9 GFLOP a pass:
+// 0.114 ms at the 3xTF32 rate (495/3 TFLOP/s), 0.28 ms at the f32 FMA
+// peak, against 0.015 ms of bytes (x and y).  The FMA core it replaces
+// (fwd_kernel, dc_kernel, dx_kernel) ran at a third of the FMA peak; its
+// whole-T register tile caps a block at 16 output rows (16 x 768 sums fill
+// the registers), so each staged x value feeds one m16 tile, and T <= 1024.
+//
+// Design (conv_mma_kernel, ConvTile): a block owns BM = 64 output rows x
+// BN = 128 steps of one sample, 8 warps of 32 rows x 32 steps (2 x 4 m16n8
+// tiles), and walks K in slices of BC = 16 channels x 3 taps through a
+// 3-stage cp.async ring (72 KB in f32: two blocks an SM, the same budget as
+// dw_mma_kernel).  Per slice it stages the weights as A[tap][m][ci] and an
+// x slab of the 16 channels x (BN + 4) steps with its zero halo; the three
+// taps read the slab at column offsets 1, 2 and 3, so each x value comes
+// from device memory once per block and row tile.  Rows are padded so that
+// a fragment's 32 lanes fall on 32 banks.  64 rows: the 5 -> 64 layer fills
+// one tile.  128 steps: T = 750 takes 6 tiles (2 % waste).  Timed on an
+// H100 (bench/conv_core.cu, f32, N = 32): the fastest of six tilings at
+// every critic layer; at 256 -> 512 0.532 ms (21 % of the 3xTF32 rate),
+// against 0.602 for 32-channel slices, 0.634 for 128 x 64, 0.642 for
+// 128 x 128 and 0.779 for 64 x 64 tiles (a fourth stage: 0.529); with
+// row_kernel, the in_relu forward takes 0.580 against fwd_kernel's 0.886.
+// The same loop without the TF32 split reads 0.412 ms, and with one
+// product instead of three 0.292: the split costs a fifth of the time, and
+// the staging and the rest of the loop more than the products.
+// The tile has no T limit: a whole row of c is never held.
+//   f32: m16n8k8 TF32 with the 3xTF32 split; each slice sums from zero in
+//   the tensor cores and is added to the running sums in f32 outside them
+//   (one running sum on the tensor cores read 1.45e-5 at dw).  bf16:
+//   m16n8k16 with f32 accumulation, staged values rounded as round_to does
+//   (dc to bf16 before dx's product).
+//   Epilogue: + bias, relu in the relu mode, stored in the output type.
+//   The in_relu mode stores c in f32 (the wrapper's scratch, or the dc
+//   scratch itself) and row_kernel, a warp per (n, o) row, takes the
+//   one-pass statistics over T and writes y, or dc over c in place.  The
+//   round trip of c costs 2 x 49 MB at 256 -> 512, about 0.03 ms.
+//
+// Below kConvStreamBelow output channels (the 512 -> 1 score layer) the
+// forward is conv_stream_kernel.  Bound: bytes, x read once (49 MB, 14.7
+// us at 3.35 TB/s); a 64-row tile would leave 63 rows empty.  A block owns
+// 64 steps of one sample, each lane two adjacent steps read as one vector
+// where T and x's alignment allow (the halo from the neighbouring lanes by
+// shuffles); its 8 warps walk 8 slabs of the input channels in order and
+// their sums are added in warp order.  dx below 16 output channels (K = 3 *
+// O) keeps dx_kernel.
+
+constexpr int kConvStreamBelow = 16;  // O below this: the forward streams over x
+constexpr int kStreamSteps = 64;      // steps of a streaming block, two a lane
+
+// The tiling of conv_mma_kernel for the product's type T (conv3.py:
+// CONV_TILE_M, CONV_TILE_N).  A stage holds A[tap][m][ci] = W(m0 + m,
+// c0 + ci, tap) in rows of kLdA floats and X[ci][j] = source channel
+// c0 + ci at step t0 - 2 + j (zero outside [0, T)) in rows of kLdX floats.
+// The TF32 fragments read A at (g, q) and X at (q, g): kLdA = 4 (mod 8)
+// and kLdX = 8 (mod 32) put the 32 lanes on 32 banks.  The bf16 fragments
+// read A as pairs at (g, 2q) and X at (2q, g): kLdA = 8 (mod 32) and kLdX
+// = 4 (mod 16).  The slab starts 2 steps early so 8-byte copies stay
+// aligned where T is even.
+template <typename T>
+struct ConvTile {
+  static constexpr int BM = 64, BN = 128, BC = 16, STAGES = 3, WM = 2;
+  static constexpr int WN = kWarps / WM;    // warps along the steps
+  static constexpr int kMI = BM / WM / 16;  // m16 tiles per warp
+  static constexpr int kNI = BN / WN / 8;   // n8 tiles per warp
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr int kLdA = kF32 ? BC + 4 : BC + 8;
+  static constexpr int kLdX = kF32 ? BN + 8 : BN + 4;
+  static constexpr int kXCols = BN + 4;  // filled columns: steps t0 - 2 .. t0 + BN + 1
+  static constexpr int kAFloats = 3 * BM * kLdA;
+  static constexpr int kStage = kAFloats + BC * kLdX;
+  static constexpr int kSmemBytes = (int)sizeof(float) * STAGES * kStage;
+  static_assert(kXCols <= kLdX && kMI >= 1 && kNI >= 1, "ConvTile: bad shape");
+};
+
+// Stage K slice (channels c0 ..) for the block's rows m0 .. and steps
+// t0 .. of one sample: src is the sample's (kdim, len) source rows (x, or
+// dc for dx), W(m, i, tap) is w[(m * kdim + i) * 3 + tap], or with TRANSW
+// (dx: m is a layer input channel, i a layer output channel)
+// w[(i * mdim + m) * 3 + 2 - tap].  f32 goes in by cp.async (8-byte copies
+// of the source with PAIRS: T even, src 8-byte aligned, each pair wholly
+// inside or outside [0, T) as t0 is even); bf16 is converted on its way in
+// with plain loads.
+template <typename Tile, typename T, typename TB, bool TRANSW, bool PAIRS>
+__device__ __forceinline__ void conv_fill(float* st, const TB* __restrict__ src,
+                                          const T* __restrict__ w, int c0, int m0, int t0,
+                                          int kdim, int mdim, int len) {
+  constexpr int BM = Tile::BM, BC = Tile::BC, kLdA = Tile::kLdA, kLdX = Tile::kLdX;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < BM * BC * 3; e += kThreads) {
+    // consecutive e read consecutive weights
+    int m, ci, k;
+    if constexpr (TRANSW) {
+      ci = e / (BM * 3);
+      const int r = e - ci * (BM * 3);
+      m = r / 3;
+      k = r - m * 3;
+    } else {
+      m = e / (BC * 3);
+      const int r = e - m * (BC * 3);
+      ci = r / 3;
+      k = r - ci * 3;
+    }
+    const bool in = m0 + m < mdim && c0 + ci < kdim;
+    const size_t gi = TRANSW ? ((size_t)(c0 + ci) * mdim + m0 + m) * 3 + k
+                             : ((size_t)(m0 + m) * kdim + c0 + ci) * 3 + k;
+    float* dst = st + ((TRANSW ? 2 - k : k) * BM + m) * kLdA + ci;
+    if constexpr (Tile::kF32)
+      cp_async4(dst, in ? w + gi : w, in);
+    else
+      *dst = in ? to_f32(w[gi]) : 0.f;
+  }
+  constexpr int W = PAIRS ? 2 : 1;
+  constexpr int kRow = Tile::kXCols / W;
+  float* xs = st + Tile::kAFloats;
+#pragma unroll 2
+  for (int e = threadIdx.x; e < BC * kRow; e += kThreads) {
+    const int ci = e / kRow, j = (e - ci * kRow) * W;
+    const int t = t0 - 2 + j;
+    const bool in = c0 + ci < kdim && t >= 0 && t < len;
+    const TB* p = in ? src + (size_t)(c0 + ci) * len + t : src;
+    float* dst = xs + ci * kLdX + j;
+    if constexpr (!std::is_same<TB, float>::value) {
+      dst[0] = in ? to_f32(p[0]) : 0.f;
+      if constexpr (PAIRS) dst[1] = in ? to_f32(p[1]) : 0.f;
+    } else if constexpr (PAIRS) {
+      cp_async8(dst, p, in);
+    } else {
+      cp_async4(dst, p, in);
+    }
+  }
+}
+
+// acc[mi][ni] += the warp's share of the staged slice at st: rows
+// (wr * kMI + mi) * 16 .., steps (wc * kNI + ni) * 8 .., over the slice's
+// 16 channels x 3 taps.  g = lane / 4 and q = lane % 4 index the
+// fragments as the PTX ISA lays them out.
+template <typename Tile>
+__device__ __forceinline__ void conv_mma_slice(const float* st, int wr, int wc, int g, int q,
+                                               float (&acc)[Tile::kMI][Tile::kNI][4]) {
+  constexpr int kLdA = Tile::kLdA, kLdX = Tile::kLdX, kMI = Tile::kMI, kNI = Tile::kNI;
+  constexpr int kTap = Tile::BM * kLdA;  // A's stride between taps
+  const float* A = st + (wr * kMI * 16 + g) * kLdA;
+  // column j of the slab is step t0 - 2 + j: tap k of step t0 + s reads s + k + 1
+  const float* X = st + Tile::kAFloats + wc * kNI * 8 + g + 1;
+  if constexpr (Tile::kF32) {
+#pragma unroll
+    for (int tap = 0; tap < 3; ++tap) {
+#pragma unroll
+      for (int kc = 0; kc < Tile::BC; kc += 8) {
+        unsigned ab[kMI][4], as[kMI][4];
+#pragma unroll
+        for (int mi = 0; mi < kMI; ++mi) {
+          const float* r = A + tap * kTap + mi * 16 * kLdA + kc + q;
+          split_tf32(r[0], ab[mi][0], as[mi][0]);
+          split_tf32(r[8 * kLdA], ab[mi][1], as[mi][1]);
+          split_tf32(r[4], ab[mi][2], as[mi][2]);
+          split_tf32(r[8 * kLdA + 4], ab[mi][3], as[mi][3]);
+        }
+#pragma unroll
+        for (int ni = 0; ni < kNI; ++ni) {
+          const float* xr = X + (kc + q) * kLdX + ni * 8 + tap;
+          unsigned b0, b0s, b1, b1s;
+          split_tf32(xr[0], b0, b0s);
+          split_tf32(xr[4 * kLdX], b1, b1s);
+#pragma unroll
+          for (int mi = 0; mi < kMI; ++mi) {
+            mma_tf32(acc[mi][ni], as[mi], b0, b1);
+            mma_tf32(acc[mi][ni], ab[mi], b0s, b1s);
+            mma_tf32(acc[mi][ni], ab[mi], b0, b1);
+          }
+        }
+      }
+    }
+  } else {
+    static_assert(Tile::BC == 16, "one m16n8k16 step per tap");
+#pragma unroll
+    for (int tap = 0; tap < 3; ++tap) {
+      unsigned a[kMI][4];
+#pragma unroll
+      for (int mi = 0; mi < kMI; ++mi) {
+        const float* r = A + tap * kTap + mi * 16 * kLdA + 2 * q;
+        const float2 r0 = *reinterpret_cast<const float2*>(r);
+        const float2 r1 = *reinterpret_cast<const float2*>(r + 8 * kLdA);
+        const float2 r2 = *reinterpret_cast<const float2*>(r + 8);
+        const float2 r3 = *reinterpret_cast<const float2*>(r + 8 * kLdA + 8);
+        a[mi][0] = pack_bf16(r0.x, r0.y);
+        a[mi][1] = pack_bf16(r1.x, r1.y);
+        a[mi][2] = pack_bf16(r2.x, r2.y);
+        a[mi][3] = pack_bf16(r3.x, r3.y);
+      }
+#pragma unroll
+      for (int ni = 0; ni < kNI; ++ni) {
+        const float* xr = X + 2 * q * kLdX + ni * 8 + tap;
+        const unsigned b0 = pack_bf16(xr[0], xr[kLdX]);
+        const unsigned b1 = pack_bf16(xr[8 * kLdX], xr[9 * kLdX]);
+#pragma unroll
+        for (int mi = 0; mi < kMI; ++mi) mma_bf16(acc[mi][ni], a[mi], b0, b1);
+      }
+    }
+  }
+}
+
+template <typename T> __device__ __forceinline__ void store2(T* p, float a, float b);
+template <> __device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+template <> __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// out[n, m, t] = (bias[m] if bias) + the product's (m, t) entry, relu'd with
+// RELU, in TOUT.  One block per (BN steps, BM rows, sample), walking the K
+// slices through the cp.async ring.  PAIRS also means out is 2-element
+// aligned, so the stores go in pairs.
+template <typename Tile, typename T, typename TB, typename TOUT, bool TRANSW, bool RELU, bool PAIRS>
+__global__ void __launch_bounds__(kThreads, 2)
+conv_mma_kernel(const TB* __restrict__ src, const T* __restrict__ w, const T* __restrict__ bias,
+                TOUT* __restrict__ out, int kdim, int mdim, int len) {
+  extern __shared__ __align__(16) float conv_smem[];
+  constexpr int kMI = Tile::kMI, kNI = Tile::kNI, S = Tile::STAGES;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int wr = warp % Tile::WM, wc = warp / Tile::WM;
+  const int t0 = blockIdx.x * Tile::BN, m0 = blockIdx.y * Tile::BM, n = blockIdx.z;
+  const TB* srcn = src + (size_t)n * kdim * len;
+  const int slices = (kdim + Tile::BC - 1) / Tile::BC;
+  float acc[kMI][kNI][4] = {};
+
+#pragma unroll
+  for (int st = 0; st < S - 1; ++st) {
+    if (st < slices)
+      conv_fill<Tile, T, TB, TRANSW, PAIRS>(conv_smem + st * Tile::kStage, srcn, w,
+                                            st * Tile::BC, m0, t0, kdim, mdim, len);
+    cp_async_commit();
+  }
+  for (int i = 0; i < slices; ++i) {
+    cp_async_wait<S - 2>();  // slice i has landed
+    __syncthreads();         // ... for every thread; slice i-1's stage is free
+    const int next = i + S - 1;
+    if (next < slices)
+      conv_fill<Tile, T, TB, TRANSW, PAIRS>(conv_smem + next % S * Tile::kStage, srcn, w,
+                                            next * Tile::BC, m0, t0, kdim, mdim, len);
+    cp_async_commit();
+    float sl[kMI][kNI][4] = {};
+    conv_mma_slice<Tile>(conv_smem + i % S * Tile::kStage, wr, wc, g, q, sl);
+#pragma unroll
+    for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < kNI; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] += sl[mi][ni][e];
+  }
+
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // rows g and g + 8 of the m16 tile
+      const int m = m0 + (wr * kMI + mi) * 16 + g + 8 * h;
+      if (m >= mdim) continue;
+      const float bm = bias != nullptr ? to_f32(bias[m]) : 0.f;
+      TOUT* row = out + ((size_t)n * mdim + m) * len;
+#pragma unroll
+      for (int ni = 0; ni < kNI; ++ni) {
+        const int t = t0 + (wc * kNI + ni) * 8 + 2 * q;
+        float v0 = acc[mi][ni][2 * h] + bm, v1 = acc[mi][ni][2 * h + 1] + bm;
+        if (RELU) {
+          v0 = relu(v0);
+          v1 = relu(v1);
+        }
+        if (PAIRS) {
+          if (t < len) store2(row + t, v0, v1);
+        } else {
+          if (t < len) store(row + t, v0);
+          if (t + 1 < len) store(row + t + 1, v1);
+        }
+      }
+    }
+  }
+}
+
+// The forward below kConvStreamBelow output channels: out[n, o, t] =
+// bias[o] + the conv, in TOUT, for o < cout <= OMAX.  One block per (64
+// steps, sample); warp wi sums the input channels [cin * wi / 8,
+// cin * (wi + 1) / 8) in order, each lane its two steps t, t + 1 (one
+// VEC = 2 load: T even, x aligned), with t - 1 and t + 2 from the
+// neighbouring lanes; the warps' sums are added in warp order.
+template <typename T, typename TOUT, int OMAX, int VEC>
+__global__ void __launch_bounds__(kThreads)
+conv_stream_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ bias,
+                   TOUT* __restrict__ out, int cin, int cout, int len) {
+  __shared__ float red[kWarps][OMAX][kStreamSteps];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t0 = blockIdx.x * kStreamSteps, n = blockIdx.y;
+  const int t = t0 + 2 * lane;
+  const int c_lo = (int)((long long)cin * warp / kWarps);
+  const int c_hi = (int)((long long)cin * (warp + 1) / kWarps);
+  const T* xn = x + (size_t)n * cin * len;
+  float acc[OMAX][2];
+#pragma unroll
+  for (int o = 0; o < OMAX; ++o) acc[o][0] = acc[o][1] = 0.f;
+#pragma unroll 8
+  for (int c = c_lo; c < c_hi; ++c) {
+    const T* row = xn + (size_t)c * len;
+    float v0 = 0.f, v1 = 0.f;
+    if constexpr (VEC == 2) {
+      if (t < len) {  // T even: t + 1 < T too
+        const VecOf<T, 2> p = *reinterpret_cast<const VecOf<T, 2>*>(row + t);
+        v0 = to_f32(p.v[0]);
+        v1 = to_f32(p.v[1]);
+      }
+    } else {
+      if (t < len) v0 = to_f32(row[t]);
+      if (t + 1 < len) v1 = to_f32(row[t + 1]);
+    }
+    float left = __shfl_up_sync(0xffffffffu, v1, 1);
+    float right = __shfl_down_sync(0xffffffffu, v0, 1);
+    if (lane == 0) left = t0 > 0 ? to_f32(row[t0 - 1]) : 0.f;
+    if (lane == 31) right = t + 2 < len ? to_f32(row[t + 2]) : 0.f;
+#pragma unroll
+    for (int o = 0; o < OMAX; ++o) {
+      if (o < cout) {
+        const T* wr = w + ((size_t)o * cin + c) * 3;
+        const float w0 = to_f32(wr[0]), w1 = to_f32(wr[1]), w2 = to_f32(wr[2]);
+        acc[o][0] = fmaf(w2, v1, fmaf(w1, v0, fmaf(w0, left, acc[o][0])));
+        acc[o][1] = fmaf(w2, right, fmaf(w1, v1, fmaf(w0, v0, acc[o][1])));
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 0; o < OMAX; ++o) {
+    red[warp][o][2 * lane] = acc[o][0];
+    red[warp][o][2 * lane + 1] = acc[o][1];
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < OMAX * kStreamSteps; e += kThreads) {
+    const int o = e / kStreamSteps, j = e - o * kStreamSteps;
+    if (o >= cout || t0 + j >= len) continue;
+    float v = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < kWarps; ++wi) v += red[wi][o][j];
+    if (bias != nullptr) v += to_f32(bias[o]);
+    store(out + ((size_t)n * cout + o) * len + t0 + j, v);
+  }
+}
+
+// What row_kernel does with a row of c (f32):
+//   kRowInReluFwd  y = relu((c - mean) * rsig), in T
+//   kRowReluFwd    y = relu(c), in T
+//   kRowInReluDc   c becomes dc = rsig * (g - mean g - xhat * mean(g * xhat)),
+//                  g = dy * (xhat > 0)
+//   kRowReluDc     c becomes dc = dy * (c > 0)
+// with mean and rsig = rsqrt(max(E[c^2] - mean^2, 0) + eps) over T.
+enum RowMode { kRowInReluFwd = 0, kRowReluFwd = 1, kRowInReluDc = 2, kRowReluDc = 3 };
+
+// One warp per (n, o) row of c (n * cout rows of len); each lane sums its
+// strided steps in order and the warp adds the lanes' sums in a fixed tree,
+// so a row's statistics come out the same every run.  A row is read a few
+// times, from L1 after the first.
+template <typename T, int ROW>
+__global__ void __launch_bounds__(kThreads)
+row_kernel(float* __restrict__ c, const T* __restrict__ dy, T* __restrict__ y, int rows, int len) {
+  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (r >= rows) return;  // whole warps
+  float* cr = c + (size_t)r * len;
+  const size_t base = (size_t)r * len;
+  if constexpr (ROW == kRowReluFwd) {
+    for (int t = lane; t < len; t += 32) store(y + base + t, relu(cr[t]));
+    return;
+  }
+  if constexpr (ROW == kRowReluDc) {
+    for (int t = lane; t < len; t += 32) cr[t] = to_f32(dy[base + t]) * step(cr[t]);
+    return;
+  }
+  float s = 0.f, q = 0.f;
+  for (int t = lane; t < len; t += 32) {
+    const float v = cr[t];
+    s += v;
+    q += v * v;
+  }
+  s = warp_sum(s);
+  q = warp_sum(q);
+  const float mean = s / (float)len;
+  float var = q / (float)len - mean * mean;
+  var = var < 0.f ? 0.f : var;
+  const float rsig = rsqrtf(var + kEps);
+  if constexpr (ROW == kRowInReluFwd) {
+    for (int t = lane; t < len; t += 32) store(y + base + t, relu((cr[t] - mean) * rsig));
+    return;
+  }
+  float sg = 0.f, sgx = 0.f;
+  for (int t = lane; t < len; t += 32) {
+    const float xh = (cr[t] - mean) * rsig;
+    const float gv = to_f32(dy[base + t]) * step(xh);
+    sg += gv;
+    sgx += gv * xh;
+  }
+  const float mg = warp_sum(sg) / (float)len;
+  const float mgx = warp_sum(sgx) / (float)len;
+  for (int t = lane; t < len; t += 32) {
+    const float xh = (cr[t] - mean) * rsig;
+    const float gv = to_f32(dy[base + t]) * step(xh);
+    cr[t] = rsig * ((gv - mg) - xh * mgx);
+  }
+}
+
 // ---- host launchers ---------------------------------------------------------
 
 bool shape_ok(int n, int cin, int cout, int len) {
@@ -825,11 +1226,12 @@ bool shape_ok(int n, int cin, int cout, int len) {
     default: return cudaErrorInvalidValue;                  \
   }
 
-template <typename T, int MODE>
+// The generator's forward (K1f): y (n, cout, len) in T.
+template <typename T>
 cudaError_t launch_fwd(const void* x, const void* w, const void* b, void* y, int n,
                        int cin, int cout, int len, cudaStream_t stream) {
   const dim3 grid((cout + kOTile - 1) / kOTile, n);
-  SCGRHC_TPT_SWITCH(len, fwd_kernel<T, MODE, TPT><<<grid, kThreads, 0, stream>>>(
+  SCGRHC_TPT_SWITCH(len, fwd_kernel<T, TPT><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b),
       static_cast<T*>(y), cin, cout, len));
   return cudaGetLastError();
@@ -856,42 +1258,66 @@ cudaError_t launch_dw_stream(const float* dc, const T* x, float* part, int n, in
                              stream);
 }
 
-// The backward of one layer: dc into the f32 scratch dc (n, cout, len)
-// (in the linear mode on f32, dc is dy itself and the scratch is unused),
-// then dx (n, cin, len) in T unless dx is null, then dw (cout, cin, 3) and
-// db (cout,) in f32 unless dw is null, through the f32 scratch part
+// dc = dy as f32 in the linear mode: dy itself on f32 (the scratch dc is
+// then unused), else converted into dc.
+template <typename T>
+const float* dc_linear(const void* dy, void* dc, int n, int cout, int len, cudaStream_t stream) {
+  if constexpr (std::is_same<T, float>::value) {
+    return static_cast<const float*>(dy);
+  } else {
+    const size_t count = (size_t)n * cout * len;
+    dc_linear_kernel<T><<<(unsigned)((count + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+        static_cast<const T*>(dy), static_cast<float*>(dc), count);
+    return static_cast<const float*>(dc);
+  }
+}
+
+// The dx pass on the FMA units (dx_kernel): dx (n, cin, len) in T from the
+// f32 dc (n, cout, len).
+template <typename T>
+cudaError_t launch_dx_fma(const float* dc, const void* w, void* dx, int n, int cin, int cout,
+                          int len, cudaStream_t stream) {
+  const dim3 grid((cin + kOTile - 1) / kOTile, n);
+  SCGRHC_TPT_SWITCH(len, dx_kernel<T, TPT><<<grid, kThreads, 0, stream>>>(
+      dc, static_cast<const T*>(w), static_cast<T*>(dx), cin, cout, len));
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dw(const float* dcp, const T* xp, void* dw, void* db, void* part, int n,
+                      int cin, int cout, int len, int nsplit, cudaStream_t stream);
+
+// The generator's backward (K1b): dc into the f32 scratch dc (n, cout,
+// len), then dx (n, cin, len) in T unless dx is null, then dw (cout, cin,
+// 3) and db (cout,) in f32 unless dw is null, through the f32 scratch part
 // (nsplit, cout, 3 * cin), or (nsplit, cout, 3 * cin + 1) on the streaming
 // path (cout < kDwStreamBelow).
-template <typename T, int MODE>
+template <typename T>
 cudaError_t launch_bwd(const void* x, const void* w, const void* b, const void* dy,
                        void* dx, void* dw, void* db, void* dc, void* part, int n,
                        int cin, int cout, int len, int nsplit, cudaStream_t stream) {
   const T* xp = static_cast<const T*>(x);
-  const T* wp = static_cast<const T*>(w);
-  const T* bp = static_cast<const T*>(b);
-  const T* dyp = static_cast<const T*>(dy);
   const float* dcp = static_cast<const float*>(dc);
-  if constexpr (MODE == kLinear && std::is_same<T, float>::value) {
-    dcp = static_cast<const float*>(dy);
-  } else if constexpr (MODE == kLinear) {
-    const size_t count = (size_t)n * cout * len;
-    dc_linear_kernel<T><<<(unsigned)((count + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-        dyp, static_cast<float*>(dc), count);
-  } else {
-    const dim3 grid((cout + kOTile - 1) / kOTile, n);
-    SCGRHC_TPT_SWITCH(len, dc_kernel<T, MODE, TPT><<<grid, kThreads, 0, stream>>>(
-        xp, wp, bp, dyp, static_cast<float*>(dc), cin, cout, len));
-  }
+  const dim3 grid((cout + kOTile - 1) / kOTile, n);
+  SCGRHC_TPT_SWITCH(len, dc_kernel<T, TPT><<<grid, kThreads, 0, stream>>>(
+      xp, static_cast<const T*>(w), static_cast<const T*>(b), static_cast<const T*>(dy),
+      static_cast<float*>(dc), cin, cout, len));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (dx != nullptr) {
-    const dim3 grid((cin + kOTile - 1) / kOTile, n);
-    SCGRHC_TPT_SWITCH(len, dx_kernel<T, TPT><<<grid, kThreads, 0, stream>>>(
-        dcp, wp, static_cast<T*>(dx), cin, cout, len));
-    err = cudaGetLastError();
+    err = launch_dx_fma<T>(dcp, w, dx, n, cin, cout, len, stream);
     if (err != cudaSuccess) return err;
   }
   if (dw == nullptr) return err;
+  return launch_dw<T>(dcp, xp, dw, db, part, n, cin, cout, len, nsplit, stream);
+}
+
+// The dw pass: dw (cout, cin, 3) and db (cout,) in f32 from the f32 dc,
+// through the scratch part (launch_bwd).
+template <typename T>
+cudaError_t launch_dw(const float* dcp, const T* xp, void* dw, void* db, void* part, int n,
+                      int cin, int cout, int len, int nsplit, cudaStream_t stream) {
+  cudaError_t err;
   float* partp = static_cast<float*>(part);
   int stride = 3 * cin;
   if (cout < kDwStreamBelow) {
@@ -911,6 +1337,177 @@ cudaError_t launch_bwd(const void* x, const void* w, const void* b, const void* 
   dw_reduce_kernel<<<(count + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
       partp, static_cast<float*>(dw), static_cast<float*>(db), cin, cout, stride, nsplit);
   return cudaGetLastError();
+}
+
+// ---- the critic's launchers -------------------------------------------------
+
+// The conv passes of the critic's layer: the forward (K2f), the recompute
+// of c at the head of the dc pass (K2dx, K2dw), and dx (K2dx).
+enum ConvPass { kPassFwd = 0, kPassDc = 1, kPassDx = 2 };
+enum ConvPath { kPathNone = 0, kPathMma = 1, kPathStream = 2, kPathFma = 3 };
+
+// A pass's launch plan (conv3.py's conv_plan mirrors it): the conv
+// kernel's path and grid, the row pass's blocks (0: none), and whether the
+// forward writes c into the wrapper's f32 scratch (n, cout, len) first.
+struct ConvPlan {
+  int path;
+  dim3 grid;
+  int row_blocks;
+  bool scratch;
+};
+
+static_assert(ConvTile<float>::BM == ConvTile<__nv_bfloat16>::BM &&
+                  ConvTile<float>::BN == ConvTile<__nv_bfloat16>::BN,
+              "one grid for both types");
+
+unsigned cdiv(long long a, long long b) { return (unsigned)((a + b - 1) / b); }
+
+ConvPlan conv_plan(int n, int cin, int cout, int len, int mode, int pass) {
+  constexpr int BM = ConvTile<float>::BM, BN = ConvTile<float>::BN;
+  ConvPlan p{kPathNone, dim3(0, 0, 0), 0, false};
+  if (pass == kPassDx) {
+    // M = cin, K = 3 * cout: below 16 output channels K is too short for a tile
+    p.path = cout < kConvStreamBelow ? kPathFma : kPathMma;
+    p.grid = p.path == kPathFma ? dim3(cdiv(cin, kOTile), n, 1)
+                                : dim3(cdiv(len, BN), cdiv(cin, BM), n);
+    return p;
+  }
+  if (pass == kPassDc && mode == kLinear) return p;  // dc = dy
+  const bool stream = cout < kConvStreamBelow;
+  p.path = stream ? kPathStream : kPathMma;
+  p.grid = stream ? dim3(cdiv(len, kStreamSteps), n, 1) : dim3(cdiv(len, BN), cdiv(cout, BM), n);
+  // the conv kernels' epilogues add the bias and relu; the rest is the row pass's
+  const bool row = mode == kInRelu || (mode == kRelu && (stream || pass == kPassDc));
+  p.row_blocks = row ? (int)cdiv((long long)n * cout, kWarps) : 0;
+  p.scratch = pass == kPassFwd && row;
+  return p;
+}
+
+// Lets the kernel K take smem bytes of dynamic shared memory (past 48 KB);
+// the attribute is set on the first call only, which keeps the host call
+// off the launch path (and out of a CUDA graph's capture).
+template <auto K>
+cudaError_t allow_smem(int smem) {
+  static const cudaError_t err =
+      cudaFuncSetAttribute(K, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  return err;
+}
+
+template <typename T, typename TB, typename TOUT, bool TRANSW, bool RELU>
+cudaError_t launch_conv_mma(dim3 grid, const TB* src, const T* w, const T* bias, TOUT* out,
+                            int kdim, int mdim, int len, cudaStream_t stream) {
+  using Tile = ConvTile<T>;
+  constexpr auto kPairs = &conv_mma_kernel<Tile, T, TB, TOUT, TRANSW, RELU, true>;
+  constexpr auto kSingle = &conv_mma_kernel<Tile, T, TB, TOUT, TRANSW, RELU, false>;
+  const bool pairs = len % 2 == 0 &&
+                     (!std::is_same<TB, float>::value ||
+                      reinterpret_cast<uintptr_t>(src) % 8 == 0) &&
+                     reinterpret_cast<uintptr_t>(out) % (2 * sizeof(TOUT)) == 0;
+  const cudaError_t e = pairs ? allow_smem<kPairs>(Tile::kSmemBytes)
+                              : allow_smem<kSingle>(Tile::kSmemBytes);
+  if (e != cudaSuccess) return e;
+  const auto kernel = pairs ? kPairs : kSingle;
+  kernel<<<grid, kThreads, Tile::kSmemBytes, stream>>>(src, w, bias, out, kdim, mdim, len);
+  return cudaGetLastError();
+}
+
+// The streaming forward with 8-byte (f32) or 4-byte (bf16) loads where T
+// and x's alignment allow.
+template <typename T, typename TOUT>
+cudaError_t launch_conv_stream(dim3 grid, const T* x, const T* w, const T* bias, TOUT* out,
+                               int cin, int cout, int len, cudaStream_t stream) {
+  const bool vec = len % 2 == 0 && reinterpret_cast<uintptr_t>(x) % (2 * sizeof(T)) == 0;
+  constexpr int kMax = kConvStreamBelow - 1;
+  const auto kernel = cout == 1 ? (vec ? &conv_stream_kernel<T, TOUT, 1, 2>
+                                       : &conv_stream_kernel<T, TOUT, 1, 1>)
+                                : (vec ? &conv_stream_kernel<T, TOUT, kMax, 2>
+                                       : &conv_stream_kernel<T, TOUT, kMax, 1>);
+  kernel<<<grid, kThreads, 0, stream>>>(x, w, bias, out, cin, cout, len);
+  return cudaGetLastError();
+}
+
+// out = conv1d(x, w, padding=1) + b (relu'd with RELU, which only the
+// tensor-core path takes) on the plan's path.
+template <typename T, typename TOUT, bool RELU>
+cudaError_t launch_critic_conv(const ConvPlan& p, const T* x, const T* w, const T* b, TOUT* out,
+                               int cin, int cout, int len, cudaStream_t stream) {
+  if (p.path == kPathMma)
+    return launch_conv_mma<T, T, TOUT, false, RELU>(p.grid, x, w, b, out, cin, cout, len, stream);
+  if constexpr (!RELU) {
+    if (p.path == kPathStream)
+      return launch_conv_stream<T, TOUT>(p.grid, x, w, b, out, cin, cout, len, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, int ROW>
+cudaError_t launch_row(int blocks, float* c, const T* dy, T* y, int rows, int len,
+                       cudaStream_t stream) {
+  row_kernel<T, ROW><<<blocks, kThreads, 0, stream>>>(c, dy, y, rows, len);
+  return cudaGetLastError();
+}
+
+// The critic's forward: y (n, cout, len) in T; c is the f32 scratch
+// (n, cout, len) where conv_plan asks for one, else null.
+template <typename T, int MODE>
+cudaError_t launch_critic_fwd(const void* x, const void* w, const void* b, void* y, void* c,
+                              int n, int cin, int cout, int len, cudaStream_t stream) {
+  const ConvPlan p = conv_plan(n, cin, cout, len, MODE, kPassFwd);
+  if (p.scratch != (c != nullptr)) return cudaErrorInvalidValue;
+  const T* xp = static_cast<const T*>(x);
+  const T* wp = static_cast<const T*>(w);
+  const T* bp = static_cast<const T*>(b);
+  T* yp = static_cast<T*>(y);
+  if constexpr (MODE == kLinear) {
+    return launch_critic_conv<T, T, false>(p, xp, wp, bp, yp, cin, cout, len, stream);
+  } else {
+    if (!p.scratch)
+      return launch_critic_conv<T, T, MODE == kRelu>(p, xp, wp, bp, yp, cin, cout, len, stream);
+    float* cp = static_cast<float*>(c);
+    const cudaError_t err = launch_critic_conv<T, float, false>(p, xp, wp, bp, cp, cin, cout,
+                                                                len, stream);
+    if (err != cudaSuccess) return err;
+    constexpr int kRow = MODE == kInRelu ? kRowInReluFwd : kRowReluFwd;
+    return launch_row<T, kRow>(p.row_blocks, cp, nullptr, yp, n * cout, len, stream);
+  }
+}
+
+// The critic's backward, as launch_bwd: dc into the f32 scratch dc
+// (c recomputed there, then the row pass over it), dx, then dw and db.
+template <typename T, int MODE>
+cudaError_t launch_critic_bwd(const void* x, const void* w, const void* b, const void* dy,
+                              void* dx, void* dw, void* db, void* dc, void* part, int n,
+                              int cin, int cout, int len, int nsplit, cudaStream_t stream) {
+  const T* xp = static_cast<const T*>(x);
+  const T* wp = static_cast<const T*>(w);
+  float* dcw = static_cast<float*>(dc);
+  const float* dcp = dcw;
+  cudaError_t err;
+  if constexpr (MODE == kLinear) {
+    dcp = dc_linear<T>(dy, dc, n, cout, len, stream);
+    err = cudaGetLastError();
+  } else {
+    const ConvPlan p = conv_plan(n, cin, cout, len, MODE, kPassDc);
+    err = launch_critic_conv<T, float, false>(p, xp, wp, static_cast<const T*>(b), dcw, cin,
+                                              cout, len, stream);
+    constexpr int kRow = MODE == kInRelu ? kRowInReluDc : kRowReluDc;
+    if (err == cudaSuccess)
+      err = launch_row<T, kRow>(p.row_blocks, dcw, static_cast<const T*>(dy), nullptr, n * cout,
+                                len, stream);
+  }
+  if (err != cudaSuccess) return err;
+  if (dx != nullptr) {
+    const ConvPlan p = conv_plan(n, cin, cout, len, MODE, kPassDx);
+    // a conv from cout channels (dc) to cin channels (dx), w read transposed
+    err = p.path == kPathMma
+              ? launch_conv_mma<T, float, T, true, false>(p.grid, dcp, wp, nullptr,
+                                                          static_cast<T*>(dx), cout, cin, len,
+                                                          stream)
+              : launch_dx_fma<T>(dcp, w, dx, n, cin, cout, len, stream);
+    if (err != cudaSuccess) return err;
+  }
+  if (dw == nullptr) return err;
+  return launch_dw<T>(dcp, xp, dw, db, part, n, cin, cout, len, nsplit, stream);
 }
 
 }  // namespace

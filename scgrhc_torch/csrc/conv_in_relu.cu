@@ -38,9 +38,9 @@ extern "C" int scgrhc_conv_in_relu(const void* x, const void* w, const void* b,
                                    int dtype, void* stream) {
   if (!shape_ok(n, cin, cout, len)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_fwd<float, kInRelu>(x, w, b, y, n, cin, cout, len, s);
+  if (dtype == 0) return (int)launch_fwd<float>(x, w, b, y, n, cin, cout, len, s);
   if (dtype == 1)
-    return (int)launch_fwd<__nv_bfloat16, kInRelu>(x, w, b, y, n, cin, cout, len, s);
+    return (int)launch_fwd<__nv_bfloat16>(x, w, b, y, n, cin, cout, len, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -58,10 +58,10 @@ extern "C" int scgrhc_conv_in_relu_bwd(const void* x, const void* w, const void*
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch_bwd<float, kInRelu>(x, w, b, dy, dx, dw, db, dc, part, n, cin, cout,
+    return (int)launch_bwd<float>(x, w, b, dy, dx, dw, db, dc, part, n, cin, cout,
                                            len, nsplit, s);
   if (dtype == 1)
-    return (int)launch_bwd<__nv_bfloat16, kInRelu>(x, w, b, dy, dx, dw, db, dc, part, n,
+    return (int)launch_bwd<__nv_bfloat16>(x, w, b, dy, dx, dw, db, dc, part, n,
                                                    cin, cout, len, nsplit, s);
   return (int)cudaErrorInvalidValue;
 }

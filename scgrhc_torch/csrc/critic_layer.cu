@@ -14,16 +14,15 @@
 // What bounds it: operations at the critic's widths (6*C*O*T FLOPs per
 // sample for the conv; K2dx and K2dw add a recompute of c except in the
 // linear mode), except the 512 -> 1 linear layer, where reading x
-// dominates.  K2f, K2dx and K2dw's dc pass run on the f32 FMA units; K2dw's
-// dw product runs on the tensor cores, or for the score layer as a stream
-// over x at the byte bound (conv3.cuh, above dw_mma_kernel).  The
-// second-order pass of the gradient penalty is not a kernel: it
+// dominates.  The conv of the forward, of the dc pass's recompute and of
+// dx runs on the tensor cores (conv3.cuh, above conv_mma_kernel), with a
+// row pass for the instance norm and the dc formulas; below 16 output
+// channels the forward streams over x at the byte bound and dx keeps the
+// FMA kernel (dx_kernel).  K2dw's dw product runs on the tensor cores, or
+// for the score layer as a stream over x (conv3.cuh, above dw_mma_kernel).
+// The second-order pass of the gradient penalty is not a kernel: it
 // differentiates the plain PyTorch version, as the JAX package
 // differentiates its reference under XLA.
-//
-// Design: as conv_in_relu.cu.  In the forward, dc and dx passes, O = 1
-// (conv4) fills one of a block's 16 channel slots and C_in = 5 (conv0) one
-// chunk of 8; both are masked inside the block.
 
 #include "conv3.cuh"
 
@@ -32,12 +31,12 @@ using namespace scgrhc;
 namespace {
 
 template <typename T>
-cudaError_t fwd(int mode, const void* x, const void* w, const void* b, void* y, int n,
+cudaError_t fwd(int mode, const void* x, const void* w, const void* b, void* y, void* c, int n,
                 int cin, int cout, int len, cudaStream_t s) {
   switch (mode) {
-    case kLinear: return launch_fwd<T, kLinear>(x, w, b, y, n, cin, cout, len, s);
-    case kRelu: return launch_fwd<T, kRelu>(x, w, b, y, n, cin, cout, len, s);
-    case kInRelu: return launch_fwd<T, kInRelu>(x, w, b, y, n, cin, cout, len, s);
+    case kLinear: return launch_critic_fwd<T, kLinear>(x, w, b, y, c, n, cin, cout, len, s);
+    case kRelu: return launch_critic_fwd<T, kRelu>(x, w, b, y, c, n, cin, cout, len, s);
+    case kInRelu: return launch_critic_fwd<T, kInRelu>(x, w, b, y, c, n, cin, cout, len, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -48,14 +47,14 @@ cudaError_t bwd(int mode, const void* x, const void* w, const void* b, const voi
                 int len, int nsplit, cudaStream_t s) {
   switch (mode) {
     case kLinear:
-      return launch_bwd<T, kLinear>(x, w, b, dy, dx, dw, db, dc, part, n, cin, cout, len,
-                                    nsplit, s);
+      return launch_critic_bwd<T, kLinear>(x, w, b, dy, dx, dw, db, dc, part, n, cin, cout,
+                                           len, nsplit, s);
     case kRelu:
-      return launch_bwd<T, kRelu>(x, w, b, dy, dx, dw, db, dc, part, n, cin, cout, len,
-                                  nsplit, s);
+      return launch_critic_bwd<T, kRelu>(x, w, b, dy, dx, dw, db, dc, part, n, cin, cout, len,
+                                         nsplit, s);
     case kInRelu:
-      return launch_bwd<T, kInRelu>(x, w, b, dy, dx, dw, db, dc, part, n, cin, cout, len,
-                                    nsplit, s);
+      return launch_critic_bwd<T, kInRelu>(x, w, b, dy, dx, dw, db, dc, part, n, cin, cout,
+                                           len, nsplit, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -64,14 +63,16 @@ cudaError_t bwd(int mode, const void* x, const void* w, const void* b, const voi
 
 // mode: 0 = linear, 1 = relu, 2 = in_relu; dtype: 0 = float32,
 // 1 = bfloat16.  x (n, cin, len), w (cout, cin, 3), b (cout,), y (n, cout,
-// len), all contiguous.  Returns the launch's cudaError_t; no synchronise.
+// len), all contiguous; c an f32 scratch of n*cout*len where the plan
+// (scgrhc_critic_plan, pass 0) asks for one, else null.  Returns the
+// launch's cudaError_t; no synchronise.
 extern "C" int scgrhc_critic_layer_fwd(const void* x, const void* w, const void* b, void* y,
-                                       int n, int cin, int cout, int len, int mode,
+                                       void* c, int n, int cin, int cout, int len, int mode,
                                        int dtype, void* stream) {
   if (!shape_ok(n, cin, cout, len)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)fwd<float>(mode, x, w, b, y, n, cin, cout, len, s);
-  if (dtype == 1) return (int)fwd<__nv_bfloat16>(mode, x, w, b, y, n, cin, cout, len, s);
+  if (dtype == 0) return (int)fwd<float>(mode, x, w, b, y, c, n, cin, cout, len, s);
+  if (dtype == 1) return (int)fwd<__nv_bfloat16>(mode, x, w, b, y, c, n, cin, cout, len, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -96,4 +97,21 @@ extern "C" int scgrhc_critic_layer_bwd(const void* x, const void* w, const void*
     return (int)bwd<__nv_bfloat16>(mode, x, w, b, dy, dx, dw, db, dc, part, n, cin, cout, len,
                                    nsplit, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The launch plan of a conv pass (0 forward, 1 the dc pass's recompute,
+// 2 dx) as the launchers take it: out[0..5] = path (0 none, 1 mma,
+// 2 stream, 3 fma), the grid's x, y, z, the row pass's blocks, and 1 when
+// the forward needs the f32 scratch c.  conv3.py's conv_plan mirrors it.
+// Returns 0.
+extern "C" int scgrhc_critic_plan(int n, int cin, int cout, int len, int mode, int pass,
+                                  int* out) {
+  const ConvPlan p = conv_plan(n, cin, cout, len, mode, pass);
+  out[0] = p.path;
+  out[1] = (int)p.grid.x;
+  out[2] = (int)p.grid.y;
+  out[3] = (int)p.grid.z;
+  out[4] = p.row_blocks;
+  out[5] = p.scratch ? 1 : 0;
+  return 0;
 }

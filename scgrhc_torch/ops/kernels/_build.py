@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-Every ``scgrhc_torch/csrc/*.cu`` goes into one shared library, compiled by
-one ``nvcc`` call for ``sm_90a`` into ``build/scgrhc_torch/`` at the root
-of the checkout.  The library's name carries a hash of the sources, headers
-and flags, so an edited source builds anew and a finished build is reused.
+Every ``scgrhc_torch/csrc/*.cu`` goes into one shared library for
+``sm_90a`` in ``build/scgrhc_torch/`` at the root of the checkout: one
+``nvcc`` process per source, all started together, then one link.  The
+library's name carries a hash of the sources, headers and flags, so an
+edited source builds anew and a finished build is reused.
 Each C entry point takes raw pointers, sizes and the CUDA stream, and
 returns the launch's ``cudaError_t``.
 """
@@ -24,7 +25,7 @@ CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "scgrhc_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -34,10 +35,12 @@ _SIGNATURES = {
     # x, w, b, dy, dx, dw, db, dc, part, n, cin, cout, len, nsplit, dtype, stream
     "scgrhc_conv_in_relu_bwd": (_P,) * 9 + (_I,) * 6 + (_P,),
     "scgrhc_conv_in_relu_max_len": (),
-    # x, w, b, y, n, cin, cout, len, mode, dtype, stream
-    "scgrhc_critic_layer_fwd": (_P,) * 4 + (_I,) * 6 + (_P,),
+    # x, w, b, y, c, n, cin, cout, len, mode, dtype, stream
+    "scgrhc_critic_layer_fwd": (_P,) * 5 + (_I,) * 6 + (_P,),
     # x, w, b, dy, dx, dw, db, dc, part, n, cin, cout, len, mode, nsplit, dtype, stream
     "scgrhc_critic_layer_bwd": (_P,) * 9 + (_I,) * 7 + (_P,),
+    # n, cin, cout, len, mode, pass, out (int[6])
+    "scgrhc_critic_plan": (_I,) * 6 + (_P,),
     # w, out, n, m, stream
     "scgrhc_normalize_windows": (_P, _P, _I, _I, _P),
     # scg, rhc, scg_out, rhc_out, keep, mm_scg, mm_rhc, n, c, t, win, min_rhc, stream
@@ -49,7 +52,7 @@ _SIGNATURES = {
 class Build:
     lib: ctypes.CDLL
     path: Path
-    seconds: float  # compile time; 0.0 when a finished build was reused
+    seconds: float  # compile and link time; 0.0 when a finished build was reused
     log: str  # nvcc's output, including the -Xptxas -v resource lines
 
 
@@ -70,6 +73,44 @@ def _nvcc() -> str:
     )
 
 
+def _run(procs: dict, t0: float) -> str:
+    """Wait for every ``nvcc`` process; their output, or raise on a failure."""
+    logs, failed = [], []
+    for what, (cmd, proc) in procs.items():
+        text = proc.communicate()[0]
+        logs.append(f"== {what}, done {time.perf_counter() - t0:.1f} s after the start\n{text}")
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{text}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return "".join(logs)
+
+
+def _start(cmd: list[str]) -> tuple[list[str], subprocess.Popen]:
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _compile(sources: list[Path], out: Path) -> tuple[float, str]:
+    """Compile each source to an object, all at once, then link the shared
+    library to ``out`` (written under a temporary name, then renamed)."""
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    objs = [out.with_name(f"{out.stem}.{src.stem}.{tag}.o") for src in sources]
+    t0 = time.perf_counter()
+    try:
+        log = _run({src.name: _start([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
+                    for src, obj in zip(sources, objs)}, t0)
+        compiled = time.perf_counter() - t0
+        tmp = out.with_name(f"{out.name}.{tag}")
+        log += _run({"link": _start([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                                     *map(str, objs)])}, t0)
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    seconds = time.perf_counter() - t0
+    return seconds, log + f"== compile {compiled:.1f} s, with link {seconds:.1f} s\n"
+
+
 def build() -> Build:
     """Compile (once per process, and only if the sources changed) and load."""
     global _build
@@ -85,17 +126,7 @@ def build() -> Build:
         seconds, log = 0.0, ""
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n{log}"
-                )
-            os.replace(tmp, out)
+            seconds, log = _compile(sources, out)
         lib = ctypes.CDLL(str(out))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

@@ -18,10 +18,14 @@ kernels' formulas (``scgrhc/ops/pallas/conv_block.py:82-122``,
 dx and dw take dc rounded to x's dtype, db the unrounded dc, as the Pallas
 kernels do.  Every plain version is differentiable PyTorch, so the critic's
 second-order gradient can differentiate it.
+
+The critic's conv passes (forward, the dc pass's recompute of c, dx) follow
+:func:`conv_plan`; the generator's layer keeps its own FMA kernels.
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import torch
@@ -45,6 +49,65 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 DW_STREAM_BELOW = 16
 DW_TILE_O, DW_TILE_C, DW_STREAM_C = 64, 32, 32
 DW_BLOCKS, DW_STREAM_BLOCKS = 264, 528
+
+
+# The critic's conv passes (csrc/conv3.cuh: conv_plan).  The forward and
+# the dc pass's recompute run the tensor-core product over tiles of
+# CONV_TILE_M output channels x CONV_TILE_N steps of one sample; below
+# CONV_STREAM_BELOW output channels (the 512 -> 1 score layer) the forward
+# streams over x, a block per CONV_STREAM_STEPS steps of one sample.  The
+# instance norm, a relu the stream kernel cannot apply and the dc formulas
+# go to a row pass, a warp per (n, o) row, ROW_WARPS rows a block.  dx is
+# the product over dc (M = C_in, K = 3 O) or, below CONV_STREAM_BELOW
+# output channels, the FMA kernel over CONV_FMA_ROWS input channels a block.
+CONV_STREAM_BELOW = 16
+CONV_TILE_M, CONV_TILE_N, CONV_STREAM_STEPS = 64, 128, 64
+ROW_WARPS, CONV_FMA_ROWS = 8, 16
+PASSES = ("fwd", "dc", "dx")
+PATHS = ("none", "mma", "stream", "fma")
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    path: str  # one of PATHS; "none" for the linear dc pass (dc = dy)
+    grid: tuple[int, int, int]  # the conv kernel's blocks (x, y, z)
+    row_blocks: int  # blocks of the row pass after it, 0 for none
+    scratch: tuple[int, int, int] | None  # the forward's f32 c, allocated by the wrapper
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def conv_plan(n: int, cin: int, cout: int, t: int, mode: str, pass_: str = "fwd") -> ConvPlan:
+    """The launch plan of one conv pass of the critic's layer for x
+    (n, cin, t) and cout output channels, as the C launchers take it."""
+    if pass_ not in PASSES or mode not in MODES:
+        raise ValueError(f"conv_plan: pass {pass_!r}, mode {mode!r}")
+    if pass_ == "dx":
+        if cout < CONV_STREAM_BELOW:
+            return ConvPlan("fma", (_cdiv(cin, CONV_FMA_ROWS), n, 1), 0, None)
+        return ConvPlan("mma", (_cdiv(t, CONV_TILE_N), _cdiv(cin, CONV_TILE_M), n), 0, None)
+    if pass_ == "dc" and mode == "linear":
+        return ConvPlan("none", (0, 0, 0), 0, None)
+    stream = cout < CONV_STREAM_BELOW
+    if stream:
+        path, grid = "stream", (_cdiv(t, CONV_STREAM_STEPS), n, 1)
+    else:
+        path, grid = "mma", (_cdiv(t, CONV_TILE_N), _cdiv(cout, CONV_TILE_M), n)
+    row = mode == "in_relu" or (mode == "relu" and (stream or pass_ == "dc"))
+    rows = _cdiv(n * cout, ROW_WARPS) if row else 0
+    return ConvPlan(path, grid, rows, (n, cout, t) if pass_ == "fwd" and row else None)
+
+
+def c_plan(n: int, cin: int, cout: int, t: int, mode: str, pass_: str = "fwd") -> ConvPlan:
+    """The C launchers' own plan (``scgrhc_critic_plan``), for holding
+    :func:`conv_plan` to it."""
+    out = (ctypes.c_int * 6)()
+    _build.library().scgrhc_critic_plan(n, cin, cout, t, MODE_CODE[mode], PASSES.index(pass_),
+                                        out)
+    path, gx, gy, gz, rows, scratch = out
+    return ConvPlan(PATHS[path], (gx, gy, gz), rows, (n, cout, t) if scratch else None)
 
 
 @dataclass(frozen=True)
@@ -165,16 +228,22 @@ def _stream(x) -> int:
 
 def launch_fwd(entry: str, what: str, x, w, b, mode: str | None = None):
     """The forward kernel ``entry`` on CUDA tensors → y (N, O, T) in x's
-    dtype.  ``mode`` None is the in_relu-only entry point (no mode arg)."""
+    dtype.  ``mode`` None is the generator's in_relu-only entry point (no
+    mode, no scratch); with a mode, the critic's, which takes the f32
+    scratch c that :func:`conv_plan` asks for (or null)."""
     check_inputs(what, x, w, b)
     n, cin, t = x.shape
     o = w.shape[0]
     y = torch.empty((n, o, t), dtype=x.dtype, device=x.device)
-    extra = () if mode is None else (MODE_CODE[mode],)
+    scratch, extra = (), ()
+    if mode is not None:
+        shape = conv_plan(n, cin, o, t, mode).scratch
+        c = None if shape is None else torch.empty(shape, dtype=torch.float32, device=x.device)
+        scratch, extra = (None if c is None else c.data_ptr(),), (MODE_CODE[mode],)
     with torch.cuda.device(x.device):
         err = getattr(_build.library(), entry)(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), n, cin, o, t, *extra,
-            DTYPE_CODE[x.dtype], _stream(x),
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), *scratch, n, cin, o, t,
+            *extra, DTYPE_CODE[x.dtype], _stream(x),
         )
     _build.check(err, what)
     return y

@@ -30,11 +30,12 @@ import pytest
 import torch
 
 from scgrhc_torch.core.device import resolve_device
-from scgrhc_torch.models.critic import Critic
+from scgrhc_torch.models.critic import LAYER_MODES, Critic
 from scgrhc_torch.models.generator import Generator, fused_block, plain_block
 from scgrhc_torch.ops.kernels import conv_block as k1f
 from scgrhc_torch.ops.kernels import critic_fused as k2
 from scgrhc_torch.ops.kernels import dsp as k4
+from scgrhc_torch.ops.nn import instance_norm
 from scgrhc_torch.train import wgan
 
 FWD_TOL, BWD_TOL, BF16_TOL = 1e-4, 1e-3, 3e-2
@@ -350,9 +351,14 @@ def test_generator_backward_reaches_every_parameter(cuda):
 
 def test_critic_gradient_penalty_matches_float64_plain(cuda):
     """The GP and its parameter gradient (second order through BwdDx) on the
-    kernels, in f32, against the same critic through the plain versions in
-    float64 on the card.  (The f32 plain path itself sits about 2e-3 from
-    float64 here, so it is no reference at BWD_TOL.)"""
+    kernels, in f32, against the same critic through the plain formulas in
+    float64 on the card, on the kernel path's relu masks: K2f's for the
+    layers and their first-order gradients, the plain f32 version's for the
+    second order (the vjp that BwdDx differentiates).  A mask that flips
+    between f32 and float64 moves these gradients by about 2e-3 (on an
+    H100 the f32 plain path sat 2.4e-3 from float64's own masks, one flip
+    at 256 -> 512), so the kernel path is held on its own masks, and its
+    masks to float64's own within MASK_FLIP_SHARE."""
     critic = Critic(4, torch.Generator().manual_seed(7)).to(cuda)
     g = torch.Generator().manual_seed(8)
     scg, rhc, pred = (torch.rand(4, c, 750, generator=g).to(cuda) for c in (4, 1, 1))
@@ -370,12 +376,72 @@ def test_critic_gradient_penalty_matches_float64_plain(cuda):
     gp_k, grads_k = gp_and_grads(critic, critic, scg, rhc, pred, eps)
     assert k2.critic_layer_bwd_dx.launches > before
     c64 = Critic(4, torch.Generator().manual_seed(7)).to(cuda, torch.float64)
-    def plain(x, **kw):
-        return c64(x, layer=k2.critic_layer_plain, **kw)
-
-    gp_p, grads_p = gp_and_grads(c64, plain, *(v.double() for v in (scg, rhc, pred, eps)))
+    # the interpolant as gradient_penalty_from_eps forms it, through each path
+    x = torch.cat((scg, eps * rhc + (1.0 - eps) * pred), dim=1)
+    masks, plain_masks, h, h64 = [], [], x, x.double()
+    with torch.no_grad():
+        for conv, conv64, mode in zip(critic.model.values(), c64.model.values(), LAYER_MODES):
+            y = k2.critic_layer(h, conv.weight, conv.bias, mode)
+            y64 = k2.critic_layer_plain(h64, conv64.weight, conv64.bias, mode)
+            masks.append(y > 0)
+            plain_masks.append(k2.critic_layer_plain(h, conv.weight, conv.bias, mode) > 0)
+            if mode != "linear":
+                _masks_agree(y, y64)
+            h, h64 = y, y64
+    gp_p, grads_p = gp_and_grads(c64, _critic_f64_on_masks(c64, masks, plain_masks),
+                                 *(v.double() for v in (scg, rhc, pred, eps)))
     assert abs(gp_k - gp_p) <= FWD_TOL * abs(gp_p)
     _grads_close(grads_k, grads_p, [n for n, _ in critic.named_parameters()])
+
+
+def _layer_f64_with_mask(x, w, b, mode, mask):
+    """The plain layer (conv3.layer_plain) in float64 with the relu mask
+    given in place of its own sign test; differentiable."""
+    from scgrhc_torch.ops.kernels import conv3
+
+    c = conv3.conv(x.double(), w.double(), b.double())
+    if mode == "linear":
+        return c
+    return (instance_norm(c) if mode == "in_relu" else c) * mask.double()
+
+
+class _BwdDxF64(torch.autograd.Function):
+    """BwdDx in float64: the input gradient on the masks ``mask`` (K2dx's:
+    K2f's), and its own gradient on ``plain_mask`` (the plain f32
+    version's, which BwdDx's vjp of critic_layer_bwd_dx_plain recomputes)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, dy, mode, mask, plain_mask):
+        ctx.save_for_backward(x, w, b, dy)
+        ctx.mode, ctx.plain_mask = mode, plain_mask
+        return _bwd_f64_with_masks(x, w, b, dy, mode, mask)[1]
+
+    @staticmethod
+    def backward(ctx, ct):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+            out = _bwd_f64_with_masks(*ins, ctx.mode, ctx.plain_mask)[1]
+            grads = torch.autograd.grad(out, ins, ct, allow_unused=True)
+        return (*grads, None, None, None)
+
+
+def _critic_f64_on_masks(c64, masks, plain_masks):
+    """A critic function (as Critic.forward with ``ct``) for the float64
+    critic ``c64`` on the relu masks of each layer."""
+
+    def forward(x, ct):
+        layers = list(zip(c64.model.values(), LAYER_MODES))
+        inputs, h = [], x
+        for (conv, mode), mask in zip(layers, masks):
+            inputs.append(h)
+            h = _layer_f64_with_mask(h, conv.weight, conv.bias, mode, mask)
+        g = ct
+        for (conv, mode), h_in, mask, plain_mask in reversed(
+                list(zip(layers, inputs, masks, plain_masks))):
+            g = _BwdDxF64.apply(h_in, conv.weight, conv.bias, g, mode, mask, plain_mask)
+        return h, g
+
+    return forward
 
 
 CRITIC_LAYERS = [(5, 64, "relu"), (64, 128, "in_relu"), (128, 256, "in_relu"),
@@ -397,15 +463,26 @@ def _dw_paths(x, w, b, dy, mode):
 
 
 def _hold_dw(x, w, b, dy, mode, paths=("K2dw", "K1b")):
-    """Each path's dw within DW_F32_TOL and db within DW_F32_TOL of the
-    plain version (db over its scale in in_relu mode), and a repeated
-    launch equal bit for bit."""
+    """Each path's dw within DW_F32_TOL and db within DW_F32_TOL of its
+    reference (db over its scale in in_relu mode), and a repeated launch
+    equal bit for bit.  K1b's reference is the plain version.  K2dw's dc
+    pass runs the critic's tensor-core conv core, whose f32 sums differ
+    from cuDNN's, so a relu mask can flip between the two (one flip at
+    N = 8 moves dw by about 1e-3): its reference is the plain backward in
+    float64 on K2f's relu masks, and those masks are held to the plain
+    version's within MASK_FLIP_SHARE."""
     for name, kern, plain in _dw_paths(x, w, b, dy, mode):
         if name not in paths:
             continue
         m = mode if name == "K2dw" else "in_relu"
         dw, db = kern(x, w, b, dy)
-        want_dw, want_db = plain(x, w, b, dy)
+        if name == "K2dw":
+            y = k2.critic_layer(x, w, b, mode)
+            if mode != "linear":
+                _masks_agree(y, k2.critic_layer_plain(x, w, b, mode))
+            want_dw, want_db = _dwdb_f64_with_masks(x, w, b, dy, mode, y > 0)
+        else:
+            want_dw, want_db = plain(x, w, b, dy)
         assert dw.shape == want_dw.shape and db.shape == want_db.shape, name
         assert _rel(dw, want_dw) <= DW_F32_TOL, (name, _rel(dw, want_dw))
         assert _rel(db, want_db, _db_scale(x, w, b, dy, m)) <= DW_F32_TOL, name
@@ -443,3 +520,116 @@ def test_dw_bf16_at_widest_critic_layer(cuda):
         assert _rel(got[1], want[1], _db_scale(*f, "in_relu")) <= BF16_TOL, name
         again = kern(x, w, b, dy)
         assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1]), name
+
+
+# The critic's conv passes (K2f, K2dx): (N, C_in, O, T).  The five critic
+# layers; a tiny case for the fragment layouts (one 16-row tile, one
+# channel slice, one step tile); ragged O (24: a part of a 64-row tile),
+# C_in (3, 5: a part of a 16-channel slice), T (1, 7, 1023, 1024: ragged
+# and odd step tiles) and N (1, 33); and the streaming forward with O = 3, 5.
+CONV_SHAPES = [(4, 5, 64, 750), (4, 64, 128, 750), (4, 128, 256, 750), (4, 256, 512, 750),
+               (4, 512, 1, 750), (1, 8, 16, 8), (1, 3, 24, 1), (33, 5, 24, 7),
+               (1, 3, 24, 1023), (33, 5, 24, 1024), (33, 24, 5, 7), (1, 24, 3, 1023)]
+
+
+# The share of relu masks (c > 0, or x̂ > 0) on which the kernels and the
+# f32 plain version may disagree: the tensor-core core sums in another order
+# than cuDNN, and either sits a few 1e-7 from float64, so a mask flips where
+# c or x̂ lies within that of 0 (a few in a million; one flip at N = 4 moves
+# dx by about 1e-3 relative, the whole of BWD_TOL).
+MASK_FLIP_SHARE = 1e-5
+
+
+def _masks_agree(y, want):
+    """The relu masks of a kernel output ``y`` against the plain output's."""
+    flips = int(((y > 0) != (want > 0)).sum())
+    assert flips <= MASK_FLIP_SHARE * y.numel(), (flips, y.numel())
+
+
+def _bwd_f64_with_masks(x, w, b, dy, mode, mask):
+    """The plain backward (conv3.layer_bwd_plain's formulas) in float64,
+    with the relu mask given (the kernels' own, read from K2f's output)
+    instead of its own sign test: dc, and dx = conv3_t(w, dc rounded to x's
+    dtype).  Differentiable."""
+    import torch.nn.functional as F
+
+    from scgrhc_torch.ops.kernels import conv3
+
+    x64, w64, b64, dy64 = (v.double() for v in (x, w, b, dy))
+    mask = mask.double()
+    if mode == "linear":
+        dc = dy64
+    elif mode == "relu":
+        dc = dy64 * mask
+    else:
+        c = conv3.conv(x64, w64, b64)
+        mean = c.mean(dim=-1, keepdim=True)
+        rsig = torch.rsqrt(torch.clamp_min((c * c).mean(dim=-1, keepdim=True) - mean * mean, 0.0)
+                           + conv3.IN_EPS)
+        xhat = (c - mean) * rsig
+        g = dy64 * mask
+        dc = rsig * (g - g.mean(dim=-1, keepdim=True)
+                     - xhat * (g * xhat).mean(dim=-1, keepdim=True))
+    return dc, F.conv_transpose1d(dc.to(x.dtype).double(), w64, padding=1)
+
+
+def _dwdb_f64_with_masks(x, w, b, dy, mode, mask):
+    """dw (the product over dc rounded to x's dtype) and db of the plain
+    backward in float64 on the relu mask given."""
+    dc, _ = _bwd_f64_with_masks(x, w, b, dy, mode, mask)
+    dw = torch.nn.grad.conv1d_weight(x.double(), w.shape, dc.to(x.dtype).double(), padding=1)
+    return dw, dc.sum(dim=(0, 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", k2.MODES)
+@pytest.mark.parametrize("n,ci,o,t", CONV_SHAPES)
+def test_critic_conv_core(cuda, n, ci, o, t, mode, dtype):
+    """K2f and K2dx on the tensor-core core (stream below 16 output
+    channels): y against the plain version, its relu masks against the
+    plain version's, dx against the plain backward in float64 on those
+    masks, and a repeat launch equal bit for bit."""
+    x, w, b, dy = _bwd_inputs(cuda, n, ci, o, t, seed=o + t, dtype=dtype)
+    f = [v.float() for v in (x, w, b, dy)]
+    counts = (k2.critic_layer.launches, k2.critic_layer_bwd_dx.launches)
+    y = k2.critic_layer(x, w, b, mode)
+    dx = k2.critic_layer_bwd_dx(x, w, b, dy, mode)
+    torch.cuda.synchronize()
+    assert (k2.critic_layer.launches, k2.critic_layer_bwd_dx.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    assert y.dtype == dtype and y.shape == (n, o, t) and dx.dtype == dtype and dx.shape == x.shape
+    fwd_tol, bwd_tol = (FWD_TOL, BWD_TOL) if dtype == torch.float32 else (BF16_TOL, BF16_TOL)
+    want = k2.critic_layer_plain(*f[:3], mode)
+    assert _rel(y, want) <= fwd_tol
+    if mode != "linear":
+        _masks_agree(y, want)
+    _, want_dx = _bwd_f64_with_masks(x, w, b, dy, mode, y > 0)
+    assert _rel(dx, want_dx) <= bwd_tol
+    assert torch.equal(k2.critic_layer(x, w, b, mode), y)
+    assert torch.equal(k2.critic_layer_bwd_dx(x, w, b, dy, mode), dx)
+
+
+@pytest.mark.parametrize("mode", k2.MODES)
+@pytest.mark.parametrize("ci,o", [(64, 128), (512, 1)])
+def test_critic_conv_core_propagates_nan(cuda, mode, ci, o):
+    """A NaN in one sample's x reaches that sample's y only; a NaN in one
+    sample's dy reaches that sample's dx only."""
+    x, w, b, dy = _bwd_inputs(cuda, 2, ci, o, 750)
+    xn, dyn = x.clone(), dy.clone()
+    xn[1, 2, 100] = float("nan")
+    dyn[1, 0, 100] = float("nan")
+    y = k2.critic_layer(xn, w, b, mode)
+    assert torch.isnan(y[1]).any() and not torch.isnan(y[0]).any()
+    dx = k2.critic_layer_bwd_dx(x, w, b, dyn, mode)
+    assert torch.isnan(dx[1]).any() and not torch.isnan(dx[0]).any()
+
+
+@pytest.mark.parametrize("mode", k2.MODES)
+@pytest.mark.parametrize("pass_", ["fwd", "dc", "dx"])
+def test_conv_plan_mirrors_the_c_launcher(cuda, mode, pass_):
+    """conv3.conv_plan, which the CPU tests hold, is the plan the C
+    launchers take."""
+    from scgrhc_torch.ops.kernels import conv3
+
+    for n, ci, o, t in CONV_SHAPES + [(32, 256, 512, 750), (65535, 7, 15, 4096)]:
+        assert conv3.conv_plan(n, ci, o, t, mode, pass_) == conv3.c_plan(n, ci, o, t, mode, pass_)

@@ -1,5 +1,6 @@
 """The port's kernel modules: K1f (conv_in_relu), K4 (normalize_windows),
-and the plan of the conv layer's dw stage (conv3.dw_plan).
+the plan of the conv layer's dw stage (conv3.dw_plan) and of the critic's
+conv passes (conv3.conv_plan).
 
 Each plain version against the JAX Pallas kernel it stands beside
 (interpret mode, as the JAX package's own tests run it), and the wrappers'
@@ -130,3 +131,101 @@ def test_dw_splits_cover_every_sample_once_in_order(n):
         assert len(bounds) == nsplit
         assert [s for lo, hi in bounds for s in range(lo, hi)] == list(range(n))
         assert all(hi > lo for lo, hi in bounds)  # no split is empty
+
+
+# (C_in, O, mode) of the critic's five layers; N = 32, T = 750 on the main path
+CRITIC_LAYERS = [(5, 64, "relu"), (64, 128, "in_relu"), (128, 256, "in_relu"),
+                 (256, 512, "in_relu"), (512, 1, "linear")]
+
+
+@pytest.mark.parametrize("pass_", conv3.PASSES)
+@pytest.mark.parametrize("cin,cout,mode", CRITIC_LAYERS)
+def test_conv_plan_at_critic_layers(cin, cout, mode, pass_):
+    n, t = 32, 750
+    plan = conv3.conv_plan(n, cin, cout, t, mode, pass_)
+    if pass_ == "dx":
+        # the score layer's dx (K = 3) keeps the FMA kernel, every other layer
+        # the tensor-core product with M = C_in
+        want = "fma" if cout == 1 else "mma"
+        assert plan == conv3.ConvPlan(
+            want, (-(-cin // 16), n, 1) if want == "fma" else (6, -(-cin // 64), n), 0, None)
+        return
+    if pass_ == "dc" and mode == "linear":
+        assert plan == conv3.ConvPlan("none", (0, 0, 0), 0, None)  # dc = dy
+        return
+    assert plan.path == ("stream" if cout == 1 else "mma")
+    assert plan.grid == ((12, n, 1) if cout == 1 else (6, -(-cout // 64), n))
+    # in_relu's statistics, and the dc pass's relu mask, go through the row
+    # pass; the forward's relu and linear modes end in the conv's epilogue
+    row = mode == "in_relu" or (mode == "relu" and pass_ == "dc")
+    assert plan.row_blocks == (n * cout // 8 if row else 0)
+    assert plan.scratch == ((n, cout, t) if row and pass_ == "fwd" else None)
+
+
+@pytest.mark.parametrize("cout", [1, 2, 5, 15, 16, 17])
+@pytest.mark.parametrize("mode", conv3.MODES)
+def test_conv_plan_streams_below_16_output_channels(cout, mode):
+    n, cin, t = 3, 40, 130
+    fwd = conv3.conv_plan(n, cin, cout, t, mode)
+    dx = conv3.conv_plan(n, cin, cout, t, mode, "dx")
+    if cout < conv3.CONV_STREAM_BELOW:
+        assert fwd.path == "stream" and fwd.grid == (3, n, 1) and dx.path == "fma"
+        # the stream kernel has no relu epilogue: relu goes through c and the row pass
+        assert (fwd.scratch is not None) == (mode != "linear")
+    else:
+        assert fwd.path == "mma" and dx.path == "mma"
+        assert (fwd.scratch is not None) == (mode == "in_relu")
+
+
+def _tiles(plan, m_rows, t):
+    """The (sample, row, step) entries the conv kernel's blocks write."""
+    gx, gy, gz = plan.grid
+    if plan.path == "mma":
+        bm, bn = conv3.CONV_TILE_M, conv3.CONV_TILE_N
+        blocks = [(z, y, x) for z in range(gz) for y in range(gy) for x in range(gx)]
+        return [(z, m, s) for z, y, x in blocks
+                for m in range(y * bm, min((y + 1) * bm, m_rows))
+                for s in range(x * bn, min((x + 1) * bn, t))]
+    if plan.path == "stream":
+        bn = conv3.CONV_STREAM_STEPS
+        return [(y, m, s) for y in range(gy) for x in range(gx) for m in range(m_rows)
+                for s in range(x * bn, min((x + 1) * bn, t))]
+    rows = conv3.CONV_FMA_ROWS  # dx_kernel: every step of its rows
+    return [(y, m, s) for y in range(gy) for x in range(gx)
+            for m in range(x * rows, min((x + 1) * rows, m_rows)) for s in range(t)]
+
+
+@pytest.mark.parametrize("pass_", conv3.PASSES)
+@pytest.mark.parametrize("n,cin,cout,t", [(2, 5, 64, 750), (1, 3, 24, 1), (3, 24, 5, 7),
+                                          (2, 70, 129, 129), (1, 17, 1, 1023), (1, 8, 16, 8)])
+def test_conv_plan_grids_cover_every_tile_once(n, cin, cout, t, pass_):
+    plan = conv3.conv_plan(n, cin, cout, t, "in_relu", pass_)
+    m_rows = cin if pass_ == "dx" else cout
+    got = _tiles(plan, m_rows, t)
+    assert len(got) == len(set(got)) == n * m_rows * t  # each (n, row, step) once
+    # no block lies wholly outside the tensors
+    gx, gy, gz = plan.grid
+    if plan.path == "mma":
+        assert (gx - 1) * conv3.CONV_TILE_N < t and (gy - 1) * conv3.CONV_TILE_M < m_rows
+        assert gz == n
+    if plan.row_blocks:
+        assert (plan.row_blocks - 1) * conv3.ROW_WARPS < n * cout <= plan.row_blocks * 8
+
+
+@pytest.mark.parametrize("pass_", conv3.PASSES)
+def test_conv_plan_has_no_length_limit(pass_):
+    """The tensor-core core and the row pass tile T and never hold a whole
+    row: a plan at T = 4096 (past the generator kernels' 1024) covers it."""
+    n, cin, cout, t = 32, 256, 512, 4096
+    plan = conv3.conv_plan(n, cin, cout, t, "in_relu", pass_)
+    assert plan.path == "mma"
+    assert plan.grid == (32, (cin if pass_ == "dx" else cout) // 64, n)
+    stream = conv3.conv_plan(n, 512, 1, t, "linear")
+    assert stream.path == "stream" and stream.grid == (64, n, 1)
+
+
+def test_conv_plan_rejects_unknown_pass_and_mode():
+    with pytest.raises(ValueError):
+        conv3.conv_plan(1, 4, 16, 8, "in_relu", "dw")
+    with pytest.raises(ValueError):
+        conv3.conv_plan(1, 4, 16, 8, "gelu")
