@@ -1,12 +1,14 @@
-// Times the critic's tensor-core conv core (conv3.cuh: conv_mma_kernel)
-// alone at the critic's layers (N = 32, T = 750), against the f32 FMA
-// kernels it replaced, and under other tilings of the f32 product: the
-// in_relu forward (fwd_kernel against the core and row_kernel), the conv
+// Times the tensor-core conv core (conv3.cuh: conv_mma_kernel) alone: at
+// the critic's layers (N = 32, T = 750) under ConvTile, the tiling the
+// kernels use, and under the other tilings of the f32 product it was
+// chosen from, for the in_relu forward (the core and row_kernel), the conv
 // (c = conv1d(x, w) + b) and the dx product (a conv over dc with w
-// transposed and flipped, against dx_kernel).  Each f32 result is held
+// transposed and flipped; at 512 -> 1, where its K is 3 of one 16-channel
+// slice, beside dx_stream_kernel, the kernels' path there); then the
+// in_relu forward at the generator's layers at serving's batch (N = 512,
+// T = 750 .. 744), f32 and bf16.  Each f32 result at N = 32 is held
 // against float64 computed on the card (relative L2 error and largest
-// absolute error).  ConvTile is the tiling the kernels use; the others are
-// the alternatives it was chosen from.
+// absolute error); the N = 512 shapes are timed only.
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
 //       -o build/conv_core scgrhc_torch/bench/conv_core.cu && build/conv_core
@@ -174,6 +176,63 @@ conv_nosplit(const float* __restrict__ src, const float* __restrict__ w,
     }
 }
 
+// Uniform values in [-scale, scale) from a fixed LCG.
+void fill(std::vector<float>& v, float scale, unsigned seed) {
+  for (auto& e : v) {
+    seed = seed * 1664525u + 1013904223u;
+    e = ((seed >> 8) * (1.0f / 16777216.0f) * 2.f - 1.f) * scale;
+  }
+}
+
+// A device copy of v in f32 and in bf16.
+void upload(const std::vector<float>& v, float** f, __nv_bfloat16** h) {
+  std::vector<__nv_bfloat16> hb(v.size());
+  for (size_t i = 0; i < v.size(); ++i) hb[i] = __float2bfloat16(v[i]);
+  cudaMalloc(f, v.size() * 4);
+  cudaMalloc(h, v.size() * 2);
+  cudaMemcpy(*f, v.data(), v.size() * 4, cudaMemcpyHostToDevice);
+  cudaMemcpy(*h, hb.data(), v.size() * 2, cudaMemcpyHostToDevice);
+}
+
+// The in_relu forward (the core into c, then row_kernel) at N = 512, f32
+// and bf16, timed only: the generator's layer at serving's batch.
+void serving_layer(int cin, int cout, int len) {
+  const int n = 512;
+  std::vector<float> hx((size_t)n * cin * len), hw((size_t)cout * cin * 3), hb(cout);
+  fill(hx, 1.7f, 12345u);
+  fill(hw, 1.f / sqrtf(cin * 3.f), 777u);
+  fill(hb, 1.f / sqrtf(cin * 3.f), 999u);
+  float *x, *w, *b, *c, *y;
+  __nv_bfloat16 *xb, *wb, *bb, *yb;
+  upload(hx, &x, &xb);
+  upload(hw, &w, &wb);
+  upload(hb, &b, &bb);
+  const size_t ny = (size_t)n * cout * len;
+  cudaMalloc(&c, ny * 4);
+  cudaMalloc(&y, ny * 4);
+  cudaMalloc(&yb, ny * 2);
+  using Main = ConvTile<float>;
+  const dim3 grid((len + Main::BN - 1) / Main::BN, (cout + Main::BM - 1) / Main::BM, n);
+  const int rows = n * cout, row_blocks = (rows + kWarps - 1) / kWarps;
+  const double gflop = 6.0 * cin * cout * len * n * 1e-9;
+  const float ms = time_ms([&] {
+    launch_conv_mma<float, float, float, false, false>(grid, x, w, b, c, cin, cout, len, 0);
+    launch_row<float, kRowInReluFwd>(row_blocks, c, nullptr, y, rows, len, 0);
+  }, 5);
+  const float ms16 = time_ms([&] {
+    launch_conv_mma<__nv_bfloat16, __nv_bfloat16, float, false, false>(grid, xb, wb, bb, c, cin,
+                                                                       cout, len, 0);
+    launch_row<__nv_bfloat16, kRowInReluFwd>(row_blocks, c, nullptr, yb, rows, len, 0);
+  }, 5);
+  printf("in   %3d->%-3d N=512 T=%d core + row_kernel: f32 %8.4f ms %6.1f TFLOP/s, bf16 "
+         "%8.4f ms %6.1f TFLOP/s  %s\n",
+         cin, cout, len, ms, gflop / ms, ms16, gflop / ms16,
+         cudaGetErrorString(cudaGetLastError()));
+  for (void* p : {(void*)x, (void*)w, (void*)b, (void*)c, (void*)y, (void*)xb, (void*)wb,
+                  (void*)bb, (void*)yb})
+    cudaFree(p);
+}
+
 template <int MMAS>
 void nosplit(Case& c, const char* name) {
   using Tile = ConvTile<float>;
@@ -199,7 +258,7 @@ void variant(Case& c, const char* what, const char* name) {
 }
 
 int main() {
-  const int layers[][2] = {{5, 64}, {64, 128}, {128, 256}, {256, 512}};
+  const int layers[][2] = {{5, 64}, {64, 128}, {128, 256}, {256, 512}, {512, 1}};
   const int n = 32, len = 750;
   for (const auto& l : layers) {
     const int cin = l[0], cout = l[1];
@@ -257,47 +316,57 @@ int main() {
     using Main = ConvTile<float>;
     const dim3 gf((len + Main::BN - 1) / Main::BN, (cout + Main::BM - 1) / Main::BM, n);
     const dim3 gd((len + Main::BN - 1) / Main::BN, (cin + Main::BM - 1) / Main::BM, n);
-    // the in_relu forward: the FMA kernel against the core and the row pass
-    float ms = time_ms([&] { launch_fwd<float>(x, w, b, y, n, cin, cout, len, 0); });
-    inr.report("in", "FMA fwd_kernel, in_relu (replaced)", ms);
-    const int rows = n * cout, row_blocks = (rows + kWarps - 1) / kWarps;
-    ms = time_ms([&] {
-      launch_conv_mma<float, float, float, false, false>(gf, x, w, b, c, cin, cout, len, 0);
-      launch_row<float, kRowInReluFwd>(row_blocks, c, nullptr, y, rows, len, 0);
-    });
-    inr.report("in", "conv_mma_kernel + row_kernel, in_relu", ms);
-    // the conv alone
-    ms = time_ms([&] {
-      launch_conv_mma<float, float, float, false, false>(gf, x, w, b, y, cin, cout, len, 0);
-    });
-    fwd.report("fwd", "conv_mma_kernel 64x128x16, 3 stages", ms);
-    ms = time_ms([&] {
-      launch_conv_mma<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16, false, false>(
-          gf, xb, wb, bb, yb, cin, cout, len, 0);
-    });
-    printf("fwd  %3d->%-3d %-36s %8.4f ms %6.1f TFLOP/s\n", cin, cout,
-           "conv_mma_kernel bf16", ms, fwd.gflop() / ms);
-    nosplit<3>(fwd, "no TF32 split, 3 products");
-    nosplit<1>(fwd, "no TF32 split, 1 product");
-    variant<F32Tile<64, 128, 16, 4, 2>, false>(fwd, "fwd", "64x128x16, 4 stages");
-    variant<F32Tile<64, 64, 16, 3, 2>, false>(fwd, "fwd", "64x64x16, 3 stages");
-    variant<F32Tile<128, 64, 16, 3, 4>, false>(fwd, "fwd", "128x64x16, 3 stages");
-    variant<F32Tile<128, 128, 16, 3, 2>, false>(fwd, "fwd", "128x128x16, 3 stages");
-    variant<F32Tile<64, 128, 32, 3, 2>, false>(fwd, "fwd", "64x128x32, 3 stages");
-
-    if (cin >= 16) {  // dx below 16 rows of M has no tile: the layer's dx is K = 3 * cout
-      ms = time_ms([&] { launch_dx_fma<float>(dc, w, dx, n, cin, cout, len, 0); });
-      bwd.report("dx", "FMA dx_kernel (replaced)", ms);
+    float ms;
+    if (cout >= kConvStreamBelow) {  // at 512 -> 1 the forward streams (conv_stream_kernel)
+      // the in_relu forward: the core and the row pass
+      const int rows = n * cout, row_blocks = (rows + kWarps - 1) / kWarps;
       ms = time_ms([&] {
-        launch_conv_mma<float, float, float, true, false>(gd, dc, w, nullptr, dx, cout, cin, len, 0);
+        launch_conv_mma<float, float, float, false, false>(gf, x, w, b, c, cin, cout, len, 0);
+        launch_row<float, kRowInReluFwd>(row_blocks, c, nullptr, y, rows, len, 0);
       });
-      bwd.report("dx", "conv_mma_kernel 64x128x16, 3 stages", ms);
-      variant<F32Tile<64, 64, 16, 3, 2>, true>(bwd, "dx", "64x64x16, 3 stages");
-      variant<F32Tile<128, 64, 16, 3, 4>, true>(bwd, "dx", "128x64x16, 3 stages");
+      inr.report("in", "conv_mma_kernel + row_kernel, in_relu", ms);
+      // the conv alone
+      ms = time_ms([&] {
+        launch_conv_mma<float, float, float, false, false>(gf, x, w, b, y, cin, cout, len, 0);
+      });
+      fwd.report("fwd", "conv_mma_kernel 64x128x16, 3 stages", ms);
+      ms = time_ms([&] {
+        launch_conv_mma<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16, false, false>(
+            gf, xb, wb, bb, yb, cin, cout, len, 0);
+      });
+      printf("fwd  %3d->%-3d %-36s %8.4f ms %6.1f TFLOP/s\n", cin, cout,
+             "conv_mma_kernel bf16", ms, fwd.gflop() / ms);
+      nosplit<3>(fwd, "no TF32 split, 3 products");
+      nosplit<1>(fwd, "no TF32 split, 1 product");
+      variant<F32Tile<64, 128, 16, 4, 2>, false>(fwd, "fwd", "64x128x16, 4 stages");
+      variant<F32Tile<64, 64, 16, 3, 2>, false>(fwd, "fwd", "64x64x16, 3 stages");
+      variant<F32Tile<128, 64, 16, 3, 4>, false>(fwd, "fwd", "128x64x16, 3 stages");
+      variant<F32Tile<128, 128, 16, 3, 2>, false>(fwd, "fwd", "128x128x16, 3 stages");
+      variant<F32Tile<64, 128, 32, 3, 2>, false>(fwd, "fwd", "64x128x32, 3 stages");
     }
+
+    if (cout < kConvStreamBelow) {
+      ms = time_ms([&] {
+        launch_dx_stream<float>(dim3((len + kStreamSteps - 1) / kStreamSteps, n), dc, w, dx, cin,
+                                cout, len, 0);
+      });
+      bwd.report("dx", "dx_stream_kernel", ms);
+    }
+    // dx on the core (at 512 -> 1, K = 3 of one 16-channel slice)
+    ms = time_ms([&] {
+      launch_conv_mma<float, float, float, true, false>(gd, dc, w, nullptr, dx, cout, cin, len, 0);
+    });
+    bwd.report("dx", "conv_mma_kernel 64x128x16, 3 stages", ms);
+    variant<F32Tile<64, 64, 16, 3, 2>, true>(bwd, "dx", "64x64x16, 3 stages");
+    variant<F32Tile<128, 64, 16, 3, 4>, true>(bwd, "dx", "128x64x16, 3 stages");
     for (void* p : {(void*)x, (void*)dc, (void*)w, (void*)b, (void*)y, (void*)c, (void*)dx, (void*)r64,
                     (void*)xb, (void*)wb, (void*)bb, (void*)yb})
       cudaFree(p);
   }
+  // the generator's 14 layers at serving's batch (11 distinct shapes)
+  const int gen[][3] = {{4, 64, 750},    {64, 64, 750},   {64, 128, 748},  {128, 128, 748},
+                        {128, 256, 746}, {256, 256, 746}, {256, 512, 744}, {512, 512, 744},
+                        {512, 256, 746}, {256, 128, 748}, {128, 64, 750}};
+  for (const auto& l : gen) serving_layer(l[0], l[1], l[2]);
   return 0;
 }

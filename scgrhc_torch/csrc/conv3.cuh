@@ -8,6 +8,7 @@
 //   relu     y = relu(c)
 //   in_relu  y = relu((c - mean_T c) * rsqrt(var_T c + 1e-5)), one-pass
 //            biased statistics in f32 (var = max(E[c^2] - mean^2, 0))
+// The generator's layer is the in_relu mode.
 //
 // Three passes make every backward:
 //   dc  recompute c (no forward residual is saved), then the mode's
@@ -23,17 +24,13 @@
 // As in the Pallas kernels, dx and dw take dc rounded to x's dtype
 // (a no-op in f32); db sums the f32 dc.
 //
-// Two conv cores compute c (and dx, the same conv over dc):
-//   * the generator's layer (K1f, K1b: fwd_kernel, dc_kernel, dx_kernel)
-//     keeps a block's kOTile output channels for the whole of T in
-//     registers (each of kThreads threads owns up to kMaxTpt steps),
-//     staging C_in through shared memory kCiChunk channels at a time with a
-//     zero halo, on the f32 FMA units, so the statistics over T are block
-//     reductions and c never touches device memory;
-//   * the critic's layer (K2f, K2dx, K2dw: conv_mma_kernel, with
-//     conv_stream_kernel below 16 output channels, then row_kernel for the
-//     modes that need a whole row of c) is an implicit GEMM on the tensor
-//     cores over (O, T) tiles; its note is above conv_mma_kernel.
+// One conv core computes c and dx for both models: an implicit GEMM on the
+// tensor cores over (O, T) tiles (conv_mma_kernel; its note is above it),
+// with conv_stream_kernel and dx_stream_kernel for the forward and dx below
+// 16 output channels, then row_kernel for the modes that need a whole row
+// of c, which goes through an f32 scratch.  No pass holds a whole row of
+// c, so T has no limit; the launchers walk N in chunks of 65535 samples
+// (launch_layer_fwd, launch_layer_bwd).
 // The dw pass (its own note is above dw_mma_kernel) is split over samples
 // into per-block partial sums that a second kernel adds in a fixed order.
 // No pass uses float atomics, so a run gives the same bits every time.
@@ -54,9 +51,6 @@ namespace {  // internal linkage: each including source has its own copy
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kOTile = 16;
-constexpr int kCiChunk = 8;
-constexpr int kMaxTpt = 4;  // time steps per thread: T <= kMaxTpt * kThreads
 constexpr float kEps = 1e-5f;
 
 enum Mode { kLinear = 0, kRelu = 1, kInRelu = 2 };
@@ -81,273 +75,10 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int TPT>
-struct ConvSmem {
-  // xs[ci][j] holds input channel c0 + ci at step j - 1; column 0 and the
-  // columns past len are the zero halo, so output step t reads
-  // xs[ci][t .. t + 2] unguarded.
-  static constexpr int kStride = TPT * kThreads + 2;
-  float xs[kCiChunk][kStride];
-  __align__(16) float ws[kCiChunk][kOTile * 3];  // [ci][o * 3 + tap]
-};
-
-struct RedSmem {
-  float red[kWarps][kOTile][2];
-  float tot[kOTile][2];
-  float st[kOTile][2];  // per-channel (mean, rsig) of the in_relu norm
-};
-
-// acc[o][k] = sum over input channels i and taps of W(o0 + o, i, tap) *
-// in[i][t + tap - 1] at t = threadIdx.x + k * kThreads, zero outside
-// [0, len).  W(o, i, tap) is w[(o * cin + i) * 3 + tap], or with TRANSW
-// (the dx pass: w is the layer's (cin, cout, 3) weight read transposed
-// and flipped) w[(i * cout + o) * 3 + 2 - tap].  Staged inputs are
-// rounded to R's precision.
-template <typename TIN, typename TW, typename R, int TPT, bool TRANSW>
-__device__ __forceinline__ void conv_accumulate(const TIN* __restrict__ in,
-                                                const TW* __restrict__ w, int cin,
-                                                int cout, int len, int o0,
-                                                ConvSmem<TPT>& sm,
-                                                float (&acc)[kOTile][TPT]) {
-  constexpr int kStride = ConvSmem<TPT>::kStride;
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int o = 0; o < kOTile; ++o)
-#pragma unroll
-    for (int k = 0; k < TPT; ++k) acc[o][k] = 0.f;
-
-  for (int c0 = 0; c0 < cin; c0 += kCiChunk) {
-    const int cc = min(kCiChunk, cin - c0);
-    __syncthreads();  // the previous chunk's reads are done
-    for (int i = tid; i < kCiChunk * kStride; i += kThreads) {
-      const int ci = i / kStride;
-      const int j = i - ci * kStride;
-      float v = 0.f;
-      if (ci < cc && j >= 1 && j <= len)
-        v = round_to<R>(to_f32(in[(size_t)(c0 + ci) * len + (j - 1)]));
-      sm.xs[ci][j] = v;
-    }
-    for (int i = tid; i < kCiChunk * kOTile * 3; i += kThreads) {
-      const int ci = i / (kOTile * 3);
-      const int r = i - ci * (kOTile * 3);
-      const int o = r / 3;
-      const int k = r - o * 3;
-      float v = 0.f;
-      if (ci < cc && o0 + o < cout) {
-        v = TRANSW ? to_f32(w[((size_t)(c0 + ci) * cout + o0 + o) * 3 + (2 - k)])
-                   : to_f32(w[((size_t)(o0 + o) * cin + c0 + ci) * 3 + k]);
-      }
-      sm.ws[ci][r] = v;
-    }
-    __syncthreads();
-
-    for (int ci = 0; ci < cc; ++ci) {
-      float xv[TPT][3];
-#pragma unroll
-      for (int k = 0; k < TPT; ++k) {
-        const int t = tid + k * kThreads;
-        xv[k][0] = sm.xs[ci][t];
-        xv[k][1] = sm.xs[ci][t + 1];
-        xv[k][2] = sm.xs[ci][t + 2];
-      }
-      const float4* wr = reinterpret_cast<const float4*>(sm.ws[ci]);
-#pragma unroll
-      for (int og = 0; og < kOTile / 4; ++og) {
-        const float4 q0 = wr[og * 3], q1 = wr[og * 3 + 1], q2 = wr[og * 3 + 2];
-        const float wv[12] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y,
-                              q1.z, q1.w, q2.x, q2.y, q2.z, q2.w};
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-#pragma unroll
-          for (int k = 0; k < TPT; ++k) {
-            float a = acc[og * 4 + u][k];
-            a = fmaf(wv[u * 3 + 0], xv[k][0], a);
-            a = fmaf(wv[u * 3 + 1], xv[k][1], a);
-            a = fmaf(wv[u * 3 + 2], xv[k][2], a);
-            acc[og * 4 + u][k] = a;
-          }
-        }
-      }
-    }
-  }
-}
-
-// c = conv1d(x_n, w, padding=1) + b for the block's channels, in acc.
-template <typename T, int TPT>
-__device__ __forceinline__ void conv_bias(const T* __restrict__ xn, const T* __restrict__ w,
-                                          const T* __restrict__ b, int cin, int cout,
-                                          int len, int o0, ConvSmem<TPT>& sm,
-                                          float (&acc)[kOTile][TPT]) {
-  conv_accumulate<T, T, float, TPT, false>(xn, w, cin, cout, len, o0, sm, acc);
-#pragma unroll
-  for (int o = 0; o < kOTile; ++o) {
-    const float bias = (o0 + o < cout) ? to_f32(b[o0 + o]) : 0.f;
-#pragma unroll
-    for (int k = 0; k < TPT; ++k) acc[o][k] += bias;
-  }
-}
-
-// Block totals of the per-thread partial sums s[o] and q[o], into r.tot.
-__device__ __forceinline__ void block_sum2(const float (&s)[kOTile], const float (&q)[kOTile],
-                                           RedSmem& r) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = 0; o < kOTile; ++o) {
-    const float a = warp_sum(s[o]);
-    const float c = warp_sum(q[o]);
-    if (lane == 0) {
-      r.red[warp][o][0] = a;
-      r.red[warp][o][1] = c;
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < 2 * kOTile) {
-    const int o = threadIdx.x >> 1;
-    const int j = threadIdx.x & 1;
-    float v = 0.f;
-#pragma unroll
-    for (int i = 0; i < kWarps; ++i) v += r.red[i][o][j];
-    r.tot[o][j] = v;
-  }
-  __syncthreads();
-}
-
-// The in_relu statistics of c (in acc) into r.st: (mean, rsig) per channel.
-template <int TPT>
-__device__ __forceinline__ void in_stats(const float (&acc)[kOTile][TPT], int len, RedSmem& r) {
-  float s[kOTile], q[kOTile];
-#pragma unroll
-  for (int o = 0; o < kOTile; ++o) {
-    s[o] = 0.f;
-    q[o] = 0.f;
-#pragma unroll
-    for (int k = 0; k < TPT; ++k) {
-      if (threadIdx.x + k * kThreads < len) {
-        s[o] += acc[o][k];
-        q[o] += acc[o][k] * acc[o][k];
-      }
-    }
-  }
-  block_sum2(s, q, r);
-  if (threadIdx.x < kOTile) {
-    const float mean = r.tot[threadIdx.x][0] / (float)len;
-    float var = r.tot[threadIdx.x][1] / (float)len - mean * mean;
-    var = var < 0.f ? 0.f : var;
-    r.st[threadIdx.x][0] = mean;
-    r.st[threadIdx.x][1] = rsqrtf(var + kEps);
-  }
-  __syncthreads();
-}
-
-// The generator's forward (in_relu): one block per (tile of kOTile output
-// channels, sample).
-template <typename T, int TPT>
-__global__ void __launch_bounds__(kThreads)
-fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b,
-           T* __restrict__ y, int cin, int cout, int len) {
-  __shared__ ConvSmem<TPT> sm;
-  __shared__ RedSmem rs;
-  const int o0 = blockIdx.x * kOTile;
-  const int n = blockIdx.y;
-  float acc[kOTile][TPT];
-  conv_bias<T, TPT>(x + (size_t)n * cin * len, w, b, cin, cout, len, o0, sm, acc);
-  in_stats<TPT>(acc, len, rs);
-#pragma unroll
-  for (int o = 0; o < kOTile; ++o) {
-    if (o0 + o >= cout) break;
-    T* yo = y + ((size_t)n * cout + o0 + o) * len;
-    const float mean = rs.st[o][0];
-    const float rsig = rs.st[o][1];
-#pragma unroll
-    for (int k = 0; k < TPT; ++k) {
-      const int t = threadIdx.x + k * kThreads;
-      if (t < len) store(yo + t, relu((acc[o][k] - mean) * rsig));
-    }
-  }
-}
-
-// The generator's dc pass (in_relu).
-template <typename T, int TPT>
-__global__ void __launch_bounds__(kThreads)
-dc_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b,
-          const T* __restrict__ dy, float* __restrict__ dc, int cin, int cout, int len) {
-  __shared__ ConvSmem<TPT> sm;
-  __shared__ RedSmem rs;
-  const int o0 = blockIdx.x * kOTile;
-  const int n = blockIdx.y;
-  const size_t base = ((size_t)n * cout + o0) * len;
-  float acc[kOTile][TPT];
-  conv_bias<T, TPT>(x + (size_t)n * cin * len, w, b, cin, cout, len, o0, sm, acc);
-  in_stats<TPT>(acc, len, rs);
-  // acc becomes xhat; then the sums of g and g * xhat over T
-  float s[kOTile], q[kOTile];
-#pragma unroll
-  for (int o = 0; o < kOTile; ++o) {
-    const float mean = rs.st[o][0];
-    const float rsig = rs.st[o][1];
-    s[o] = 0.f;
-    q[o] = 0.f;
-#pragma unroll
-    for (int k = 0; k < TPT; ++k) {
-      const int t = threadIdx.x + k * kThreads;
-      const float xh = (acc[o][k] - mean) * rsig;
-      acc[o][k] = xh;
-      if (t < len && o0 + o < cout) {
-        const float g = to_f32(dy[base + (size_t)o * len + t]) * step(xh);
-        s[o] += g;
-        q[o] += g * xh;
-      }
-    }
-  }
-  block_sum2(s, q, rs);
-#pragma unroll
-  for (int o = 0; o < kOTile; ++o) {
-    if (o0 + o >= cout) break;
-    const float rsig = rs.st[o][1];
-    const float mg = rs.tot[o][0] / (float)len;
-    const float mgx = rs.tot[o][1] / (float)len;
-#pragma unroll
-    for (int k = 0; k < TPT; ++k) {
-      const int t = threadIdx.x + k * kThreads;
-      if (t < len) {
-        const size_t i = base + (size_t)o * len + t;
-        const float xh = acc[o][k];
-        const float g = to_f32(dy[i]) * step(xh);
-        dc[i] = rsig * ((g - mg) - xh * mgx);
-      }
-    }
-  }
-}
-
 template <typename T>
 __global__ void dc_linear_kernel(const T* __restrict__ dy, float* __restrict__ dc, size_t count) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < count) dc[i] = to_f32(dy[i]);
-}
-
-// dx pass: one block per (tile of kOTile input channels of the layer, sample).
-template <typename T, int TPT>
-__global__ void __launch_bounds__(kThreads)
-dx_kernel(const float* __restrict__ dc, const T* __restrict__ w, T* __restrict__ dx,
-          int cin, int cout, int len) {
-  __shared__ ConvSmem<TPT> sm;
-  const int i0 = blockIdx.x * kOTile;
-  const int n = blockIdx.y;
-  float acc[kOTile][TPT];
-  // a conv from cout channels (dc) to cin channels (dx)
-  conv_accumulate<float, T, T, TPT, true>(dc + (size_t)n * cout * len, w, cout, cin, len,
-                                          i0, sm, acc);
-#pragma unroll
-  for (int i = 0; i < kOTile; ++i) {
-    if (i0 + i >= cin) break;
-    T* dxi = dx + ((size_t)n * cin + i0 + i) * len;
-#pragma unroll
-    for (int k = 0; k < TPT; ++k) {
-      const int t = threadIdx.x + k * kThreads;
-      if (t < len) store(dxi + t, acc[i][k]);
-    }
-  }
 }
 
 // ---- dw pass ----------------------------------------------------------------
@@ -793,24 +524,26 @@ db_kernel(const float* __restrict__ dc, float* __restrict__ db, int n, int cout,
   }
 }
 
-// ---- the critic's conv core ------------------------------------------------
+// ---- the conv core ------------------------------------------------------------
 //
-// Replaces, with the row pass below, scgrhc/ops/pallas/critic_fused.py's
-// _fwd_kernel (K2f) and the conv halves of _bwd_dx_kernel (K2dx: the
-// recompute of c at the head of the dc pass, and dx) and of
-// _bwd_dwdb_kernel's dc pass (K2dw).
+// Replaces, with the row pass below, the conv of every layer kernel:
+// scgrhc/ops/pallas/conv_block.py's _fwd_kernel (K1f) and the recompute
+// and dx of its _bwd_kernel (K1b); critic_fused.py's _fwd_kernel (K2f) and
+// the conv halves of _bwd_dx_kernel (K2dx: the recompute of c at the head
+// of the dc pass, and dx) and of _bwd_dwdb_kernel's dc pass (K2dw).
 //
 // c[n, o, t] = b[o] + sum_i sum_k w[o, i, k] * x[n, i, t + k - 1] is one
 // product per sample with M = O, N = T and K = 3 * C_in; dx is the same
 // product over dc with A[i][(o, tap)] = w[o, i, 2 - tap] (M = C_in, K = 3 *
-// O), as conv_accumulate's TRANSW staging.
+// O): conv_fill's TRANSW staging.
 //
 // Bound: operations.  256 -> 512 at N = 32, T = 750 is 18.9 GFLOP a pass:
 // 0.114 ms at the 3xTF32 rate (495/3 TFLOP/s), 0.28 ms at the f32 FMA
-// peak, against 0.015 ms of bytes (x and y).  The FMA core it replaces
-// (fwd_kernel, dc_kernel, dx_kernel) ran at a third of the FMA peak; its
-// whole-T register tile caps a block at 16 output rows (16 x 768 sums fill
-// the registers), so each staged x value feeds one m16 tile, and T <= 1024.
+// peak, against 0.015 ms of bytes (x and y); the generator's 512 -> 512 at
+// N = 512, T = 744 is 600 GFLOP, 3.6 ms at the 3xTF32 rate.  An FMA core
+// that kept a whole row of c in registers (16 output rows a block, each
+// staged x value feeding one m16 tile, T <= 1024) ran at a third of the
+// FMA peak.
 //
 // Design (conv_mma_kernel, ConvTile): a block owns BM = 64 output rows x
 // BN = 128 steps of one sample, 8 warps of 32 rows x 32 steps (2 x 4 m16n8
@@ -820,17 +553,18 @@ db_kernel(const float* __restrict__ dc, float* __restrict__ db, int n, int cout,
 // x slab of the 16 channels x (BN + 4) steps with its zero halo; the three
 // taps read the slab at column offsets 1, 2 and 3, so each x value comes
 // from device memory once per block and row tile.  Rows are padded so that
-// a fragment's 32 lanes fall on 32 banks.  64 rows: the 5 -> 64 layer fills
-// one tile.  128 steps: T = 750 takes 6 tiles (2 % waste).  Timed on an
-// H100 (bench/conv_core.cu, f32, N = 32): the fastest of six tilings at
-// every critic layer; at 256 -> 512 0.532 ms (21 % of the 3xTF32 rate),
-// against 0.602 for 32-channel slices, 0.634 for 128 x 64, 0.642 for
-// 128 x 128 and 0.779 for 64 x 64 tiles (a fourth stage: 0.529); with
-// row_kernel, the in_relu forward takes 0.580 against fwd_kernel's 0.886.
-// The same loop without the TF32 split reads 0.412 ms, and with one
-// product instead of three 0.292: the split costs a fifth of the time, and
-// the staging and the rest of the loop more than the products.
-// The tile has no T limit: a whole row of c is never held.
+// a fragment's 32 lanes fall on 32 banks.  64 rows: the 5 -> 64 and 4 -> 64
+// layers fill one tile.  128 steps: T = 750 takes 6 tiles (2 % waste).  A
+// K below one slice (C_in = 4 or 1 in the generator's first layer) is a
+// part of one slice, zero-filled.
+// Timed on an H100 (bench/conv_core.cu, f32, N = 32): the fastest of six
+// tilings at every critic layer; at 256 -> 512 0.532 ms (21 % of the
+// 3xTF32 rate), against 0.602 for 32-channel slices, 0.634 for 128 x 64,
+// 0.642 for 128 x 128 and 0.779 for 64 x 64 tiles (a fourth stage: 0.529);
+// with row_kernel, the in_relu forward took 0.580 against the FMA core's
+// 0.886.  The same loop without the TF32 split reads 0.412 ms, and with
+// one product instead of three 0.292: the split costs a fifth of the
+// time, and the staging and the rest of the loop more than the products.
 //   f32: m16n8k8 TF32 with the 3xTF32 split; each slice sums from zero in
 //   the tensor cores and is added to the running sums in f32 outside them
 //   (one running sum on the tensor cores read 1.45e-5 at dw).  bf16:
@@ -840,7 +574,8 @@ db_kernel(const float* __restrict__ dc, float* __restrict__ db, int n, int cout,
 //   The in_relu mode stores c in f32 (the wrapper's scratch, or the dc
 //   scratch itself) and row_kernel, a warp per (n, o) row, takes the
 //   one-pass statistics over T and writes y, or dc over c in place.  The
-//   round trip of c costs 2 x 49 MB at 256 -> 512, about 0.03 ms.
+//   round trip of c costs 2 x 49 MB at 256 -> 512, about 0.03 ms, and
+//   2 x 780 MB at the generator's 512 -> 512 at N = 512, about 0.5 ms.
 //
 // Below kConvStreamBelow output channels (the 512 -> 1 score layer) the
 // forward is conv_stream_kernel.  Bound: bytes, x read once (49 MB, 14.7
@@ -848,8 +583,15 @@ db_kernel(const float* __restrict__ dc, float* __restrict__ db, int n, int cout,
 // 64 steps of one sample, each lane two adjacent steps read as one vector
 // where T and x's alignment allow (the halo from the neighbouring lanes by
 // shuffles); its 8 warps walk 8 slabs of the input channels in order and
-// their sums are added in warp order.  dx below 16 output channels (K = 3 *
-// O) keeps dx_kernel.
+// their sums are added in warp order.
+//
+// dx below kConvStreamBelow output channels is dx_stream_kernel.  Bound:
+// bytes, dx written once (49 MB at 512 -> 1, N = 32, T = 750: 14.7 us);
+// on the core, K = 3 * O is a part of one 16-channel slice, and it took
+// 0.0496 ms in a CUDA graph on an H100 (chip_smoke.py), twice an FMA
+// kernel's 0.0236.  A block holds 64 steps of dc with their halo in shared
+// memory; each warp writes whole rows of dx, each lane two steps in one
+// store.
 
 constexpr int kConvStreamBelow = 16;  // O below this: the forward streams over x
 constexpr int kStreamSteps = 64;      // steps of a streaming block, two a lane
@@ -1150,6 +892,56 @@ conv_stream_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __
   }
 }
 
+// dx below kConvStreamBelow output channels: dx[n, i, t] = sum_o (w[o, i, 0]
+// * dc[n, o, t + 1] + w[o, i, 1] * dc[n, o, t] + w[o, i, 2] * dc[n, o, t - 1])
+// in T, for cout <= OMAX, dc rounded to T first.  One block per (64 steps,
+// sample) holds the block's steps of dc with their halo in shared memory;
+// warp wi writes the input channels wi, wi + 8, ..., each lane its two
+// steps t, t + 1 (one VEC = 2 store: T even, dx aligned), the output
+// channels summed in order.
+template <typename T, int OMAX, int VEC>
+__global__ void __launch_bounds__(kThreads)
+dx_stream_kernel(const float* __restrict__ dc, const T* __restrict__ w, T* __restrict__ dx,
+                 int cin, int cout, int len) {
+  constexpr int kCols = kStreamSteps + 2;
+  __shared__ float dcs[OMAX][kCols];  // dcs[o][j] = dc[n, o, t0 - 1 + j], zero outside [0, T)
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t0 = blockIdx.x * kStreamSteps, n = blockIdx.y;
+  const float* dcn = dc + (size_t)n * cout * len;
+  for (int e = threadIdx.x; e < OMAX * kCols; e += kThreads) {
+    const int o = e / kCols, t = t0 - 1 + e % kCols;
+    dcs[o][e % kCols] =
+        o < cout && t >= 0 && t < len ? round_to<T>(dcn[(size_t)o * len + t]) : 0.f;
+  }
+  __syncthreads();
+  const int t = t0 + 2 * lane;
+  float d[OMAX][4];  // dc at t - 1 .. t + 2
+#pragma unroll
+  for (int o = 0; o < OMAX; ++o)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) d[o][k] = dcs[o][2 * lane + k];
+  T* dxn = dx + (size_t)n * cin * len;
+  for (int i = warp; i < cin; i += kWarps) {
+    float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+    for (int o = 0; o < OMAX; ++o) {
+      if (o < cout) {
+        const T* wr = w + ((size_t)o * cin + i) * 3;
+        const float w0 = to_f32(wr[0]), w1 = to_f32(wr[1]), w2 = to_f32(wr[2]);
+        a0 = fmaf(w0, d[o][2], fmaf(w1, d[o][1], fmaf(w2, d[o][0], a0)));
+        a1 = fmaf(w0, d[o][3], fmaf(w1, d[o][2], fmaf(w2, d[o][1], a1)));
+      }
+    }
+    T* row = dxn + (size_t)i * len;
+    if constexpr (VEC == 2) {
+      if (t < len) store2(row + t, a0, a1);  // T even: t + 1 < T too
+    } else {
+      if (t < len) store(row + t, a0);
+      if (t + 1 < len) store(row + t + 1, a1);
+    }
+  }
+}
+
 // What row_kernel does with a row of c (f32):
 //   kRowInReluFwd  y = relu((c - mean) * rsig), in T
 //   kRowReluFwd    y = relu(c), in T
@@ -1210,31 +1002,45 @@ row_kernel(float* __restrict__ c, const T* __restrict__ dy, T* __restrict__ y, i
   }
 }
 
+
 // ---- host launchers ---------------------------------------------------------
 
-bool shape_ok(int n, int cin, int cout, int len) {
-  return n > 0 && n <= 65535 && cin > 0 && cout > 0 && len > 0 && len <= kMaxTpt * kThreads;
+// The per-sample passes (the conv kernels and the row pass) put the
+// samples on a grid axis of at most 65535 blocks, so the launchers walk N
+// in chunks of kSampleChunk samples by pointer offset.  Samples are
+// independent: the bits do not depend on the chunking.  The dw stage
+// takes any N (at most DW_BLOCKS splits, 64-bit sample offsets).
+constexpr int kSampleChunk = 65535;
+
+// The shared memory that dw_stream_kernel's copy of one sample's dc may
+// take: the 232,448 bytes a block may take on sm_90, static and dynamic,
+// less 6 KB for the kernel's static arrays (at most 4 * (32 * 15 * 3 + 15)
+// = 5,820 bytes, which the compiler pads).
+constexpr long long kDwStreamDcBytes = 232448 - 6 * 1024;
+
+// Whether dw_stream_kernel holds one sample's dc, cout x (len + 2) f32:
+// the one shape limit of the layer's kernels, and only where the backward
+// computes dw below kDwStreamBelow output channels (conv3.py:
+// dw_stream_max_len).
+bool dw_stream_fits(int cout, int len) {
+  return cout >= kDwStreamBelow ||
+         (long long)sizeof(float) * cout * (len + 2LL) <= kDwStreamDcBytes;
 }
 
-// Runs the statement with TPT (time steps per thread) set for len.
-#define SCGRHC_TPT_SWITCH(len, ...)                         \
-  switch (((len) + kThreads - 1) / kThreads) {              \
-    case 1: { constexpr int TPT = 1; __VA_ARGS__; } break;  \
-    case 2: { constexpr int TPT = 2; __VA_ARGS__; } break;  \
-    case 3: { constexpr int TPT = 3; __VA_ARGS__; } break;  \
-    case 4: { constexpr int TPT = 4; __VA_ARGS__; } break;  \
-    default: return cudaErrorInvalidValue;                  \
-  }
+// Any non-empty shape; with dw, what dw_stream_fits.
+bool shape_ok(int n, int cin, int cout, int len, bool dw) {
+  return n > 0 && cin > 0 && cout > 0 && len > 0 && (!dw || dw_stream_fits(cout, len));
+}
 
-// The generator's forward (K1f): y (n, cout, len) in T.
-template <typename T>
-cudaError_t launch_fwd(const void* x, const void* w, const void* b, void* y, int n,
-                       int cin, int cout, int len, cudaStream_t stream) {
-  const dim3 grid((cout + kOTile - 1) / kOTile, n);
-  SCGRHC_TPT_SWITCH(len, fwd_kernel<T, TPT><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b),
-      static_cast<T*>(y), cin, cout, len));
-  return cudaGetLastError();
+// Runs f(n0, nc) on the samples [n0, n0 + nc) of each chunk, in order,
+// until one returns an error.
+template <typename F>
+cudaError_t over_samples(int n, F f) {
+  for (int n0 = 0; n0 < n; n0 += kSampleChunk) {
+    const cudaError_t err = f(n0, n - n0 < kSampleChunk ? n - n0 : kSampleChunk);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 // The tiling of the tensor-core path (conv3.py: DW_TILE_O, DW_TILE_C).
@@ -1272,48 +1078,9 @@ const float* dc_linear(const void* dy, void* dc, int n, int cout, int len, cudaS
   }
 }
 
-// The dx pass on the FMA units (dx_kernel): dx (n, cin, len) in T from the
-// f32 dc (n, cout, len).
-template <typename T>
-cudaError_t launch_dx_fma(const float* dc, const void* w, void* dx, int n, int cin, int cout,
-                          int len, cudaStream_t stream) {
-  const dim3 grid((cin + kOTile - 1) / kOTile, n);
-  SCGRHC_TPT_SWITCH(len, dx_kernel<T, TPT><<<grid, kThreads, 0, stream>>>(
-      dc, static_cast<const T*>(w), static_cast<T*>(dx), cin, cout, len));
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_dw(const float* dcp, const T* xp, void* dw, void* db, void* part, int n,
-                      int cin, int cout, int len, int nsplit, cudaStream_t stream);
-
-// The generator's backward (K1b): dc into the f32 scratch dc (n, cout,
-// len), then dx (n, cin, len) in T unless dx is null, then dw (cout, cin,
-// 3) and db (cout,) in f32 unless dw is null, through the f32 scratch part
-// (nsplit, cout, 3 * cin), or (nsplit, cout, 3 * cin + 1) on the streaming
-// path (cout < kDwStreamBelow).
-template <typename T>
-cudaError_t launch_bwd(const void* x, const void* w, const void* b, const void* dy,
-                       void* dx, void* dw, void* db, void* dc, void* part, int n,
-                       int cin, int cout, int len, int nsplit, cudaStream_t stream) {
-  const T* xp = static_cast<const T*>(x);
-  const float* dcp = static_cast<const float*>(dc);
-  const dim3 grid((cout + kOTile - 1) / kOTile, n);
-  SCGRHC_TPT_SWITCH(len, dc_kernel<T, TPT><<<grid, kThreads, 0, stream>>>(
-      xp, static_cast<const T*>(w), static_cast<const T*>(b), static_cast<const T*>(dy),
-      static_cast<float*>(dc), cin, cout, len));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  if (dx != nullptr) {
-    err = launch_dx_fma<T>(dcp, w, dx, n, cin, cout, len, stream);
-    if (err != cudaSuccess) return err;
-  }
-  if (dw == nullptr) return err;
-  return launch_dw<T>(dcp, xp, dw, db, part, n, cin, cout, len, nsplit, stream);
-}
-
 // The dw pass: dw (cout, cin, 3) and db (cout,) in f32 from the f32 dc,
-// through the scratch part (launch_bwd).
+// through the f32 scratch part (nsplit, cout, 3 * cin), or (nsplit, cout,
+// 3 * cin + 1) on the streaming path (cout < kDwStreamBelow).
 template <typename T>
 cudaError_t launch_dw(const float* dcp, const T* xp, void* dw, void* db, void* part, int n,
                       int cin, int cout, int len, int nsplit, cudaStream_t stream) {
@@ -1339,16 +1106,17 @@ cudaError_t launch_dw(const float* dcp, const T* xp, void* dw, void* db, void* p
   return cudaGetLastError();
 }
 
-// ---- the critic's launchers -------------------------------------------------
+// ---- the layer's launchers ---------------------------------------------------
 
-// The conv passes of the critic's layer: the forward (K2f), the recompute
-// of c at the head of the dc pass (K2dx, K2dw), and dx (K2dx).
+// The conv passes of a layer: the forward (K1f, K2f), the recompute of c
+// at the head of the dc pass (K1b, K2dx, K2dw), and dx (K1b, K2dx).
 enum ConvPass { kPassFwd = 0, kPassDc = 1, kPassDx = 2 };
-enum ConvPath { kPathNone = 0, kPathMma = 1, kPathStream = 2, kPathFma = 3 };
+enum ConvPath { kPathNone = 0, kPathMma = 1, kPathStream = 2 };
 
-// A pass's launch plan (conv3.py's conv_plan mirrors it): the conv
-// kernel's path and grid, the row pass's blocks (0: none), and whether the
-// forward writes c into the wrapper's f32 scratch (n, cout, len) first.
+// A pass's launch plan for n samples (conv3.py's conv_plan mirrors it; the
+// launchers take the plan of each chunk of samples): the conv kernel's
+// path and grid, the row pass's blocks (0: none), and whether the forward
+// writes c into the wrapper's f32 scratch (n, cout, len) first.
 struct ConvPlan {
   int path;
   dim3 grid;
@@ -1366,10 +1134,10 @@ ConvPlan conv_plan(int n, int cin, int cout, int len, int mode, int pass) {
   constexpr int BM = ConvTile<float>::BM, BN = ConvTile<float>::BN;
   ConvPlan p{kPathNone, dim3(0, 0, 0), 0, false};
   if (pass == kPassDx) {
-    // M = cin, K = 3 * cout: below 16 output channels K is too short for a tile
-    p.path = cout < kConvStreamBelow ? kPathFma : kPathMma;
-    p.grid = p.path == kPathFma ? dim3(cdiv(cin, kOTile), n, 1)
-                                : dim3(cdiv(len, BN), cdiv(cin, BM), n);
+    // M = cin, K = 3 * cout: below 16 output channels a stream over dc
+    p.path = cout < kConvStreamBelow ? kPathStream : kPathMma;
+    p.grid = p.path == kPathStream ? dim3(cdiv(len, kStreamSteps), n, 1)
+                                   : dim3(cdiv(len, BN), cdiv(cin, BM), n);
     return p;
   }
   if (pass == kPassDc && mode == kLinear) return p;  // dc = dy
@@ -1427,10 +1195,24 @@ cudaError_t launch_conv_stream(dim3 grid, const T* x, const T* w, const T* bias,
 }
 
 // out = conv1d(x, w, padding=1) + b (relu'd with RELU, which only the
-// tensor-core path takes) on the plan's path.
+// tensor-core path takes) on the plan's path, for the plan's samples.
+// dx below kConvStreamBelow output channels, with 8-byte (f32) or 4-byte
+// (bf16) stores where T and dx's alignment allow.
+template <typename T>
+cudaError_t launch_dx_stream(dim3 grid, const float* dc, const T* w, T* dx, int cin, int cout,
+                             int len, cudaStream_t stream) {
+  const bool vec = len % 2 == 0 && reinterpret_cast<uintptr_t>(dx) % (2 * sizeof(T)) == 0;
+  constexpr int kMax = kConvStreamBelow - 1;
+  const auto kernel = cout == 1 ? (vec ? &dx_stream_kernel<T, 1, 2> : &dx_stream_kernel<T, 1, 1>)
+                                : (vec ? &dx_stream_kernel<T, kMax, 2>
+                                       : &dx_stream_kernel<T, kMax, 1>);
+  kernel<<<grid, kThreads, 0, stream>>>(dc, w, dx, cin, cout, len);
+  return cudaGetLastError();
+}
+
 template <typename T, typename TOUT, bool RELU>
-cudaError_t launch_critic_conv(const ConvPlan& p, const T* x, const T* w, const T* b, TOUT* out,
-                               int cin, int cout, int len, cudaStream_t stream) {
+cudaError_t launch_layer_conv(const ConvPlan& p, const T* x, const T* w, const T* b, TOUT* out,
+                              int cin, int cout, int len, cudaStream_t stream) {
   if (p.path == kPathMma)
     return launch_conv_mma<T, T, TOUT, false, RELU>(p.grid, x, w, b, out, cin, cout, len, stream);
   if constexpr (!RELU) {
@@ -1447,63 +1229,80 @@ cudaError_t launch_row(int blocks, float* c, const T* dy, T* y, int rows, int le
   return cudaGetLastError();
 }
 
-// The critic's forward: y (n, cout, len) in T; c is the f32 scratch
-// (n, cout, len) where conv_plan asks for one, else null.
+// The layer's forward (K1f: the in_relu mode; K2f): y (n, cout, len) in
+// T; c is the f32 scratch (n, cout, len) where conv_plan asks for one,
+// else null.
 template <typename T, int MODE>
-cudaError_t launch_critic_fwd(const void* x, const void* w, const void* b, void* y, void* c,
-                              int n, int cin, int cout, int len, cudaStream_t stream) {
-  const ConvPlan p = conv_plan(n, cin, cout, len, MODE, kPassFwd);
-  if (p.scratch != (c != nullptr)) return cudaErrorInvalidValue;
-  const T* xp = static_cast<const T*>(x);
+cudaError_t launch_layer_fwd(const void* x, const void* w, const void* b, void* y, void* c,
+                             int n, int cin, int cout, int len, cudaStream_t stream) {
+  if (conv_plan(n, cin, cout, len, MODE, kPassFwd).scratch != (c != nullptr))
+    return cudaErrorInvalidValue;
   const T* wp = static_cast<const T*>(w);
   const T* bp = static_cast<const T*>(b);
-  T* yp = static_cast<T*>(y);
-  if constexpr (MODE == kLinear) {
-    return launch_critic_conv<T, T, false>(p, xp, wp, bp, yp, cin, cout, len, stream);
-  } else {
-    if (!p.scratch)
-      return launch_critic_conv<T, T, MODE == kRelu>(p, xp, wp, bp, yp, cin, cout, len, stream);
-    float* cp = static_cast<float*>(c);
-    const cudaError_t err = launch_critic_conv<T, float, false>(p, xp, wp, bp, cp, cin, cout,
-                                                                len, stream);
-    if (err != cudaSuccess) return err;
-    constexpr int kRow = MODE == kInRelu ? kRowInReluFwd : kRowReluFwd;
-    return launch_row<T, kRow>(p.row_blocks, cp, nullptr, yp, n * cout, len, stream);
-  }
+  return over_samples(n, [&](int n0, int nc) {
+    const ConvPlan p = conv_plan(nc, cin, cout, len, MODE, kPassFwd);
+    const T* xp = static_cast<const T*>(x) + (size_t)n0 * cin * len;
+    T* yp = static_cast<T*>(y) + (size_t)n0 * cout * len;
+    if constexpr (MODE == kLinear) {
+      return launch_layer_conv<T, T, false>(p, xp, wp, bp, yp, cin, cout, len, stream);
+    } else {
+      if constexpr (MODE == kRelu) {
+        if (!p.scratch)
+          return launch_layer_conv<T, T, true>(p, xp, wp, bp, yp, cin, cout, len, stream);
+      }
+      float* cp = static_cast<float*>(c) + (size_t)n0 * cout * len;
+      const cudaError_t err =
+          launch_layer_conv<T, float, false>(p, xp, wp, bp, cp, cin, cout, len, stream);
+      if (err != cudaSuccess) return err;
+      constexpr int kRow = MODE == kInRelu ? kRowInReluFwd : kRowReluFwd;
+      return launch_row<T, kRow>(p.row_blocks, cp, nullptr, yp, nc * cout, len, stream);
+    }
+  });
 }
 
-// The critic's backward, as launch_bwd: dc into the f32 scratch dc
-// (c recomputed there, then the row pass over it), dx, then dw and db.
+// The layer's backward (K1b: the in_relu mode; K2dx, K2dw) for the output
+// cotangent dy (n, cout, len): dc into the f32 scratch dc (n, cout, len)
+// (c recomputed there, then the row pass over it; dy itself in the f32
+// linear mode), then dx (n, cin, len) in T unless dx is null, then dw
+// (cout, cin, 3) and db (cout,) in f32 unless dw is null, through the f32
+// scratch part (launch_dw).
 template <typename T, int MODE>
-cudaError_t launch_critic_bwd(const void* x, const void* w, const void* b, const void* dy,
-                              void* dx, void* dw, void* db, void* dc, void* part, int n,
-                              int cin, int cout, int len, int nsplit, cudaStream_t stream) {
+cudaError_t launch_layer_bwd(const void* x, const void* w, const void* b, const void* dy,
+                             void* dx, void* dw, void* db, void* dc, void* part, int n,
+                             int cin, int cout, int len, int nsplit, cudaStream_t stream) {
   const T* xp = static_cast<const T*>(x);
   const T* wp = static_cast<const T*>(w);
-  float* dcw = static_cast<float*>(dc);
-  const float* dcp = dcw;
+  const float* dcp = static_cast<const float*>(dc);
   cudaError_t err;
   if constexpr (MODE == kLinear) {
     dcp = dc_linear<T>(dy, dc, n, cout, len, stream);
     err = cudaGetLastError();
   } else {
-    const ConvPlan p = conv_plan(n, cin, cout, len, MODE, kPassDc);
-    err = launch_critic_conv<T, float, false>(p, xp, wp, static_cast<const T*>(b), dcw, cin,
-                                              cout, len, stream);
-    constexpr int kRow = MODE == kInRelu ? kRowInReluDc : kRowReluDc;
-    if (err == cudaSuccess)
-      err = launch_row<T, kRow>(p.row_blocks, dcw, static_cast<const T*>(dy), nullptr, n * cout,
-                                len, stream);
+    err = over_samples(n, [&](int n0, int nc) {
+      const ConvPlan p = conv_plan(nc, cin, cout, len, MODE, kPassDc);
+      const size_t off = (size_t)n0 * cout * len;
+      float* dcw = static_cast<float*>(dc) + off;
+      const cudaError_t e = launch_layer_conv<T, float, false>(
+          p, xp + (size_t)n0 * cin * len, wp, static_cast<const T*>(b), dcw, cin, cout, len,
+          stream);
+      if (e != cudaSuccess) return e;
+      constexpr int kRow = MODE == kInRelu ? kRowInReluDc : kRowReluDc;
+      return launch_row<T, kRow>(p.row_blocks, dcw, static_cast<const T*>(dy) + off, nullptr,
+                                 nc * cout, len, stream);
+    });
   }
   if (err != cudaSuccess) return err;
   if (dx != nullptr) {
-    const ConvPlan p = conv_plan(n, cin, cout, len, MODE, kPassDx);
     // a conv from cout channels (dc) to cin channels (dx), w read transposed
-    err = p.path == kPathMma
-              ? launch_conv_mma<T, float, T, true, false>(p.grid, dcp, wp, nullptr,
-                                                          static_cast<T*>(dx), cout, cin, len,
-                                                          stream)
-              : launch_dx_fma<T>(dcp, w, dx, n, cin, cout, len, stream);
+    err = over_samples(n, [&](int n0, int nc) {
+      const ConvPlan p = conv_plan(nc, cin, cout, len, MODE, kPassDx);
+      const float* dcn = dcp + (size_t)n0 * cout * len;
+      T* dxn = static_cast<T*>(dx) + (size_t)n0 * cin * len;
+      if (p.path == kPathStream)
+        return launch_dx_stream<T>(p.grid, dcn, wp, dxn, cin, cout, len, stream);
+      return launch_conv_mma<T, float, T, true, false>(p.grid, dcn, wp, nullptr, dxn, cout, cin,
+                                                       len, stream);
+    });
     if (err != cudaSuccess) return err;
   }
   if (dw == nullptr) return err;

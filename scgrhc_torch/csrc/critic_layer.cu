@@ -17,9 +17,9 @@
 // dominates.  The conv of the forward, of the dc pass's recompute and of
 // dx runs on the tensor cores (conv3.cuh, above conv_mma_kernel), with a
 // row pass for the instance norm and the dc formulas; below 16 output
-// channels the forward streams over x at the byte bound and dx keeps the
-// FMA kernel (dx_kernel).  K2dw's dw product runs on the tensor cores, or
-// for the score layer as a stream over x (conv3.cuh, above dw_mma_kernel).
+// channels the forward streams over x and dx over dc, each at the byte
+// bound.  K2dw's dw product runs on the tensor cores, or for the score
+// layer as a stream over x (conv3.cuh, above dw_mma_kernel).
 // The second-order pass of the gradient penalty is not a kernel: it
 // differentiates the plain PyTorch version, as the JAX package
 // differentiates its reference under XLA.
@@ -34,9 +34,9 @@ template <typename T>
 cudaError_t fwd(int mode, const void* x, const void* w, const void* b, void* y, void* c, int n,
                 int cin, int cout, int len, cudaStream_t s) {
   switch (mode) {
-    case kLinear: return launch_critic_fwd<T, kLinear>(x, w, b, y, c, n, cin, cout, len, s);
-    case kRelu: return launch_critic_fwd<T, kRelu>(x, w, b, y, c, n, cin, cout, len, s);
-    case kInRelu: return launch_critic_fwd<T, kInRelu>(x, w, b, y, c, n, cin, cout, len, s);
+    case kLinear: return launch_layer_fwd<T, kLinear>(x, w, b, y, c, n, cin, cout, len, s);
+    case kRelu: return launch_layer_fwd<T, kRelu>(x, w, b, y, c, n, cin, cout, len, s);
+    case kInRelu: return launch_layer_fwd<T, kInRelu>(x, w, b, y, c, n, cin, cout, len, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -47,14 +47,14 @@ cudaError_t bwd(int mode, const void* x, const void* w, const void* b, const voi
                 int len, int nsplit, cudaStream_t s) {
   switch (mode) {
     case kLinear:
-      return launch_critic_bwd<T, kLinear>(x, w, b, dy, dx, dw, db, dc, part, n, cin, cout,
-                                           len, nsplit, s);
+      return launch_layer_bwd<T, kLinear>(x, w, b, dy, dx, dw, db, dc, part, n, cin, cout,
+                                          len, nsplit, s);
     case kRelu:
-      return launch_critic_bwd<T, kRelu>(x, w, b, dy, dx, dw, db, dc, part, n, cin, cout, len,
-                                         nsplit, s);
+      return launch_layer_bwd<T, kRelu>(x, w, b, dy, dx, dw, db, dc, part, n, cin, cout, len,
+                                        nsplit, s);
     case kInRelu:
-      return launch_critic_bwd<T, kInRelu>(x, w, b, dy, dx, dw, db, dc, part, n, cin, cout,
-                                           len, nsplit, s);
+      return launch_layer_bwd<T, kInRelu>(x, w, b, dy, dx, dw, db, dc, part, n, cin, cout,
+                                          len, nsplit, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -69,7 +69,7 @@ cudaError_t bwd(int mode, const void* x, const void* w, const void* b, const voi
 extern "C" int scgrhc_critic_layer_fwd(const void* x, const void* w, const void* b, void* y,
                                        void* c, int n, int cin, int cout, int len, int mode,
                                        int dtype, void* stream) {
-  if (!shape_ok(n, cin, cout, len)) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(n, cin, cout, len, false)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)fwd<float>(mode, x, w, b, y, c, n, cin, cout, len, s);
   if (dtype == 1) return (int)fwd<__nv_bfloat16>(mode, x, w, b, y, c, n, cin, cout, len, s);
@@ -86,7 +86,7 @@ extern "C" int scgrhc_critic_layer_bwd(const void* x, const void* w, const void*
                                        void* dc, void* part, int n, int cin, int cout,
                                        int len, int mode, int nsplit, int dtype,
                                        void* stream) {
-  if (!shape_ok(n, cin, cout, len) || (dx == nullptr && dw == nullptr) ||
+  if (!shape_ok(n, cin, cout, len, dw != nullptr) || (dx == nullptr && dw == nullptr) ||
       (dw != nullptr && (db == nullptr || nsplit < 1 || nsplit > n)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -100,10 +100,10 @@ extern "C" int scgrhc_critic_layer_bwd(const void* x, const void* w, const void*
 }
 
 // The launch plan of a conv pass (0 forward, 1 the dc pass's recompute,
-// 2 dx) as the launchers take it: out[0..5] = path (0 none, 1 mma,
-// 2 stream, 3 fma), the grid's x, y, z, the row pass's blocks, and 1 when
-// the forward needs the f32 scratch c.  conv3.py's conv_plan mirrors it.
-// Returns 0.
+// 2 dx) for n samples, as the launchers take it for each chunk of
+// samples: out[0..5] = path (0 none, 1 mma, 2 stream), the grid's x, y,
+// z, the row pass's blocks, and 1 when the forward needs the f32 scratch
+// c.  conv3.py's conv_plan mirrors it.  Returns 0.
 extern "C" int scgrhc_critic_plan(int n, int cin, int cout, int len, int mode, int pass,
                                   int* out) {
   const ConvPlan p = conv_plan(n, cin, cout, len, mode, pass);

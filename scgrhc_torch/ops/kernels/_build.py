@@ -30,11 +30,10 @@ NVCC_FLAGS = (
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # x, w, b, y, n, cin, cout, len, dtype, stream
-    "scgrhc_conv_in_relu": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, w, b, y, c, n, cin, cout, len, dtype, stream
+    "scgrhc_conv_in_relu": (_P,) * 5 + (_I,) * 5 + (_P,),
     # x, w, b, dy, dx, dw, db, dc, part, n, cin, cout, len, nsplit, dtype, stream
     "scgrhc_conv_in_relu_bwd": (_P,) * 9 + (_I,) * 6 + (_P,),
-    "scgrhc_conv_in_relu_max_len": (),
     # x, w, b, y, c, n, cin, cout, len, mode, dtype, stream
     "scgrhc_critic_layer_fwd": (_P,) * 5 + (_I,) * 6 + (_P,),
     # x, w, b, dy, dx, dw, db, dc, part, n, cin, cout, len, mode, nsplit, dtype, stream

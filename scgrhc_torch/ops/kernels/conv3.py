@@ -19,8 +19,11 @@ dx and dw take dc rounded to x's dtype, db the unrounded dc, as the Pallas
 kernels do.  Every plain version is differentiable PyTorch, so the critic's
 second-order gradient can differentiate it.
 
-The critic's conv passes (forward, the dc pass's recompute of c, dx) follow
-:func:`conv_plan`; the generator's layer keeps its own FMA kernels.
+Both layers run one set of kernels: the conv passes (forward, the dc
+pass's recompute of c, dx) follow :func:`conv_plan`, the dw stage
+:func:`dw_plan`.  The kernels take any non-empty shape, but for one limit
+that :func:`check_inputs` states: below 16 output channels, dw holds one
+sample's dc in a block's shared memory (:func:`dw_stream_max_len`).
 """
 
 from __future__ import annotations
@@ -51,20 +54,28 @@ DW_TILE_O, DW_TILE_C, DW_STREAM_C = 64, 32, 32
 DW_BLOCKS, DW_STREAM_BLOCKS = 264, 528
 
 
-# The critic's conv passes (csrc/conv3.cuh: conv_plan).  The forward and
-# the dc pass's recompute run the tensor-core product over tiles of
+# The conv passes of both layers (csrc/conv3.cuh: conv_plan).  The forward
+# and the dc pass's recompute run the tensor-core product over tiles of
 # CONV_TILE_M output channels x CONV_TILE_N steps of one sample; below
 # CONV_STREAM_BELOW output channels (the 512 -> 1 score layer) the forward
 # streams over x, a block per CONV_STREAM_STEPS steps of one sample.  The
 # instance norm, a relu the stream kernel cannot apply and the dc formulas
 # go to a row pass, a warp per (n, o) row, ROW_WARPS rows a block.  dx is
 # the product over dc (M = C_in, K = 3 O) or, below CONV_STREAM_BELOW
-# output channels, the FMA kernel over CONV_FMA_ROWS input channels a block.
+# output channels, a stream over dc, a block per CONV_STREAM_STEPS steps
+# of one sample.  The plan is for n samples; the launchers take it for
+# each chunk of at most 65535 samples (a grid axis's extent).
 CONV_STREAM_BELOW = 16
 CONV_TILE_M, CONV_TILE_N, CONV_STREAM_STEPS = 64, 128, 64
-ROW_WARPS, CONV_FMA_ROWS = 8, 16
+ROW_WARPS = 8
 PASSES = ("fwd", "dc", "dx")
-PATHS = ("none", "mma", "stream", "fma")
+PATHS = ("none", "mma", "stream")
+
+# dw's stream (O < DW_STREAM_BELOW) holds one sample's dc, O x (T + 2)
+# f32, in one block's shared memory: the 232,448 bytes a block may take on
+# sm_90 (H100) less 6 KB for the kernel's static sums (csrc/conv3.cuh:
+# kDwStreamDcBytes).
+DW_STREAM_DC_BYTES = 232448 - 6 * 1024
 
 
 @dataclass(frozen=True)
@@ -80,13 +91,13 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def conv_plan(n: int, cin: int, cout: int, t: int, mode: str, pass_: str = "fwd") -> ConvPlan:
-    """The launch plan of one conv pass of the critic's layer for x
-    (n, cin, t) and cout output channels, as the C launchers take it."""
+    """The launch plan of one conv pass of the layer for x (n, cin, t) and
+    cout output channels, as the C launchers take it."""
     if pass_ not in PASSES or mode not in MODES:
         raise ValueError(f"conv_plan: pass {pass_!r}, mode {mode!r}")
     if pass_ == "dx":
         if cout < CONV_STREAM_BELOW:
-            return ConvPlan("fma", (_cdiv(cin, CONV_FMA_ROWS), n, 1), 0, None)
+            return ConvPlan("stream", (_cdiv(t, CONV_STREAM_STEPS), n, 1), 0, None)
         return ConvPlan("mma", (_cdiv(t, CONV_TILE_N), _cdiv(cin, CONV_TILE_M), n), 0, None)
     if pass_ == "dc" and mode == "linear":
         return ConvPlan("none", (0, 0, 0), 0, None)
@@ -192,10 +203,22 @@ def dw_split_bounds(n: int, nsplit: int) -> list[tuple[int, int]]:
     return [(n * z // nsplit, n * (z + 1) // nsplit) for z in range(nsplit)]
 
 
-def check_inputs(what: str, x, w, b, dy=None) -> None:
+def dw_stream_max_len(cout: int) -> int | None:
+    """The longest T that dw's first stage takes at ``cout`` output
+    channels: below DW_STREAM_BELOW it holds one sample's dc, cout x (T + 2)
+    f32, in DW_STREAM_DC_BYTES of shared memory: 56,574 steps at O = 1,
+    3,769 at O = 15.  None: no limit."""
+    if cout >= DW_STREAM_BELOW:
+        return None
+    return DW_STREAM_DC_BYTES // (4 * cout) - 2
+
+
+def check_inputs(what: str, x, w, b, dy=None, need_dw: bool = False) -> None:
     """Raise on what the kernels do not take: dtypes other than float32 or
-    bfloat16, mixed dtypes or devices, wrong shapes, non-contiguous
-    tensors, N or T out of range."""
+    bfloat16, mixed dtypes or devices, wrong or empty shapes,
+    non-contiguous tensors, and, where the backward computes dw
+    (``need_dw``), a T past :func:`dw_stream_max_len` below 16 output
+    channels.  Any N and any other T are taken."""
     ts = (x, w, b) if dy is None else (x, w, b, dy)
     if x.dtype not in DTYPE_CODE or any(t.dtype != x.dtype for t in ts):
         raise TypeError(
@@ -215,10 +238,15 @@ def check_inputs(what: str, x, w, b, dy=None) -> None:
         raise ValueError(f"{what} kernel takes contiguous tensors")
     if any(t.device != x.device for t in ts):
         raise ValueError(f"{what}: all tensors must be on one device")
-    max_len = _build.library().scgrhc_conv_in_relu_max_len()
-    if not (1 <= n <= 65535 and 1 <= t <= max_len):
+    if min(n, cin, o, t) < 1:
+        raise ValueError(f"{what} kernel takes no empty shape, got N={n}, C_in={cin}, O={o}, "
+                         f"T={t}")
+    max_len = dw_stream_max_len(o) if need_dw else None
+    if max_len is not None and t > max_len:
         raise ValueError(
-            f"{what} kernel takes 1 <= N <= 65535 and 1 <= T <= {max_len}, got N={n}, T={t}"
+            f"{what}: below {DW_STREAM_BELOW} output channels the weight gradient holds one "
+            f"sample's dc, O x (T + 2) float32, in a block's shared memory ({DW_STREAM_DC_BYTES} "
+            f"bytes on sm_90), so at O={o} it takes T <= {max_len}, got T={t}"
         )
 
 
@@ -226,36 +254,35 @@ def _stream(x) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def launch_fwd(entry: str, what: str, x, w, b, mode: str | None = None):
+def launch_fwd(entry: str, what: str, x, w, b, mode: str, mode_arg: bool = True):
     """The forward kernel ``entry`` on CUDA tensors → y (N, O, T) in x's
-    dtype.  ``mode`` None is the generator's in_relu-only entry point (no
-    mode, no scratch); with a mode, the critic's, which takes the f32
-    scratch c that :func:`conv_plan` asks for (or null)."""
+    dtype, with the f32 scratch c that :func:`conv_plan` asks for (or
+    null).  ``mode_arg`` False: the entry point takes no mode (the
+    generator's, which is in_relu only)."""
     check_inputs(what, x, w, b)
     n, cin, t = x.shape
     o = w.shape[0]
     y = torch.empty((n, o, t), dtype=x.dtype, device=x.device)
-    scratch, extra = (), ()
-    if mode is not None:
-        shape = conv_plan(n, cin, o, t, mode).scratch
-        c = None if shape is None else torch.empty(shape, dtype=torch.float32, device=x.device)
-        scratch, extra = (None if c is None else c.data_ptr(),), (MODE_CODE[mode],)
+    shape = conv_plan(n, cin, o, t, mode).scratch
+    c = None if shape is None else torch.empty(shape, dtype=torch.float32, device=x.device)
+    extra = (MODE_CODE[mode],) if mode_arg else ()
     with torch.cuda.device(x.device):
         err = getattr(_build.library(), entry)(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), *scratch, n, cin, o, t,
-            *extra, DTYPE_CODE[x.dtype], _stream(x),
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+            None if c is None else c.data_ptr(), n, cin, o, t, *extra, DTYPE_CODE[x.dtype],
+            _stream(x),
         )
     _build.check(err, what)
     return y
 
 
-def launch_bwd(entry: str, what: str, x, w, b, dy, mode: str | None, need_dx: bool,
-               need_dw: bool):
+def launch_bwd(entry: str, what: str, x, w, b, dy, mode: str, need_dx: bool, need_dw: bool,
+               mode_arg: bool = True):
     """The backward kernel ``entry`` on CUDA tensors → ``(dx, dw, db)`` as
     :func:`layer_bwd_plain` gives them.  The f32 scratch for dc (N, O, T)
     and for dw's per-split partial sums (:func:`dw_plan`) is allocated
-    here."""
-    check_inputs(what, x, w, b, dy)
+    here.  ``mode_arg`` as for :func:`launch_fwd`."""
+    check_inputs(what, x, w, b, dy, need_dw)
     n, cin, t = x.shape
     o = w.shape[0]
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -267,7 +294,7 @@ def launch_bwd(entry: str, what: str, x, w, b, dy, mode: str | None, need_dx: bo
         dw = torch.empty((o, cin, 3), **f32)
         db = torch.empty((o,), **f32)
         part = torch.empty(plan.part_shape, **f32)
-    extra = () if mode is None else (MODE_CODE[mode],)
+    extra = (MODE_CODE[mode],) if mode_arg else ()
     ptrs = [None if v is None else v.data_ptr() for v in (x, w, b, dy, dx, dw, db, dc, part)]
     with torch.cuda.device(x.device):
         err = getattr(_build.library(), entry)(

@@ -5,10 +5,12 @@ joins them.
 Replaces the TPU kernel ``scgrhc/ops/pallas/conv_block.py::conv_in_relu``:
 K1f its ``_fwd_kernel``, K1b its ``_bwd_kernel`` (the custom_vjp's
 ``_cir_bwd``).  The CUDA source is ``scgrhc_torch/csrc/conv_in_relu.cu``
-over ``conv3.cuh``; its header says what bounds both on the H100
-(operations on the f32 FMA units) and how the design keeps the layer's
-intermediate out of device memory.  The plain versions are
-:mod:`.conv3`'s in the ``in_relu`` mode.
+over ``conv3.cuh``: the critic's layer kernels in the ``in_relu`` mode,
+the conv on the tensor-core core, c through an f32 scratch (N, O, T) and
+a row pass for the instance norm.  Its header says what bounds both on
+the H100 (operations, on the tensor cores) and why c may round-trip
+through device memory.  The plain versions are :mod:`.conv3`'s in the
+``in_relu`` mode; the wrappers take them on the CPU only.
 
 The layer is first-order only, like the TPU kernel: the generator is never
 under a second-order gradient.
@@ -42,7 +44,8 @@ def conv_in_relu(x, w, b):
     (:func:`.conv3.check_inputs`)."""
     if conv3.on_cpu(x, "conv_in_relu"):
         return conv_in_relu_plain(x, w, b)
-    y = conv3.launch_fwd("scgrhc_conv_in_relu", "conv_in_relu", x, w, b)
+    y = conv3.launch_fwd("scgrhc_conv_in_relu", "conv_in_relu", x, w, b, "in_relu",
+                         mode_arg=False)
     conv_in_relu.launches += 1
     return y
 
@@ -53,7 +56,7 @@ def conv_in_relu_bwd(x, w, b, dy, need_dx: bool = True):
     if conv3.on_cpu(x, "conv_in_relu_bwd"):
         return conv_in_relu_bwd_plain(x, w, b, dy, need_dx)
     out = conv3.launch_bwd("scgrhc_conv_in_relu_bwd", "conv_in_relu_bwd", x, w, b, dy,
-                           None, need_dx, True)
+                           "in_relu", need_dx, True, mode_arg=False)
     conv_in_relu_bwd.launches += 1
     return out
 

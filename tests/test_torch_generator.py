@@ -39,10 +39,9 @@ def _jax_params(c, dtype):
     return jax.tree.map(lambda a: np.asarray(a).astype(dtype), p)
 
 
-@pytest.mark.parametrize("c", [4, 1])
-def test_forward_f64_matches_jax(c):
+def _forward_f64_matches_jax(c, n, t):
     params = _jax_params(c, np.float64)
-    x = np.random.default_rng(0).random((2, c, T))
+    x = np.random.default_rng(0).random((n, c, t))
     with enable_x64():
         want = np.asarray(
             jgen.apply(jax.tree.map(jnp.asarray, params), jnp.asarray(x), train=False)
@@ -51,8 +50,20 @@ def test_forward_f64_matches_jax(c):
     assert g.dtype == torch.float64
     with torch.inference_mode():
         got = g(torch.from_numpy(x)).numpy()
-    assert got.shape == (2, 1, T) and got.dtype == np.float64
+    assert got.shape == (n, 1, t) and got.dtype == np.float64
     np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-11)
+
+
+@pytest.mark.parametrize("c", [4, 1])
+def test_forward_f64_matches_jax(c):
+    _forward_f64_matches_jax(c, 2, T)
+
+
+def test_forward_f64_matches_jax_past_1024_steps():
+    """A 2.2-s window (T = 1100, past the 1024 steps the card once
+    refused): the port's layers take any length, as scgrhc's XLA path
+    does (1100 → 1098 → 1096 → 1094 → 1096 → 1098 → 1100)."""
+    _forward_f64_matches_jax(4, 1, 1100)
 
 
 def test_forward_f32_matches_jax():

@@ -23,6 +23,11 @@ rsig·dy; 3e-2 in bf16 (bf16 inputs, dc rounded to bf16 for dx and dw, and
 more mask flips).  The bias gradient of an ``in_relu`` layer is held to
 the scale of its sum, ``|Σ|dc||``: after an instance norm it is zero up to
 rounding.  In ``relu`` and ``linear`` modes it is held by its own norm.
+Every conv pass runs one tensor-core core, which sums in another order
+than cuDNN, so a relu mask can flip between a kernel and the plain f32
+version where c or x̂ lies within f32 rounding of 0: the backward kernels
+are held to the plain backward in float64 on the forward kernel's own
+masks, and those masks to the plain version's within MASK_FLIP_SHARE.
 """
 
 import numpy as np
@@ -112,13 +117,16 @@ def test_conv_in_relu_kernel_propagates_nan(cuda):
 
 
 def test_conv_in_relu_kernel_rejects(cuda):
+    """The kernels refuse other dtypes and layouts, and take windows past
+    1024 steps: K1f and K1b at T = 1025, 1500 and 4096 against the plain
+    version (K1b on the kernel's own relu masks, in float64)."""
     x, w, b = (torch.from_numpy(a).to(cuda) for a in _conv_inputs(2, 4, 64, 750))
     with pytest.raises(TypeError):
         k1f.conv_in_relu(x.double(), w.double(), b.double())
     with pytest.raises(ValueError):
         k1f.conv_in_relu(x.transpose(1, 2).contiguous().transpose(1, 2), w, b)
-    with pytest.raises(ValueError):
-        k1f.conv_in_relu(torch.zeros(1, 4, 1025, device=cuda), w, b)
+    for t in (1025, 1500, 4096):
+        _hold_k1(*_bwd_inputs(cuda, 2, 64, 128, t, seed=t), need_dx=True)
 
 
 @pytest.mark.parametrize("n,c,t", [(512, 4, 750), (3, 1, 5)])
@@ -202,6 +210,30 @@ def test_generator_fused_matches_plain_block(cuda):
     torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
 
 
+def _hold_k1(x, w, b, dy, need_dx):
+    """K1f against the plain version (FWD_TOL absolute, and its relu masks
+    within MASK_FLIP_SHARE of the plain version's), and K1b against the
+    plain backward in float64 on K1f's masks (the kernels' own: K1b's dc
+    pass recomputes c on the same core), BWD_TOL relative; each counted
+    once."""
+    counts = (k1f.conv_in_relu.launches, k1f.conv_in_relu_bwd.launches)
+    y = k1f.conv_in_relu(x, w, b)
+    got = k1f.conv_in_relu_bwd(x, w, b, dy, need_dx)
+    torch.cuda.synchronize()
+    assert (k1f.conv_in_relu.launches, k1f.conv_in_relu_bwd.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    want_y = k1f.conv_in_relu_plain(x, w, b)
+    torch.testing.assert_close(y, want_y, atol=FWD_TOL, rtol=0)
+    _masks_agree(y, want_y)
+    _, want_dx = _bwd_f64_with_masks(x, w, b, dy, "in_relu", y > 0)
+    want_dw, want_db = _dwdb_f64_with_masks(x, w, b, dy, "in_relu", y > 0)
+    assert (got[0] is None) == (not need_dx)
+    if need_dx:
+        assert got[0].shape == x.shape and _rel(got[0], want_dx) <= BWD_TOL
+    assert _rel(got[1], want_dw) <= BWD_TOL
+    assert _rel(got[2], want_db, _db_scale(x, w, b, dy, "in_relu")) <= BWD_TOL
+
+
 def _rel(got, want, floor: float = 1e-30) -> float:
     """|got - want| / max(|want|, floor), L2 norms."""
     got, want = got.double(), want.double()
@@ -242,17 +274,25 @@ def _bwd_inputs(cuda, n, ci, o, t, seed=0, dtype=torch.float32):
                        (256, 128, 747, True), (7, 5, 1, True), (100, 24, 1024, True)]
 )
 def test_conv_in_relu_bwd_kernel_f32(cuda, ci, o, t, need_dx):
+    """K1b against the plain backward in float64 on K1f's relu masks (the
+    kernels' own: K1b recomputes c on the same tensor-core core, which sums
+    in another order than cuDNN), and those masks against the plain
+    version's within MASK_FLIP_SHARE."""
     x, w, b, dy = _bwd_inputs(cuda, 3, ci, o, t)
     before = k1f.conv_in_relu_bwd.launches
     got = k1f.conv_in_relu_bwd(x, w, b, dy, need_dx)
     torch.cuda.synchronize()
     assert k1f.conv_in_relu_bwd.launches == before + 1
-    want = k1f.conv_in_relu_bwd_plain(x, w, b, dy, need_dx)
+    y = k1f.conv_in_relu(x, w, b)
+    _masks_agree(y, k1f.conv_in_relu_plain(x, w, b))
+    plain = k1f.conv_in_relu_bwd_plain(x, w, b, dy, need_dx)
+    _, dx64 = _bwd_f64_with_masks(x, w, b, dy, "in_relu", y > 0)
+    want = (dx64 if need_dx else None, *_dwdb_f64_with_masks(x, w, b, dy, "in_relu", y > 0))
     assert (got[0] is None) == (not need_dx)
     floors = (1e-30, 1e-30, _db_scale(x, w, b, dy, "in_relu"))
-    for g, r, floor in zip(got, want, floors):
+    for g, p, r, floor in zip(got, plain, want, floors):
         if r is not None:
-            assert g.dtype == r.dtype and g.shape == r.shape
+            assert g.dtype == p.dtype and g.shape == p.shape
             assert _rel(g, r, floor) <= BWD_TOL
     again = k1f.conv_in_relu_bwd(x, w, b, dy, need_dx)
     assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])  # deterministic
@@ -465,24 +505,24 @@ def _dw_paths(x, w, b, dy, mode):
 def _hold_dw(x, w, b, dy, mode, paths=("K2dw", "K1b")):
     """Each path's dw within DW_F32_TOL and db within DW_F32_TOL of its
     reference (db over its scale in in_relu mode), and a repeated launch
-    equal bit for bit.  K1b's reference is the plain version.  K2dw's dc
-    pass runs the critic's tensor-core conv core, whose f32 sums differ
-    from cuDNN's, so a relu mask can flip between the two (one flip at
-    N = 8 moves dw by about 1e-3): its reference is the plain backward in
-    float64 on K2f's relu masks, and those masks are held to the plain
-    version's within MASK_FLIP_SHARE."""
-    for name, kern, plain in _dw_paths(x, w, b, dy, mode):
+    equal bit for bit.  Both dc passes run the tensor-core conv core, whose
+    f32 sums differ from cuDNN's, so a relu mask can flip between the two
+    (one flip at N = 8 moves dw by about 1e-3): the reference is the plain
+    backward in float64 on the forward kernel's relu masks (K2f's for K2dw,
+    K1f's for K1b), and those masks are held to the plain version's within
+    MASK_FLIP_SHARE."""
+    for name, kern, _ in _dw_paths(x, w, b, dy, mode):
         if name not in paths:
             continue
         m = mode if name == "K2dw" else "in_relu"
         dw, db = kern(x, w, b, dy)
         if name == "K2dw":
-            y = k2.critic_layer(x, w, b, mode)
-            if mode != "linear":
-                _masks_agree(y, k2.critic_layer_plain(x, w, b, mode))
-            want_dw, want_db = _dwdb_f64_with_masks(x, w, b, dy, mode, y > 0)
+            y, want = k2.critic_layer(x, w, b, mode), k2.critic_layer_plain(x, w, b, mode)
         else:
-            want_dw, want_db = plain(x, w, b, dy)
+            y, want = k1f.conv_in_relu(x, w, b), k1f.conv_in_relu_plain(x, w, b)
+        if m != "linear":
+            _masks_agree(y, want)
+        want_dw, want_db = _dwdb_f64_with_masks(x, w, b, dy, m, y > 0)
         assert dw.shape == want_dw.shape and db.shape == want_db.shape, name
         assert _rel(dw, want_dw) <= DW_F32_TOL, (name, _rel(dw, want_dw))
         assert _rel(db, want_db, _db_scale(x, w, b, dy, m)) <= DW_F32_TOL, name
@@ -631,5 +671,89 @@ def test_conv_plan_mirrors_the_c_launcher(cuda, mode, pass_):
     launchers take."""
     from scgrhc_torch.ops.kernels import conv3
 
-    for n, ci, o, t in CONV_SHAPES + [(32, 256, 512, 750), (65535, 7, 15, 4096)]:
+    for n, ci, o, t in CONV_SHAPES + [(32, 256, 512, 750), (65535, 7, 15, 4096),
+                                      (70_000, 4, 16, 8)]:
         assert conv3.conv_plan(n, ci, o, t, mode, pass_) == conv3.c_plan(n, ci, o, t, mode, pass_)
+
+
+@pytest.mark.parametrize("ci,o,mode", CRITIC_LAYERS)
+def test_critic_layers_at_1500_steps(cuda, ci, o, mode):
+    """The critic's five layers at a 3-s window (T = 1500): K2f against the
+    plain version, and K2dx and K2dw against the plain backward in float64
+    on K2f's relu masks (dw within DW_F32_TOL, as at T = 750)."""
+    x, w, b, dy = _bwd_inputs(cuda, 4, ci, o, 1500, seed=ci)
+    y = k2.critic_layer(x, w, b, mode)
+    dx = k2.critic_layer_bwd_dx(x, w, b, dy, mode)
+    dw, db = k2.critic_layer_bwd_dwdb(x, w, b, dy, mode)
+    torch.cuda.synchronize()
+    want = k2.critic_layer_plain(x, w, b, mode)
+    assert _rel(y, want) <= FWD_TOL
+    if mode != "linear":
+        _masks_agree(y, want)
+    _, want_dx = _bwd_f64_with_masks(x, w, b, dy, mode, y > 0)
+    assert _rel(dx, want_dx) <= BWD_TOL
+    want_dw, want_db = _dwdb_f64_with_masks(x, w, b, dy, mode, y > 0)
+    assert _rel(dw, want_dw) <= DW_F32_TOL
+    assert _rel(db, want_db, _db_scale(x, w, b, dy, mode)) <= DW_F32_TOL
+
+
+@pytest.mark.parametrize("mode", k2.MODES)
+@pytest.mark.parametrize("ci", [3, 24, 512])
+@pytest.mark.parametrize("o", [1, 5, 15])
+def test_dx_below_16_output_channels(cuda, o, ci, mode):
+    """dx below 16 output channels (the score layer's 512 -> 1 and its
+    neighbours), a stream over dc, against the plain backward in float64
+    on K2f's relu masks, and a repeat launch equal bit for bit."""
+    x, w, b, dy = _bwd_inputs(cuda, 4, ci, o, 750, seed=o * ci)
+    before = k2.critic_layer_bwd_dx.launches
+    dx = k2.critic_layer_bwd_dx(x, w, b, dy, mode)
+    torch.cuda.synchronize()
+    assert k2.critic_layer_bwd_dx.launches == before + 1
+    y = k2.critic_layer(x, w, b, mode)
+    if mode != "linear":
+        _masks_agree(y, k2.critic_layer_plain(x, w, b, mode))
+    _, want = _bwd_f64_with_masks(x, w, b, dy, mode, y > 0)
+    assert dx.shape == x.shape and _rel(dx, want) <= BWD_TOL
+    assert torch.equal(k2.critic_layer_bwd_dx(x, w, b, dy, mode), dx)
+
+
+@pytest.mark.parametrize("o", [16, 1])
+def test_past_65535_samples(cuda, o):
+    """A narrow layer (C_in 4, T 8) at N = 65,543, past a grid axis's 65535
+    blocks, so the launchers walk the samples in two chunks: K1f and K1b
+    (O = 16), and K2f, K2dx, K2dw in every mode (O = 16 on the core, O = 1
+    on the streams), against the plain versions (the backward in float64
+    on the kernels' own relu masks)."""
+    x, w, b, dy = _bwd_inputs(cuda, 65_543, 4, o, 8)
+    if o >= 16:
+        _hold_k1(x, w, b, dy, need_dx=True)
+    for mode in k2.MODES:
+        y = k2.critic_layer(x, w, b, mode)
+        want = k2.critic_layer_plain(x, w, b, mode)
+        assert _rel(y, want) <= FWD_TOL
+        if mode != "linear":
+            _masks_agree(y, want)
+        _, want_dx = _bwd_f64_with_masks(x, w, b, dy, mode, y > 0)
+        assert _rel(k2.critic_layer_bwd_dx(x, w, b, dy, mode), want_dx) <= BWD_TOL
+        want_dw, want_db = _dwdb_f64_with_masks(x, w, b, dy, mode, y > 0)
+        dw, db = k2.critic_layer_bwd_dwdb(x, w, b, dy, mode)
+        assert _rel(dw, want_dw) <= BWD_TOL
+        assert _rel(db, want_db, _db_scale(x, w, b, dy, mode)) <= BWD_TOL
+
+
+@pytest.mark.parametrize("o", [1, 15])
+def test_dw_stream_at_its_shared_memory_limit(cuda, o):
+    """Below 16 output channels dw holds one sample's dc in a block's shared
+    memory: at conv3.dw_stream_max_len the kernel launches and agrees with
+    the plain version; one step more is refused with the limit named."""
+    from scgrhc_torch.ops.kernels import conv3
+
+    t = conv3.dw_stream_max_len(o)
+    x, w, b, dy = _bwd_inputs(cuda, 2, 3, o, t)
+    dw, db = k2.critic_layer_bwd_dwdb(x, w, b, dy, "linear")
+    want_dw, want_db = k2.critic_layer_bwd_dwdb_plain(x, w, b, dy, "linear")
+    assert _rel(dw, want_dw) <= DW_F32_TOL and _rel(db, want_db) <= DW_F32_TOL
+    x, w, b, dy = _bwd_inputs(cuda, 2, 3, o, t + 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        k2.critic_layer_bwd_dwdb(x, w, b, dy, "linear")
+    k2.critic_layer_bwd_dx(x, w, b, dy, "linear")  # dx alone has no limit

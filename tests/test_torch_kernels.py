@@ -1,6 +1,7 @@
 """The port's kernel modules: K1f (conv_in_relu), K4 (normalize_windows),
-the plan of the conv layer's dw stage (conv3.dw_plan) and of the critic's
-conv passes (conv3.conv_plan).
+the plan of the conv layer's dw stage (conv3.dw_plan) and of its conv
+passes (conv3.conv_plan), shared by the generator and the critic, and the
+shapes the layer kernels take (conv3.check_inputs).
 
 Each plain version against the JAX Pallas kernel it stands beside
 (interpret mode, as the JAX package's own tests run it), and the wrappers'
@@ -144,11 +145,11 @@ def test_conv_plan_at_critic_layers(cin, cout, mode, pass_):
     n, t = 32, 750
     plan = conv3.conv_plan(n, cin, cout, t, mode, pass_)
     if pass_ == "dx":
-        # the score layer's dx (K = 3) keeps the FMA kernel, every other layer
-        # the tensor-core product with M = C_in
-        want = "fma" if cout == 1 else "mma"
+        # the score layer's dx (K = 3) streams over dc, every other layer
+        # takes the tensor-core product with M = C_in
+        want = "stream" if cout == 1 else "mma"
         assert plan == conv3.ConvPlan(
-            want, (-(-cin // 16), n, 1) if want == "fma" else (6, -(-cin // 64), n), 0, None)
+            want, (12, n, 1) if want == "stream" else (6, -(-cin // 64), n), 0, None)
         return
     if pass_ == "dc" and mode == "linear":
         assert plan == conv3.ConvPlan("none", (0, 0, 0), 0, None)  # dc = dy
@@ -169,7 +170,8 @@ def test_conv_plan_streams_below_16_output_channels(cout, mode):
     fwd = conv3.conv_plan(n, cin, cout, t, mode)
     dx = conv3.conv_plan(n, cin, cout, t, mode, "dx")
     if cout < conv3.CONV_STREAM_BELOW:
-        assert fwd.path == "stream" and fwd.grid == (3, n, 1) and dx.path == "fma"
+        assert fwd.path == "stream" and fwd.grid == (3, n, 1)
+        assert dx.path == "stream" and dx.grid == (3, n, 1)
         # the stream kernel has no relu epilogue: relu goes through c and the row pass
         assert (fwd.scratch is not None) == (mode != "linear")
     else:
@@ -186,13 +188,10 @@ def _tiles(plan, m_rows, t):
         return [(z, m, s) for z, y, x in blocks
                 for m in range(y * bm, min((y + 1) * bm, m_rows))
                 for s in range(x * bn, min((x + 1) * bn, t))]
-    if plan.path == "stream":
-        bn = conv3.CONV_STREAM_STEPS
-        return [(y, m, s) for y in range(gy) for x in range(gx) for m in range(m_rows)
-                for s in range(x * bn, min((x + 1) * bn, t))]
-    rows = conv3.CONV_FMA_ROWS  # dx_kernel: every step of its rows
-    return [(y, m, s) for y in range(gy) for x in range(gx)
-            for m in range(x * rows, min((x + 1) * rows, m_rows)) for s in range(t)]
+    assert plan.path == "stream"
+    bn = conv3.CONV_STREAM_STEPS
+    return [(y, m, s) for y in range(gy) for x in range(gx) for m in range(m_rows)
+            for s in range(x * bn, min((x + 1) * bn, t))]
 
 
 @pytest.mark.parametrize("pass_", conv3.PASSES)
@@ -215,7 +214,7 @@ def test_conv_plan_grids_cover_every_tile_once(n, cin, cout, t, pass_):
 @pytest.mark.parametrize("pass_", conv3.PASSES)
 def test_conv_plan_has_no_length_limit(pass_):
     """The tensor-core core and the row pass tile T and never hold a whole
-    row: a plan at T = 4096 (past the generator kernels' 1024) covers it."""
+    row: a plan at T = 4096 covers it."""
     n, cin, cout, t = 32, 256, 512, 4096
     plan = conv3.conv_plan(n, cin, cout, t, "in_relu", pass_)
     assert plan.path == "mma"
@@ -229,3 +228,81 @@ def test_conv_plan_rejects_unknown_pass_and_mode():
         conv3.conv_plan(1, 4, 16, 8, "in_relu", "dw")
     with pytest.raises(ValueError):
         conv3.conv_plan(1, 4, 16, 8, "gelu")
+
+
+# (C_in, O, T) of the generator's 14 layers at T = 750 (models/generator.py)
+GENERATOR_LAYERS = [(4, 64, 750), (64, 64, 750), (64, 128, 748), (128, 128, 748),
+                    (128, 256, 746), (256, 256, 746), (256, 512, 744), (512, 512, 744),
+                    (512, 256, 746), (256, 256, 746), (256, 128, 748), (128, 128, 748),
+                    (128, 64, 750), (64, 64, 750)]
+
+
+@pytest.mark.parametrize("n", [512, 32])
+@pytest.mark.parametrize("pass_", conv3.PASSES)
+@pytest.mark.parametrize("cin,cout,t", sorted(set(GENERATOR_LAYERS)))
+def test_conv_plan_at_generator_layers(cin, cout, t, pass_, n):
+    """K1f (serving's N = 512, training's N = 32) and K1b's dc and dx
+    passes take the tensor-core core, with c through the scratch and the
+    row pass in the forward, and dc in place in the dc pass."""
+    plan = conv3.conv_plan(n, cin, cout, t, "in_relu", pass_)
+    rows = cin if pass_ == "dx" else cout
+    assert plan.path == "mma"
+    assert plan.grid == (6, -(-rows // 64), n)
+    assert plan.row_blocks == (0 if pass_ == "dx" else n * cout // 8)
+    assert plan.scratch == ((n, cout, t) if pass_ == "fwd" else None)
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("n,t", [(32, 1500), (1, 4096), (70_000, 750), (70_000, 4096)])
+def test_check_inputs_takes_any_length_and_batch(n, t):
+    """No length or batch limit: past the 1024 steps and 65535 samples the
+    card once refused (the launchers walk N in chunks of 65535 samples)."""
+    for cin, o in ((4, 64), (512, 512), (512, 1), (7, 15)):
+        x, w, b, dy = _meta(n, cin, t), _meta(o, cin, 3), _meta(o), _meta(n, o, t)
+        conv3.check_inputs("fwd", x, w, b)
+        conv3.check_inputs("dx", x, w, b, dy)
+        if o >= conv3.DW_STREAM_BELOW or t <= conv3.dw_stream_max_len(o):
+            conv3.check_inputs("bwd", x, w, b, dy, need_dw=True)
+
+
+def test_check_inputs_refuses_what_the_kernels_do_not_take():
+    x, w, b, dy = _meta(2, 4, 8), _meta(16, 4, 3), _meta(16), _meta(2, 16, 8)
+    with pytest.raises(TypeError):
+        conv3.check_inputs("k", x.double(), w.double(), b.double())
+    with pytest.raises(TypeError):
+        conv3.check_inputs("k", x, w.bfloat16(), b)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        conv3.check_inputs("k", x, _meta(16, 5, 3), b)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        conv3.check_inputs("k", x, w, b, _meta(2, 16, 9))
+    with pytest.raises(ValueError, match="expects"):
+        conv3.check_inputs("k", _meta(4, 8), w, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv3.check_inputs("k", _meta(2, 8, 4).transpose(1, 2), w, b)
+    with pytest.raises(ValueError, match="one device"):
+        conv3.check_inputs("k", x, torch.empty(16, 4, 3), b)
+    for shape in ((0, 4, 8), (2, 4, 0)):
+        with pytest.raises(ValueError, match="empty"):
+            conv3.check_inputs("k", _meta(*shape), w, b)
+
+
+@pytest.mark.parametrize("o,max_len", [(1, 56_574), (5, 11_313), (15, 3_769)])
+def test_check_inputs_states_the_dw_stream_limit(o, max_len):
+    """Below 16 output channels the backward's dw holds one sample's dc,
+    O x (T + 2) f32, in a block's shared memory: the one limit left, named
+    in the message, and only where dw is computed."""
+    assert conv3.dw_stream_max_len(o) == max_len
+    n, cin = 2, 512
+    for t, ok in ((max_len, True), (max_len + 1, False)):
+        x, w, b, dy = _meta(n, cin, t), _meta(o, cin, 3), _meta(o), _meta(n, o, t)
+        conv3.check_inputs("fwd", x, w, b)
+        conv3.check_inputs("dx", x, w, b, dy)  # the input gradient alone has no limit
+        if ok:
+            conv3.check_inputs("dw", x, w, b, dy, need_dw=True)
+        else:
+            with pytest.raises(ValueError, match=f"shared memory.*T <= {max_len}, got T={t}"):
+                conv3.check_inputs("dw", x, w, b, dy, need_dw=True)
+    assert conv3.dw_stream_max_len(conv3.DW_STREAM_BELOW) is None
