@@ -26,10 +26,15 @@ model's full width, counting kernel launches from 0 just before each:
     loader files held to the host-gated data stage's, its comparison CSVs'
     scores to a float64 recomputation and a few predictions to the CPU's;
     then ``test <dir> train last``, timed;
-  * windows of 3 s (``segment_size`` 3.0, T = 1500): the layer kernels held
-    against their plain versions at T = 1500, a 600-s record served on the
-    card and on the CPU, and 2 epochs of training at B = 32, with the same
-    launch counts as at T = 750.
+  * windows of 3 s (``segment_size`` 3.0, T = 1500): the layer kernels and
+    K3 held against their plain versions at T = 1500, a 600-s record served
+    on the card and on the CPU, and 2 epochs of training at B = 32, with the
+    same launch counts as at T = 750.
+
+K3 is also held at T = 12,289 and timed at N = 37, 300, 2,400 and 19,200
+beside an empty kernel on its grid (the launch floor); the data stage's
+device backend is split, for one interval, into host framing, upload, K3
+and the download of ``keep``.
 
 It also checks the build: HMMA (tensor-core) instructions in every conv
 core instance of both layers' sources, and no kernel of the FMA conv core
@@ -403,73 +408,104 @@ def check_normalize_windows(torch, smoke: Smoke) -> dict:
     return rec
 
 
-def _gate_windows(torch, n: int, c: int):
+def _gate_windows(torch, n: int, c: int, t: int = T):
     """Pressure-like windows away from the gate's thresholds, with window 3
     flat, 5 a ramp, 7 dipping below MIN_RHC and 11 holding a NaN."""
     rng = np.random.default_rng(n + c)
-    tt = np.arange(T) / 500.0
+    tt = np.arange(t) / 500.0
     rhc = (20 + 10 * np.sin(2 * np.pi * rng.uniform(0.9, 1.5, (n, 1)) * tt)
-           + rng.standard_normal((n, T)))
-    scg = rng.standard_normal((n, c, T)) * rng.uniform(0.01, 2, (n, 1, 1))
+           + rng.standard_normal((n, t)))
+    scg = rng.standard_normal((n, c, t)) * rng.uniform(0.01, 2, (n, 1, 1))
     rhc[3] = 7.25
-    rhc[5] = np.linspace(0, 30, T) + 0.01 * rng.standard_normal(T)
-    rhc[7, 100] = MIN_RHC - 30
-    rhc[11, 250] = np.nan
-    scg[11, 0, 375] = np.nan
+    rhc[5] = np.linspace(0, 30, t) + 0.01 * rng.standard_normal(t)
+    rhc[7, t // 7] = MIN_RHC - 30
+    rhc[11, t // 3] = np.nan
+    scg[11, 0, t // 2] = np.nan
     return (torch.from_numpy(scg.astype(np.float32)).cuda(),
             torch.from_numpy(rhc.astype(np.float32)).cuda())
 
 
-def check_gate_normalize(torch, smoke: Smoke) -> dict:
-    """K3 at the data stage's shapes: a 450-s chamber interval (300 windows)
-    with 4 and with 1 SCG channel, and a ragged 37 windows; times at
-    (300, 4, 750)."""
+def hold_gate_normalize(torch, smoke: Smoke, n: int, c: int, t: int) -> float:
+    """K3 against its plain version on _gate_windows: keep equal (the edge
+    windows dropped, the others kept), (lo, hi) equal, NaN in the same
+    places, the normalized windows within TOL_K4; its largest error."""
     from scgrhc_torch.ops.kernels.dsp import gate_and_normalize, gate_and_normalize_plain
 
-    errs = []
-    for n, c in ((300, 4), (300, 1), (37, 4)):
+    scg, rhc = _gate_windows(torch, n, c, t)
+    got = gate_and_normalize(scg, rhc, MIN_RHC)
+    ref = gate_and_normalize_plain(scg, rhc, MIN_RHC)
+    torch.cuda.synchronize()
+    keep_equal = bool(torch.equal(got[0], ref[0]))
+    nan_equal = all(bool(torch.equal(torch.isnan(g), torch.isnan(r)))
+                    for g, r in zip(got[1:], ref[1:]))
+    mm_equal = all(bool(torch.equal(torch.nan_to_num(g), torch.nan_to_num(r)))
+                   for g, r in zip(got[3:], ref[3:]))
+    err = max(float((torch.nan_to_num(g) - torch.nan_to_num(r)).abs().max())
+              for g, r in zip(got[1:3], ref[1:3]))
+    edges = not bool(got[0][[3, 5, 7, 11]].any()) and int(got[0].sum()) == n - 4
+    what = f"gate_and_normalize N={n} C={c} T={t}"
+    print(f"{what}: keep equal {keep_equal} (kept {int(got[0].sum())}, edge windows dropped "
+          f"{edges}), (lo, hi) equal {mm_equal}, NaN pattern equal {nan_equal}, normalized err "
+          f"{err:.3g} (tol {TOL_K4:g})", flush=True)
+    smoke.check(keep_equal and edges, f"{what}: keep")
+    smoke.check(mm_equal and nan_equal, f"{what}: (lo, hi) or NaN")
+    smoke.check(err <= TOL_K4, f"{what}: err {err}")
+    return err
+
+
+# K3 is timed at a ragged interval, a 450-s chamber interval (the main
+# path's size), and throughput probes 8 and 64 times that.
+K3_TIMING_N = (37, 300, 2_400, 19_200)
+K3_LONG_T = 12_289  # one sample past the longest window K3 took before its redesign
+
+
+def check_gate_normalize(torch, smoke: Smoke, card: str) -> dict:
+    """K3 at the data stage's shapes: a 450-s chamber interval (300 windows)
+    with 4 and with 1 SCG channel, a ragged 37 windows, and 37 windows of
+    K3_LONG_T samples.  Times at (N, 4, 750) for N in K3_TIMING_N: the
+    wrapper back to back, the kernel in a CUDA graph, and an empty kernel on
+    the same grid in a graph (the launch floor), each beside its byte
+    bound; the numbers of the kernels line are those at N = 300."""
+    from scgrhc_torch.ops.kernels import _build
+    from scgrhc_torch.ops.kernels.dsp import gate_and_normalize, gate_and_normalize_plain
+
+    errs = [hold_gate_normalize(torch, smoke, n, c, t)
+            for n, c, t in ((300, 4, T), (300, 1, T), (37, 4, T), (37, 4, K3_LONG_T))]
+    lib, c = _build.library(), len(CHANNELS)
+
+    def floor(n):
+        _build.check(lib.scgrhc_gate_normalize_floor(n, torch.cuda.current_stream().cuda_stream),
+                     "gate_normalize_floor")
+
+    per_n = {}
+    for n in K3_TIMING_N:
         scg, rhc = _gate_windows(torch, n, c)
-        got = gate_and_normalize(scg, rhc, MIN_RHC)
-        ref = gate_and_normalize_plain(scg, rhc, MIN_RHC)
-        torch.cuda.synchronize()
-        keep_equal = bool(torch.equal(got[0], ref[0]))
-        nan_equal = all(bool(torch.equal(torch.isnan(g), torch.isnan(r)))
-                        for g, r in zip(got[1:], ref[1:]))
-        mm_equal = all(bool(torch.equal(torch.nan_to_num(g), torch.nan_to_num(r)))
-                       for g, r in zip(got[3:], ref[3:]))
-        err = max(float((torch.nan_to_num(g) - torch.nan_to_num(r)).abs().max())
-                  for g, r in zip(got[1:3], ref[1:3]))
-        edges = not bool(got[0][[3, 5, 7, 11]].any()) and int(got[0].sum()) == n - 4
-        errs.append(err)
-        print(f"gate_and_normalize N={n} C={c} T={T}: keep equal {keep_equal} (kept "
-              f"{int(got[0].sum())}, edge windows dropped {edges}), (lo, hi) equal {mm_equal}, "
-              f"NaN pattern equal {nan_equal}, normalized err {err:.3g} (tol {TOL_K4:g})",
-              flush=True)
-        smoke.check(keep_equal and edges, f"gate_and_normalize {n}x{c}: keep")
-        smoke.check(mm_equal and nan_equal, f"gate_and_normalize {n}x{c}: (lo, hi) or NaN")
-        smoke.check(err <= TOL_K4, f"gate_and_normalize {n}x{c}: err {err}")
-    n, c = 300, len(CHANNELS)
-    scg, rhc = _gate_windows(torch, n, c)
-    # bytes: each input read once, each output written once; operations per
-    # rhc sample: a sliding max and min (3 comparisons each, van Herk), the
-    # flat test, the mean, yc, yc*xc, yc^2 and the range test, the window's
-    # min and max, and the normalizing subtraction and division (16); per scg
-    # sample its min, max, subtraction and division (4)
-    nbytes = 2.0 * 4 * n * (c + 1) * T + n * (1 + 2 * 2 * 4)
-    ops = n * T * 16.0 + n * c * T * 4.0
-    rec = {
-        "max_abs_err": max(errs),
-        "ms": _time_ms(torch, lambda: gate_and_normalize(scg, rhc, MIN_RHC), reps=20),
-        "graph_ms": _graph_ms(torch, lambda: gate_and_normalize(scg, rhc, MIN_RHC)),
-        "plain_ms": _time_ms(torch, lambda: gate_and_normalize_plain(scg, rhc, MIN_RHC), reps=20),
-        "bound_ms": max(nbytes / PEAK_BYTES, ops / PEAK_F32_FLOPS) * 1e3,
-        "bound_by": "bytes" if nbytes / PEAK_BYTES >= ops / PEAK_F32_FLOPS else "operations",
-    }
-    print(f"gate_and_normalize N={n} C={c} T={T}: kernel {rec['ms']:.4f} ms "
-          f"({rec['graph_ms']:.4f} ms in a CUDA graph), plain "
-          f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
-          f"library call none", flush=True)
-    return rec
+        # bytes: each input read once, each output written once; operations
+        # per rhc sample: a sliding max and min (3 comparisons each, van
+        # Herk), the flat test, the mean, yc, yc*xc, yc^2 and the range test,
+        # the window's min and max, and the normalizing subtraction and
+        # division (16); per scg sample its min, max, subtraction and
+        # division (4)
+        nbytes = 2.0 * 4 * n * (c + 1) * T + n * (1 + 2 * 2 * 4)
+        ops = n * T * 16.0 + n * c * T * 4.0
+        rec = {
+            "ms": _time_ms(torch, lambda: gate_and_normalize(scg, rhc, MIN_RHC), reps=20),
+            "graph_ms": _graph_ms(torch, lambda: gate_and_normalize(scg, rhc, MIN_RHC)),
+            "floor_graph_ms": _graph_ms(torch, lambda: floor(n)),
+            "plain_ms": _time_ms(torch, lambda: gate_and_normalize_plain(scg, rhc, MIN_RHC),
+                                 reps=20),
+            "bound_ms": max(nbytes / PEAK_BYTES, ops / PEAK_F32_FLOPS) * 1e3,
+            "bound_by": "bytes" if nbytes / PEAK_BYTES >= ops / PEAK_F32_FLOPS else "operations",
+        }
+        per_n[n] = rec
+        share = 100 * rec["bound_ms"] / rec["graph_ms"]
+        print(f"gate_and_normalize N={n} C={c} T={T}: wrapper {rec['ms']:.4f} ms back to back, "
+              f"kernel {rec['graph_ms']:.4f} ms in a CUDA graph ({share:.0f} % of its bound), "
+              f"empty kernel on its grid {rec['floor_graph_ms']:.4f} ms in a graph, plain "
+              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+              f"library call none, on {card}", flush=True)
+        del scg, rhc
+    return {**per_n[300], "max_abs_err": max(errs), "per_n": per_n}
 
 
 def _write_params(exp: str, **extra) -> str:
@@ -1263,7 +1299,8 @@ def check_long_kernels(torch, smoke: Smoke) -> dict:
     in_relu layer's db over |sum |dc||) of the plain backward in float64 on
     the forward kernel's masks, the kernels' own (on an H100 one flip moved
     K1b at 64 -> 64 by 1.04e-3 from the plain f32 version).  K1f's and
-    K1b's times over the 14 layers."""
+    K1b's times over the 14 layers.  K3 at (300, 4, T_LONG) against its
+    plain version."""
     from scgrhc_torch.ops.kernels import critic_fused as k2
     from scgrhc_torch.ops.kernels.conv_block import (
         conv_in_relu,
@@ -1317,6 +1354,7 @@ def check_long_kernels(torch, smoke: Smoke) -> dict:
         del x, w, b, dy, y, ref
     worst = {k: max(r[k] for r in out["critic_rel_err"].values())
              for k in ("critic_layer", "critic_layer_bwd_dx", "critic_layer_bwd_dwdb")}
+    out["k3_max_abs_err"] = hold_gate_normalize(torch, smoke, 300, len(CHANNELS), T_LONG)
     print(f"T={T_LONG}, N={N_TRAIN}, f32: K1f max abs err {out['k1f_max_abs_err']:.3g} (tol "
           f"{TOL_F32:g}), K2f rel err {worst['critic_layer']:.3g} (tol {TOL_TRAIN['fwd']:g}) "
           f"against the plain versions, {out['mask_flips']} relu masks flipped; on the kernels' "
@@ -1569,6 +1607,48 @@ def _metric_errs(rows: list[dict]) -> float:
     return worst
 
 
+def device_interval_split(torch, params, card: str, reps: int = 5) -> dict:
+    """One interval of the device backend (the first record's first chamber
+    interval), its time split as ``segment_interval_device`` spends it:
+    framing on the host, the upload of both window arrays, K3 (the wrapper
+    and a synchronize) and the download of ``keep``.  Host clock, median of
+    ``reps`` runs after one warm-up; ms."""
+    from scgrhc_torch.io.catalog import SAMPLE_FREQ, get_channels, get_record_names, read_record
+    from scgrhc_torch.io.sidecar import get_chamber_intervals
+    from scgrhc_torch.ops.kernels.dsp import frame_windows, gate_and_normalize
+
+    name = get_record_names()[0]
+    record = read_record(name)
+    start, stop = get_chamber_intervals(name, params.chamber)[0]
+    scg_signal = get_channels(record, params.in_channels, start, stop)
+    rhc_signal = get_channels(record, ["RHC_pressure"], start, stop)[:, 0]
+    t = int(params.segment_size * SAMPLE_FREQ)
+    runs = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scg_w, rhc_w = frame_windows(scg_signal, rhc_signal, t)
+        t1 = time.perf_counter()
+        scg_d, rhc_d = torch.from_numpy(scg_w).to("cuda"), torch.from_numpy(rhc_w).to("cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        keep_d = gate_and_normalize(scg_d, rhc_d, params.min_RHC)[0]
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        keep_d.cpu().numpy()
+        t4 = time.perf_counter()
+        runs.append([(b - a) * 1e3 for a, b in ((t0, t1), (t1, t2), (t2, t3), (t3, t4))])
+    split = dict(zip(("frame_ms", "upload_ms", "k3_ms", "download_ms"),
+                     np.median(np.array(runs[1:]), axis=0).tolist()))
+    split.update(windows=int(scg_w.shape[0]), channels=int(scg_w.shape[1]), t=t)
+    print(f"data stage, one device-backend interval ({split['windows']} windows x "
+          f"{split['channels']} x {t}): host framing {split['frame_ms']:.4f} ms, upload "
+          f"{split['upload_ms']:.4f} ms, K3 {split['k3_ms']:.4f} ms (wrapper and synchronize), "
+          f"keep download {split['download_ms']:.4f} ms (host clock, median of {reps}) on {card}",
+          flush=True)
+    return split
+
+
 def pipeline_end_to_end(torch, smoke: Smoke, root: str, card: str) -> dict:
     """The data stage on both backends in this process (timed, K3 counted),
     then the whole pipeline through ``python -m scgrhc_torch <dir>`` in a new
@@ -1614,6 +1694,7 @@ def pipeline_end_to_end(torch, smoke: Smoke, root: str, card: str) -> dict:
               f"x {PIPELINE_SECONDS:.0f} s, K3 launches {k3} on {card}", flush=True)
         smoke.check(k3 == (PIPELINE_RECORDS if backend == "device" else 0),
                     f"data stage {backend}: {k3} K3 launches")
+    report["device_interval"] = device_interval_split(torch, params, card)
     host = _loader_files(Params(os.path.join(root, "data_host", "params.json")))
     smoke.check(_same_loaders(_loader_files(params), host),
                 "data stage: device-gated loader files differ from the host-gated ones")
@@ -1790,7 +1871,7 @@ def main() -> int:
     fma_core_left(smoke, build.log, sass_text)
     k1f = check_conv_in_relu(torch, smoke)
     k4 = check_normalize_windows(torch, smoke)
-    k3 = check_gate_normalize(torch, smoke)
+    k3 = check_gate_normalize(torch, smoke, card)
     k1b = check_conv_in_relu_bwd(torch, smoke)
     k2 = check_critic_layers(torch, smoke)
 
@@ -1852,7 +1933,7 @@ def main() -> int:
         "replaces": "scgrhc/ops/pallas/dsp.py:39",
         "launches": pipeline.get("launches", {}).get("gate_and_normalize", 0),
         "max_abs_err": k3["max_abs_err"], "ms": k3["ms"], "graph_ms": k3["graph_ms"],
-        "plain_ms": k3["plain_ms"],
+        "floor_graph_ms": k3["floor_graph_ms"], "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": None,
     })
     for k in kernels:

@@ -44,6 +44,8 @@ _SIGNATURES = {
     "scgrhc_normalize_windows": (_P, _P, _I, _I, _P),
     # scg, rhc, scg_out, rhc_out, keep, mm_scg, mm_rhc, n, c, t, win, min_rhc, stream
     "scgrhc_gate_normalize": (_P,) * 7 + (_I,) * 4 + (ctypes.c_float, _P),
+    # n, stream: an empty kernel on K3's grid, for the launch floor
+    "scgrhc_gate_normalize_floor": (_I, _P),
 }
 
 

@@ -11,11 +11,16 @@
 
 Both are bound by bytes and run one block per window, with NaN propagated
 explicitly, so that a window holding a sentinel sample normalizes to all
-NaN, as the plain versions and the JAX path do.
+NaN, as the plain versions and the JAX path do.  K3 takes any T (with
+C·T < 2³¹): it stages the rhc window in shared memory up to
+:func:`gate_stage_max_len` samples and reads longer ones again from global
+memory, and holds the scg window in registers up to C·T = 6,144, reading
+the rest again.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import numpy as np
@@ -26,8 +31,19 @@ from scgrhc_torch.io.catalog import SAMPLE_FREQ
 from scgrhc_torch.ops.kernels import _build
 
 NORM_EPS = 1e-4  # reference: recordutil.py:46
-MAX_T = 48 * 1024 // 4  # K3 stages one rhc window in 48 KB of shared memory
 FLAT_WIN = int(FLAT_WINDOW_S * SAMPLE_FREQ)  # 50 samples
+# K3's shared memory (csrc/gate_normalize.cu): the flat scan takes 2048
+# positions a tile in four buffers of 2048 + win - 1 floats, beside the
+# staged rhc window, within the block's 232,448-byte opt-in less 1 KB for
+# the static reduction buffers.
+_GATE_TILE, _SMEM_OPTIN, _STATIC_RESERVE = 2048, 232_448, 1024
+
+
+def gate_stage_max_len(win: int = FLAT_WIN) -> int:
+    """The longest rhc window K3 stages in shared memory (49,468 samples at
+    win = 50); a longer one is read again from global memory.  Not a limit:
+    the kernel takes any T."""
+    return (_SMEM_OPTIN - _STATIC_RESERVE - 16 * (_GATE_TILE + win - 1)) // 4
 
 
 def _minmax_norm(x, dims):
@@ -70,8 +86,8 @@ def gate_and_normalize(scg_windows, rhc_windows, min_rhc: float):
 
     Tensors on the CPU take :func:`gate_and_normalize_plain`.  CUDA tensors
     launch the kernel, which takes contiguous float32 tensors of those
-    shapes with 0 < T ≤ ``MAX_T`` on one device, and raises on anything
-    else."""
+    shapes on one device, with N, C, T > 0 and C·T < 2³¹, and raises on
+    anything else."""
     devices = {scg_windows.device.type, rhc_windows.device.type}
     if devices == {"cpu"}:
         return gate_and_normalize_plain(scg_windows, rhc_windows, min_rhc)
@@ -85,19 +101,23 @@ def gate_and_normalize(scg_windows, rhc_windows, min_rhc: float):
                 f"(N, T), got {x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}"
             )
     n, c, t = scg_windows.shape
-    if tuple(rhc_windows.shape) != (n, t) or min(n, c, t) == 0 or t > MAX_T:
+    if tuple(rhc_windows.shape) != (n, t) or min(n, c, t) == 0 or c * t >= 2**31:
         raise ValueError(f"gate_and_normalize: shapes {tuple(scg_windows.shape)} and "
-                         f"{tuple(rhc_windows.shape)} (0 < T <= {MAX_T})")
+                         f"{tuple(rhc_windows.shape)} (N, C, T > 0, C·T < 2^31)")
+    dev = scg_windows.device
     scg_n, rhc_n = torch.empty_like(scg_windows), torch.empty_like(rhc_windows)
-    keep = torch.empty(n, dtype=torch.bool, device=scg_windows.device)
-    mm_scg = torch.empty(n, 2, dtype=torch.float32, device=scg_windows.device)
+    keep = torch.empty(n, dtype=torch.bool, device=dev)
+    mm_scg = torch.empty(n, 2, dtype=torch.float32, device=dev)
     mm_rhc = torch.empty_like(mm_scg)
-    with torch.cuda.device(scg_windows.device):
+    # a device guard only where the launch is not on the current device:
+    # entering one costs a few microseconds of host time a call
+    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
         err = _build.library().scgrhc_gate_normalize(
             scg_windows.data_ptr(), rhc_windows.data_ptr(), scg_n.data_ptr(),
             rhc_n.data_ptr(), keep.data_ptr(), mm_scg.data_ptr(), mm_rhc.data_ptr(),
             n, c, t, FLAT_WIN, ctypes.c_float(min_rhc),
-            torch.cuda.current_stream(scg_windows.device).cuda_stream,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, "gate_and_normalize")
     gate_and_normalize.launches += 1
@@ -107,6 +127,18 @@ def gate_and_normalize(scg_windows, rhc_windows, min_rhc: float):
 gate_and_normalize.launches = 0
 
 
+def frame_windows(scg_signal: np.ndarray, rhc_signal: np.ndarray, segment_samples: int):
+    """scg_signal (L, C), rhc_signal (L,) → contiguous float32 windows
+    scg (N, C, T) and rhc (N, T), N = L // T (tail truncated).  The samples
+    are cast to float32, as ``jnp.asarray`` does with x64 off."""
+    num = scg_signal.shape[0] // segment_samples
+    total = num * segment_samples
+    scg_w = np.ascontiguousarray(
+        scg_signal[:total].reshape(num, segment_samples, -1).transpose(0, 2, 1), np.float32)
+    rhc_w = np.ascontiguousarray(rhc_signal[:total].reshape(num, segment_samples), np.float32)
+    return scg_w, rhc_w
+
+
 def segment_record_on_device(scg_signal: np.ndarray, rhc_signal: np.ndarray,
                              segment_samples: int, min_rhc: float, device):
     """Frame one interval into non-overlapping windows (tail truncated,
@@ -114,16 +146,13 @@ def segment_record_on_device(scg_signal: np.ndarray, rhc_signal: np.ndarray,
 
     scg_signal (L, C), rhc_signal (L,) → the returns of
     :func:`gate_and_normalize`, on ``device``, plus the (N,) window starts.
-    The samples are cast to float32 on the host, as ``jnp.asarray`` does
-    with x64 off, and framed there, so the device sees one upload and K3."""
+    The samples are framed on the host (:func:`frame_windows`), so the
+    device sees one upload and K3."""
     num = scg_signal.shape[0] // segment_samples
     if num == 0:
         z = np.zeros(0)
         return z.astype(bool), z, z, z, z, z.astype(np.int64)
-    total = num * segment_samples
-    scg_w = np.ascontiguousarray(
-        scg_signal[:total].reshape(num, segment_samples, -1).transpose(0, 2, 1), np.float32)
-    rhc_w = np.ascontiguousarray(rhc_signal[:total].reshape(num, segment_samples), np.float32)
+    scg_w, rhc_w = frame_windows(scg_signal, rhc_signal, segment_samples)
     out = gate_and_normalize(torch.from_numpy(scg_w).to(device),
                              torch.from_numpy(rhc_w).to(device), min_rhc)
     return (*out, np.arange(num, dtype=np.int64) * segment_samples)

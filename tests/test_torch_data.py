@@ -66,6 +66,7 @@ def _windows(n, c, t, nan_window=None, seed=0):
     (9, 4, 750, 2),       # ragged N (the JAX kernel pads to 16)
     (9, 1, 32, None),     # T < the flat window: the flat test never fires
     (300, 4, 750, 11),    # a chamber interval's worth
+    (9, 2, 12_289, 2),    # past the 12,288 samples the card refused until K3's redesign
 ])
 def test_gate_and_normalize_plain_matches_pallas(n, c, t, nan_window):
     scg, rhc = _windows(n, c, t, nan_window)
@@ -86,6 +87,26 @@ def test_gate_and_normalize_plain_matches_pallas(n, c, t, nan_window):
         assert not got[0][nan_window] and np.isnan(got[2][nan_window]).all()
     if n > 7 and t >= 50:
         assert not got[0][[3, 5, 7]].any() and got[0].sum() == n - 3 - (nan_window is not None)
+
+
+def test_gate_flat_runs_plain_matches_pallas():
+    """Flat runs of exactly win samples (one flat position: kept) and win + 1
+    (two: dropped) at the window's edges and inside it, and a NaN at sample
+    0 and T - 1: the plain version's decisions and pairs are the JAX
+    kernel's."""
+    t, win = 750, k3.FLAT_WIN
+    offsets = [0, win - 1, win, t // 2, t - win - 1]
+    scg, rhc = _windows(2 * len(offsets) + 2, 2, t)
+    for i, o in enumerate(offsets):
+        for j, length in enumerate((win, win + 1)):
+            rhc[2 * i + j, o:o + length] = rhc[2 * i + j, o]
+    rhc[-2, 0] = rhc[-1, -1] = np.nan
+    want = [np.asarray(a) for a in jdsp.gate_and_normalize(scg, rhc, -50.0, interpret=True)]
+    got = [a.numpy() for a in k3.gate_and_normalize(torch.from_numpy(scg),
+                                                    torch.from_numpy(rhc), -50.0)]
+    assert got[0].tolist() == want[0].tolist() == [True, False] * len(offsets) + [False] * 2
+    np.testing.assert_array_equal(got[4], want[4])
+    np.testing.assert_allclose(got[2], want[2], atol=NORM_ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("t", [750, 32])

@@ -12,8 +12,9 @@ bf16 3e-2 absolute plus 1e-2 relative against the f32 plain version on
 the same bf16-rounded inputs (the kernel's only extra rounding is the bf16
 store, 2^-9 relative); K4 1e-6 (it performs the plain version's exact
 f32 operations).  K3: ``keep`` and the (lo, hi) pairs equal (min, max and
-the gate's tests away from its thresholds), the normalized windows within
-1e-6 (the plain version's exact f32 operations), NaN in the same places.
+the flat count are exact, the other tests away from their thresholds), the
+normalized windows within 1e-6 (the plain version's exact f32
+operations), NaN in the same places, at any T.
 
 The backward kernels (K1b, K2dx, K2dw) and the critic's forward (K2f) are
 held by the relative L2 error ``|got - want| / |want|``: 1e-4 for forward
@@ -142,14 +143,15 @@ def test_normalize_windows_kernel(cuda, n, c, t):
     torch.testing.assert_close(got, want, atol=1e-6, rtol=0, equal_nan=True)
 
 
-def _gate_windows(n, c, t, seed=0):
-    """Pressure-like windows away from the gate's thresholds; with n > 11,
-    window 3 flat, 5 a ramp, 7 dipping below -50 and 11 holding a NaN."""
+def _gate_windows(n, c, t, seed=0, edge_windows=True):
+    """Pressure-like windows away from the gate's thresholds; with n > 11
+    and edge_windows, window 3 flat, 5 a ramp, 7 dipping below -50 and 11
+    holding a NaN."""
     rng = np.random.default_rng(seed)
     tt = np.arange(t) / 500.0
     rhc = 20 + 10 * np.sin(2 * np.pi * rng.uniform(0.9, 1.5, (n, 1)) * tt) + rng.standard_normal((n, t))
     scg = rng.standard_normal((n, c, t)) * rng.uniform(0.01, 2, (n, 1, 1))
-    if n > 11:
+    if n > 11 and edge_windows:
         rhc[3] = 7.25
         rhc[5] = np.linspace(0, 30, t) + 0.01 * rng.standard_normal(t)
         rhc[7, t // 7] = -80.0
@@ -158,10 +160,10 @@ def _gate_windows(n, c, t, seed=0):
     return scg.astype(np.float32), rhc.astype(np.float32)
 
 
-@pytest.mark.parametrize("n,c,t", [(300, 4, 750), (300, 1, 750), (37, 4, 750), (1, 2, 750),
-                                   (13, 3, 32)])
-def test_gate_and_normalize_kernel(cuda, n, c, t):
-    scg, rhc = (torch.from_numpy(a).to(cuda) for a in _gate_windows(n, c, t))
+def _hold_k3(scg, rhc):
+    """One K3 launch held to the plain version: keep and the (lo, hi) pairs
+    equal, NaN in the same places, the normalized windows within 1e-6; a
+    repeat launch equal bit for bit.  Returns the launch's outputs."""
     before = k4.gate_and_normalize.launches
     got = k4.gate_and_normalize(scg, rhc, -50.0)
     torch.cuda.synchronize()
@@ -175,13 +177,68 @@ def test_gate_and_normalize_kernel(cuda, n, c, t):
         assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))
     for g, w in zip(got[1:3], want[1:3]):
         torch.testing.assert_close(g, w, atol=1e-6, rtol=0, equal_nan=True)
+    again = k4.gate_and_normalize(scg, rhc, -50.0)
+    assert all(torch.equal(torch.nan_to_num(a), torch.nan_to_num(g)) for a, g in zip(again, got))
+    return got
+
+
+@pytest.mark.parametrize("n,c,t", [(300, 4, 750), (300, 1, 750), (37, 4, 750), (1, 2, 750),
+                                   (13, 3, 32)])
+def test_gate_and_normalize_kernel(cuda, n, c, t):
+    scg, rhc = (torch.from_numpy(a).to(cuda) for a in _gate_windows(n, c, t))
+    got = _hold_k3(scg, rhc)
     if n > 11:
         assert not got[0][[3, 5, 7, 11]].any()
         # at T = 32 (64 ms) a sine window reads as a straight line
         assert t < 50 or int(got[0].sum()) == n - 4
         assert torch.isnan(got[2][11]).all() and torch.isnan(got[1][11]).all()
-    again = k4.gate_and_normalize(scg, rhc, -50.0)
-    assert all(torch.equal(torch.nan_to_num(a), torch.nan_to_num(g)) for a, g in zip(again, got))
+
+
+def _flat_run_offsets(t, win=k4.FLAT_WIN):
+    """Where a flat run starts: the window's first sample, win - 1, win, the
+    last start a run of win + 1 samples fits (T - win - 1), and runs whose
+    positions straddle the flat scan's tiles of 2048 positions."""
+    offsets = [0, win - 1, win, t // 2, t - win - 1]
+    for edge in range(2048, t - win, 2048):
+        offsets += [edge - win, edge - 1, edge]
+    return offsets
+
+
+@pytest.mark.parametrize("t", [750, 5000])
+def test_gate_flat_runs_of_win_and_win_plus_one(cuda, t):
+    """A flat run of exactly win samples is one flat position (kept); of
+    win + 1 samples, two (dropped), wherever it lies in the window."""
+    win = k4.FLAT_WIN
+    offsets = _flat_run_offsets(t)
+    scg, rhc = _gate_windows(2 * len(offsets), 4, t, seed=t, edge_windows=False)
+    for i, o in enumerate(offsets):
+        for j, length in enumerate((win, win + 1)):
+            rhc[2 * i + j, o:o + length] = rhc[2 * i + j, o]
+    got = _hold_k3(*(torch.from_numpy(a).to(cuda) for a in (scg, rhc)))
+    assert got[0].tolist() == [True, False] * len(offsets)
+
+
+@pytest.mark.parametrize("t", [750, 1500])
+def test_gate_and_normalize_nan_at_the_window_edges(cuda, t):
+    """A NaN at sample 0 or T - 1 of rhc (window 0, 1) or of scg (2, 3)."""
+    scg, rhc = _gate_windows(5, 4, t, seed=3)
+    rhc[0, 0] = rhc[1, -1] = np.nan
+    scg[2, 0, 0] = scg[3, -1, -1] = np.nan
+    got = _hold_k3(*(torch.from_numpy(a).to(cuda) for a in (scg, rhc)))
+    assert got[0].tolist() == [False, False, True, True, True]
+    assert torch.isnan(got[2][:2]).all() and torch.isnan(got[1][2:4]).all()
+
+
+@pytest.mark.parametrize("t", [1500, 12_289, 40_000, k4.gate_stage_max_len(),
+                               k4.gate_stage_max_len() + 1])
+def test_gate_and_normalize_long_windows(cuda, t):
+    """K3 takes any T: past 12,288 samples (refused until the redesign),
+    past the scg values its registers hold (C·T > 6,144), and at and
+    one sample past the longest rhc window it stages in shared memory."""
+    scg, rhc = _gate_windows(13, 4, t, seed=t)
+    rhc[0, t - 60:t - 10] = rhc[0, t - 60]  # one flat position: kept
+    got = _hold_k3(*(torch.from_numpy(a).to(cuda) for a in (scg, rhc)))
+    assert got[0][0] and not got[0][[3, 5, 7, 11]].any()
 
 
 def test_gate_and_normalize_kernel_rejects(cuda):

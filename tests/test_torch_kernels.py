@@ -1,13 +1,17 @@
 """The port's kernel modules: K1f (conv_in_relu), K4 (normalize_windows),
 the plan of the conv layer's dw stage (conv3.dw_plan) and of its conv
 passes (conv3.conv_plan), shared by the generator and the critic, and the
-shapes the layer kernels take (conv3.check_inputs).
+shapes the layer kernels take (conv3.check_inputs), and the length up to
+which K3 stages a window in shared memory (dsp.gate_stage_max_len).
 
 Each plain version against the JAX Pallas kernel it stands beside
 (interpret mode, as the JAX package's own tests run it), and the wrappers'
 CPU dispatch.  The CUDA kernels against their plain versions are in
 tests/test_torch_gpu.py.
 """
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -306,3 +310,16 @@ def test_check_inputs_states_the_dw_stream_limit(o, max_len):
             with pytest.raises(ValueError, match=f"shared memory.*T <= {max_len}, got T={t}"):
                 conv3.check_inputs("dw", x, w, b, dy, need_dw=True)
     assert conv3.dw_stream_max_len(conv3.DW_STREAM_BELOW) is None
+
+
+def test_gate_stage_max_len_mirrors_the_source():
+    """K3 stages the rhc window in shared memory up to gate_stage_max_len
+    samples, and holds up to 6,144 scg values of a window in registers,
+    from the constants of csrc/gate_normalize.cu."""
+    src = (Path(k4.__file__).resolve().parents[2] / "csrc" / "gate_normalize.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert (const["kTilePositions"], const["kSmemOptin"], const["kStaticReserve"]) == (
+        k4._GATE_TILE, k4._SMEM_OPTIN, k4._STATIC_RESERVE)
+    assert "6144 / kThreads" in src and const["kThreads"] == 256
+    assert k4.gate_stage_max_len() == 49_468
+    assert 4 * k4.gate_stage_max_len() + 16 * (2048 + 49) <= 232_448 - 1024
