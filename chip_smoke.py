@@ -31,6 +31,21 @@ model's full width, counting kernel launches from 0 just before each:
     on the card and on the CPU, and 2 epochs of training at B = 32, with the
     same launch counts as at T = 750.
 
+Then three more phases:
+
+  * the loader artifacts: the pipeline experiment's data stage again with
+    ``loader_backend: "torch"`` (pickled torch DataLoaders), read back by
+    the port to the native files' arrays exactly, and one epoch trained
+    from each set of files to the same losses;
+  * a traced training epoch: ``SCGRHC_PROFILE_DIR`` set around one epoch
+    of the 600-s record, the Chrome trace checked for the ``train_epoch``
+    span and the port's kernels, and the step's device time split from it
+    (busy share, the ten costliest device operations, the time in no
+    kernel of the port, and that time by the autograd node that launched
+    it);
+  * the port's bench: each mode of ``python -m scgrhc_torch.bench`` as a
+    process of its own, its one JSON line held and printed.
+
 K3 is also held at T = 12,289 and timed at N = 37, 300, 2,400 and 19,200
 beside an empty kernel on its grid (the launch floor); the data stage's
 device backend is split, for one interval, into host framing, upload, K3
@@ -54,6 +69,7 @@ same calls replayed from a CUDA graph.  Details go to
 
 from __future__ import annotations
 
+import bisect
 import io
 import json
 import math
@@ -1816,6 +1832,279 @@ def pipeline_end_to_end(torch, smoke: Smoke, root: str, card: str) -> dict:
     return report
 
 
+# ---- a traced training epoch --------------------------------------------------
+
+# The port's kernels as CUPTI names them (csrc/*.cu, conv3.cuh).
+PORT_KERNEL = re.compile(r"\b(?:conv_mma|conv_stream|dx_stream|dw_mma|dw_stream|dw_reduce|db|"
+                         r"dc_linear|row|gate_normalize|normalize_windows)_kernel\b")
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# The device time of a step by who launched it: the port's kernels, cuDNN's
+# convolutions (the plain ops left on the path: the GP's second order, the
+# attention 1x1 convs, up*, final), PyTorch's own elementwise and reduction
+# kernels (instance norms, Adam, the losses), and copies and fills.
+OP_CLASSES = (("port kernels", PORT_KERNEL),
+              ("cuDNN convolutions", re.compile(r"cudnn|xmma|implicit_gemm|cutlass|gemm")),
+              ("PyTorch elementwise and reductions", re.compile(r"at::native|at::cuda")),
+              ("copies and fills", re.compile(r"^Memcpy|^Memset")))
+
+
+def _busy_us(events, lo: float, hi: float) -> float:
+    """The union of the events' [ts, ts + dur) inside [lo, hi), in µs."""
+    busy, end = 0.0, lo
+    for a, b in sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi)) for e in events):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+OUTSIDE = "no backward node (forwards, losses, Adam)"
+
+
+def _launching_nodes(events) -> dict:
+    """correlation id → the autograd node whose backward launched the kernel:
+    the outermost ``evaluate_function: <node>`` around the launch on its
+    thread, with the innermost after a "/" where a backward ran inside it
+    (``_plain_vjp``'s ``autograd.grad``), or ``OUTSIDE`` where none ran."""
+    spans: dict = {}
+    for e in events:
+        if e["name"].startswith("autograd::engine::evaluate_function: "):
+            spans.setdefault(e["tid"], []).append(e)
+    starts, parent = {}, {}
+    for tid, v in spans.items():
+        v.sort(key=lambda e: e["ts"])
+        starts[tid] = [e["ts"] for e in v]
+        stack: list[int] = []
+        for i, e in enumerate(v):  # nested spans: the parent is the open one
+            while stack and v[stack[-1]]["ts"] + v[stack[-1]]["dur"] < e["ts"]:
+                stack.pop()
+            parent[tid, i] = stack[-1] if stack else None
+            stack.append(i)
+    out = {}
+    for e in events:
+        corr = e.get("args", {}).get("correlation")
+        if e.get("cat") != "cuda_runtime" or corr is None or e["tid"] not in spans:
+            if corr is not None and e.get("cat") == "cuda_runtime":
+                out[corr] = OUTSIDE
+            continue
+        v, i = spans[e["tid"]], bisect.bisect_right(starts[e["tid"]], e["ts"]) - 1
+        while i is not None and i >= 0 and v[i]["ts"] + v[i]["dur"] < e["ts"]:
+            i = parent[e["tid"], i]
+        chain = []
+        while i is not None and i >= 0:
+            chain.append(v[i]["name"].split(": ", 1)[1])
+            i = parent[e["tid"], i]
+        out[corr] = (OUTSIDE if not chain else chain[-1] if len(chain) == 1
+                     else f"{chain[-1]}/{chain[0]}")
+    return out
+
+
+def _short_name(name: str, width: int = 70) -> str:
+    m = PORT_KERNEL.search(name)
+    if m:  # a port kernel: its name and template arguments, no namespace
+        return name[m.start():][:width]
+    return name[:width]
+
+
+def trace_training(torch, smoke: Smoke, root: str, card: str, loader: str,
+                   untraced_ms: float) -> dict:
+    """One epoch of the 600-s record (epoch mode, B = 32) through
+    ``train.run.run`` with ``SCGRHC_PROFILE_DIR`` set: a Chrome trace must
+    appear under ``train/`` with the ``train_epoch`` span and the port's
+    kernels in it.  From the trace: the device's busy share inside the
+    span, the ten device operations with the most time per step, and the
+    time per step in none of the port's kernels.  ``untraced_ms``: the
+    training phase's steady step with tracing off, to read the profiler's
+    cost against."""
+    from scgrhc_torch.core import trace as trace_mod
+    from scgrhc_torch.train import run as train_run
+    from scgrhc_torch.train.wgan import TrainConfig, launches_per_step
+
+    params = _train_exp(root, "traced", loader, total_epochs=1)
+    fns = {k: fn for k, fn in _kernel_counters().items() if k in TRAIN_KERNELS}
+    out = os.path.join(root, "profile")
+    for fn in fns.values():
+        fn.launches = 0
+    os.environ[trace_mod.ENV_VAR] = out
+    try:
+        t0 = time.perf_counter()
+        stats = train_run.run(params, plot=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del os.environ[trace_mod.ENV_VAR]
+    n_steps = stats["epochs"][0]["steps"]
+    launches = {k: fn.launches for k, fn in fns.items()}
+    want = {k: v * n_steps for k, v in launches_per_step(TrainConfig.from_params(params)).items()}
+    smoke.check(launches == want, f"traced epoch: launches {launches}, expected {want}")
+    files = sorted(os.listdir(os.path.join(out, "train"))) if os.path.isdir(
+        os.path.join(out, "train")) else []
+    if not smoke.check(len(files) == 1 and files[0].endswith(".json"),
+                       f"traced epoch: trace files under train/: {files}"):
+        return {"files": files}
+    path = os.path.join(out, "train", files[0])
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    spans = [e for e in events if e.get("name") == "train_epoch"
+             and e.get("cat") == "user_annotation"]
+    device = [e for e in events if e.get("cat") in DEVICE_CATS]
+    for e in device:
+        e["port"] = e["cat"] == "kernel" and bool(PORT_KERNEL.search(e["name"]))
+    port = [e for e in device if e["port"]]
+    smoke.check(len(spans) == 1, f"traced epoch: {len(spans)} train_epoch spans")
+    smoke.check(bool(port), f"traced epoch: no kernel of the port among {len(device)} device "
+                            f"events")
+    if not spans or not port:
+        return {"files": files, "device_events": len(device)}
+    lo, hi = spans[0]["ts"], spans[0]["ts"] + spans[0]["dur"]
+    inside = [e for e in device if lo <= e["ts"] < hi]
+    per_op: dict[str, float] = {}
+    per_class = dict.fromkeys([c for c, _ in OP_CLASSES] + ["other"], 0.0)
+    per_node: dict[str, float] = {}  # the device ops outside the port's kernels
+    launcher = _launching_nodes(events)
+    for e in inside:
+        key = _short_name(e["name"])
+        per_op[key] = per_op.get(key, 0.0) + e["dur"]
+        cls = next((c for c, pat in OP_CLASSES if pat.search(e["name"])), "other")
+        per_class[cls] += e["dur"] / n_steps / 1e3
+        if not e["port"]:
+            node = launcher.get(e.get("args", {}).get("correlation"), "unknown")
+            per_node[node] = per_node.get(node, 0.0) + e["dur"] / n_steps / 1e3
+    step_ms = (hi - lo) / n_steps / 1e3
+    busy_ms = _busy_us(inside, lo, hi) / n_steps / 1e3
+    port_ms = sum(e["dur"] for e in inside if e["port"]) / n_steps / 1e3
+    other_ms = sum(e["dur"] for e in inside if not e["port"]) / n_steps / 1e3
+    top = sorted(per_op.items(), key=lambda kv: -kv[1])[:10]
+    report = {
+        "trace_bytes": os.path.getsize(path), "wall_s": wall, "steps": n_steps,
+        "step_ms": step_ms, "device_busy_share": busy_ms / step_ms,
+        "port_kernel_ms_per_step": port_ms, "other_device_ms_per_step": other_ms,
+        "not_in_port_kernels_ms_per_step": step_ms - port_ms,
+        "idle_ms_per_step": step_ms - busy_ms,
+        "top10_ms_per_step": [[k, v / n_steps / 1e3] for k, v in top],
+        "by_class_ms_per_step": per_class, "untraced_ms_per_step": untraced_ms,
+        "not_port_by_node_ms_per_step": per_node,
+        "launches": launches,
+    }
+    print(f"trace: one epoch ({n_steps} steps, B={N_TRAIN}) traced in {wall:.1f} s, "
+          f"{report['trace_bytes'] / 1e6:.1f} MB of trace; inside train_epoch "
+          f"{step_ms:.2f} ms per step (profiler on), device busy {100 * busy_ms / step_ms:.1f} %, "
+          f"port kernels {port_ms:.2f} ms, other device ops {other_ms:.2f} ms, idle "
+          f"{step_ms - busy_ms:.2f} ms; not in a port kernel {step_ms - port_ms:.2f} ms per step; "
+          f"top ten per step: " + "; ".join(f"{k} {v / n_steps / 1e3:.3f} ms" for k, v in top)
+          + f" on {card}", flush=True)
+    print("trace: device ms per step by class: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in per_class.items()) + f"; the same epoch untraced "
+        f"{untraced_ms:.2f} ms per step (tracing adds {step_ms - untraced_ms:.2f} ms a step)",
+        flush=True)
+    print("trace: device ms per step outside the port's kernels, by the autograd node that "
+          "launched them: " + ", ".join(
+              f"{k} {v:.2f}" for k, v in sorted(per_node.items(), key=lambda kv: -kv[1])[:10]),
+          flush=True)
+    return report
+
+
+# ---- the port's bench ---------------------------------------------------------
+
+# Each mode of ``python -m scgrhc_torch.bench`` in its own process, at the
+# root bench.py's defaults: (mode, metric, unit).
+BENCH_RUNS = (
+    ("inference", "generator_inference_throughput", "segments/s/chip"),
+    ("train", "wgan_train_throughput", "segments/s/chip"),
+    ("train-torch", "wgan_train_torch_cpu_baseline", "segments/s"),
+    ("eval", "eval_all_throughput", "segment-evals/s/chip"),
+    ("stream", "stream_infer_xrealtime", "x_realtime/chip"),
+    ("data", "data_stage_throughput", "signal-seconds/s"),
+    ("kernels", "cuda_gate_normalize", "windows/s/chip"),
+)
+
+
+def bench_modes(smoke: Smoke, card: str, kind: str) -> dict:
+    """Run each bench mode as a user would, and hold its one line: the
+    mode's metric and unit, a finite positive value, and the card named."""
+    limit = card.rsplit(",", 1)[-1].strip()
+    lines = {}
+    for mode, metric, unit in BENCH_RUNS:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "scgrhc_torch.bench", "--mode", mode],
+                              cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        out = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+        if not smoke.check(proc.returncode == 0 and len(out) == 1,
+                           f"bench --mode {mode}: rc {proc.returncode}, {len(out)} lines\n"
+                           f"{proc.stdout[-1000:]}{proc.stderr[-2000:]}"):
+            continue
+        try:
+            line = json.loads(out[0])
+        except json.JSONDecodeError:
+            smoke.check(False, f"bench --mode {mode}: not JSON: {out[0][:300]}")
+            continue
+        value = line.get("value")
+        smoke.check(line.get("metric") == metric and line.get("unit") == unit,
+                    f"bench --mode {mode}: metric {line.get('metric')} unit {line.get('unit')}")
+        smoke.check(isinstance(value, float) and math.isfinite(value) and value > 0,
+                    f"bench --mode {mode}: value {value}")
+        smoke.check(line.get("device") == kind and line.get("power_limit") == limit,
+                    f"bench --mode {mode}: device {line.get('device')}, power limit "
+                    f"{line.get('power_limit')}")
+        lines[mode] = {**line, "process_s": secs}
+        print(f"bench: --mode {mode} ({secs:.1f} s with process start): {out[0]}", flush=True)
+    return lines
+
+
+# ---- the reference's loader artifacts -------------------------------------------
+
+
+def loader_artifacts(torch, smoke: Smoke, root: str, card: str) -> dict:
+    """The pipeline experiment's data stage (``data_backend: "device"``) run
+    again with ``loader_backend: "torch"``: its three pickled DataLoaders,
+    read by the port's ``load_dataloader``, must equal the native files
+    array for array, with the same names and (lo, hi); one epoch trained
+    from each set of files must give the same losses."""
+    from scgrhc_torch.core.params import Params
+    from scgrhc_torch.data import run as data_run
+    from scgrhc_torch.data.loaders import load_dataloader
+    from scgrhc_torch.train import run as train_run
+
+    native = Params(os.path.join(root, "data_device", "params.json"))
+    exp = os.path.join(root, "data_torch")
+    os.makedirs(exp)
+    params = Params(_write_params(exp, total_epochs=1, seed=0, data_backend="device",
+                                  loader_backend="torch"))
+    t0 = time.perf_counter()
+    data_run.run(params)
+    secs = time.perf_counter() - t0
+    fields = ("scg", "rhc", "start_idx", "stop_idx", "minmax_scg", "minmax_rhc")
+    counts = {}
+    for split in ("train", "valid", "test"):
+        path = getattr(params, f"{split}_path")
+        with open(path, "rb") as f:
+            raw = f.read()
+        smoke.check(b"scgrhc" not in raw and b"torch.utils.data" in raw,
+                    f"loader artifacts: {split} pickle names more than torch")
+        a = load_dataloader(getattr(native, f"{split}_path"))
+        b = load_dataloader(path)
+        same = (a.batch_size == b.batch_size and a.dataset.record_names == b.dataset.record_names
+                and all(getattr(a.dataset, k).dtype == getattr(b.dataset, k).dtype
+                        and np.array_equal(getattr(a.dataset, k), getattr(b.dataset, k))
+                        for k in fields))
+        smoke.check(same, f"loader artifacts: the {split} pickle differs from the native file")
+        counts[split] = len(b.dataset)
+    losses = {}
+    for name, src in (("native", native), ("torch", params)):
+        run = _train_exp(root, f"train_from_{name}", src.train_path, total_epochs=1)
+        train_run.run(run, plot=False)
+        losses[name] = _ckpt(run, 0)
+    same = (losses["native"]["g_losses"] == losses["torch"]["g_losses"]
+            and losses["native"]["d_losses"] == losses["torch"]["d_losses"])
+    smoke.check(same, "loader artifacts: one epoch from the torch pickles gave other losses")
+    print(f"loader artifacts: data stage with loader_backend torch in {secs:.2f} s, {counts} "
+          f"windows, equal to the native files; one epoch from each set: losses equal {same} "
+          f"on {card}", flush=True)
+    return {"data_stage_s": secs, "windows": counts, "losses_equal": same}
+
+
 def main() -> int:
     import torch
 
@@ -1880,11 +2169,16 @@ def main() -> int:
         serve = serve_end_to_end(torch, smoke, os.path.join(root, "serve"), card)
         train = train_end_to_end(torch, smoke, os.path.join(root, "train"), card)
         pipeline = pipeline_end_to_end(torch, smoke, os.path.join(root, "pipeline"), card)
+        artifacts = loader_artifacts(torch, smoke, os.path.join(root, "pipeline"), card)
+        traced = trace_training(torch, smoke, os.path.join(root, "trace"), card,
+                                write_train_data(os.path.join(root, "trace"))[0],
+                                train["ms_per_step"])
         long = {"kernels": check_long_kernels(torch, smoke),
                 "serve": serve_long(torch, smoke, os.path.join(root, "long_serve"), card),
                 "train": train_long(torch, smoke, os.path.join(root, "long_train"), card)}
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    bench = bench_modes(smoke, card, kind)
 
     kernels = [
         {"name": "conv_in_relu", "route": "cuda",
@@ -1946,6 +2240,7 @@ def main() -> int:
                    "conv_in_relu_bwd": k1b, **k2, "gate_and_normalize": k3, "sass_hmma": sass,
                    "ptxas_conv_core": core,
                    "serve": serve, "train": train, "pipeline": pipeline, "long_windows": long,
+                   "loader_artifacts": artifacts, "trace": traced, "bench": bench,
                    "errors": smoke.errors}, f, indent=1)
     if smoke.errors:
         print(f"chip_smoke: {len(smoke.errors)} check(s) failed", file=sys.stderr)

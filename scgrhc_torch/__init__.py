@@ -8,3 +8,7 @@ CUDA, with hand-written kernels for the generator's fused conv + instance
 norm + relu layers, the critic's layers, the data stage's noise gate and
 the per-window normalization.
 """
+
+from scgrhc_torch.core import debug as _debug
+
+_debug.enable_from_env()  # SCGRHC_DEBUG modes

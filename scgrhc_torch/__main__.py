@@ -25,8 +25,9 @@ USAGE = (
     "                                [--timeout S] [--device D]\n"
     "       python -m scgrhc_torch predict <dir> <record> [ckpt|best|last]\n"
     "                                [--overlap S] [--device D]\n"
+    "       python -m scgrhc_torch export-loaders <dir> [out_dir]  (host only)\n"
     "D is cuda (default) or cpu.  Not yet ported: sweep, report, plots, demo,\n"
-    "export, export-loaders, summary."
+    "export, summary."
 )
 
 _NOT_PORTED = {
@@ -34,10 +35,10 @@ _NOT_PORTED = {
     "--calibrate": "cohort calibration (--calibrate)",
     "--mesh": "mesh sharding (--mesh)",
 }
-_NOT_PORTED_COMMANDS = ("sweep", "report", "plots", "demo", "export", "export-loaders",
-                        "summary")
+_NOT_PORTED_COMMANDS = ("sweep", "report", "plots", "demo", "export", "summary")
 # subcommand: (arguments before the flags, including the subcommand)
-_MIN_ARGS = {"data": 2, "train": 2, "test": 4, "select": 2, "serve": 2, "predict": 3}
+_MIN_ARGS = {"data": 2, "train": 2, "test": 4, "select": 2, "serve": 2, "predict": 3,
+             "export-loaders": 2}
 
 
 def _option(rest: list[str], flag: str, kind, default):
@@ -99,6 +100,14 @@ def main(argv: list[str] | None = None) -> int:
         from scgrhc_torch.select import run as select_run
 
         select_run.run(params)
+    elif cmd == "export-loaders":
+        # re-encode the loader files as pickled torch DataLoaders the
+        # reference scripts load unchanged (reference: recordutil.py:202-224)
+        from scgrhc_torch.data.torch_export import export_torch_loaders
+
+        out_dir = rest[0] if rest and not rest[0].startswith("--") else None
+        for path in export_torch_loaders(params, out_dir):
+            print(f"Exported {path}")
     elif cmd == "serve":
         from scgrhc_torch.pipeline import serve
 

@@ -3,8 +3,9 @@
 
 The per-epoch order is ``np.random.default_rng((seed, epoch))``'s
 permutation, as in the JAX package, so both packages batch a loader file
-identically.  Reading the reference's pickled torch ``DataLoader`` is not
-yet ported.
+identically.  :func:`load_dataloader` also reads the reference's pickled
+torch ``DataLoader`` (reference: recordutil.py:219-224) from its
+``dataset`` and ``batch_size`` alone, as ``scgrhc.data.loaders`` does.
 """
 
 from __future__ import annotations
@@ -63,9 +64,27 @@ class SegmentLoader:
             pickle.dump(self.state_dict(), f)
 
 
+def _store_from_torch_loader(loader) -> SegmentStore:
+    """A reference pickled torch DataLoader's dataset → a SegmentStore.  Its
+    items are the 7-tuples of recordutil.py:55-66, already normalized
+    (C, T) float32 tensors."""
+    items = list(loader.dataset)
+    return SegmentStore(
+        np.stack([np.asarray(it[0], np.float32) for it in items]),
+        np.stack([np.asarray(it[1], np.float32) for it in items]),
+        [it[2] for it in items],
+        np.array([int(it[3]) for it in items], np.int64),
+        np.array([int(it[4]) for it in items], np.int64),
+        np.array([[float(it[5][0]), float(it[5][1])] for it in items], np.float64),
+        np.array([[float(it[6][0]), float(it[6][1])] for it in items], np.float64),
+        segment_samples=int(np.asarray(items[0][0]).shape[-1]),
+    )
+
+
 def load_dataloader(path: str, seed: int = 0) -> SegmentLoader:
-    """Load a native loader file (or a bare store file, unshuffled, batch
-    1), as ``scgrhc.data.loaders.load_dataloader`` does."""
+    """Load a loader file: native (or a bare store file, unshuffled, batch
+    1), or a reference pickled torch DataLoader, shuffled with ``seed``, as
+    ``scgrhc.data.loaders.load_dataloader`` does."""
     with open(path, "rb") as f:
         obj = pickle.load(f)
     if isinstance(obj, dict) and obj.get("format") == LOADER_TAG:
@@ -73,7 +92,8 @@ def load_dataloader(path: str, seed: int = 0) -> SegmentLoader:
                              shuffle=obj["shuffle"], seed=obj.get("seed", seed))
     if isinstance(obj, dict) and obj.get("format") == FORMAT_TAG:
         return SegmentLoader(SegmentStore.from_state_dict(obj), 1, shuffle=False)
-    raise NotImplementedError(
-        f"{path}: reading a pickled torch DataLoader (the reference's loader files) "
-        "is not yet ported to scgrhc_torch; convert it with the scgrhc package"
-    )
+    if not hasattr(obj, "dataset"):
+        raise ValueError(f"{path}: not a loader file ({LOADER_TAG}, {FORMAT_TAG} or a pickled "
+                         f"torch DataLoader), got {type(obj).__name__}")
+    return SegmentLoader(_store_from_torch_loader(obj), getattr(obj, "batch_size", 1) or 1,
+                         shuffle=True, seed=seed)

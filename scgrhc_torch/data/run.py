@@ -7,9 +7,10 @@ K3 on the device with ``data_backend: "device"``), splits them 90/5/5
 native loader files at the paths of ``params.json``.  Overwrite guards and
 ``record_log.txt`` match the reference (recordutil.py:176-181, 211-216).
 
-Single process: a multi-process launch (``WORLD_SIZE`` > 1) and
-``loader_backend: "torch"`` (the reference's pickled torch DataLoaders)
-are not yet ported and raise.
+``loader_backend: "torch"`` writes the reference's own artifacts instead,
+pickled torch DataLoaders (:mod:`scgrhc_torch.data.torch_export`), which
+``scgrhc`` and the port read back.  Single process:
+a multi-process launch (``WORLD_SIZE`` > 1) is not yet ported and raises.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from scgrhc_torch.core.timelog import timelog
 from scgrhc_torch.data.loaders import SegmentLoader
 from scgrhc_torch.data.split import split_segments
 from scgrhc_torch.data.store import SegmentStore, get_global_minmax_vals
+from scgrhc_torch.data.torch_export import export_torch_loader
 from scgrhc_torch.dsp.segment import get_segments
 
 
@@ -34,10 +36,6 @@ def save_dataloaders(params, device=None) -> None:
         raise Exception("Valid file already exists!")
     elif os.path.exists(params.test_path):
         raise Exception("Test file already exists!")
-    if getattr(params, "loader_backend", "native") == "torch":
-        raise NotImplementedError(
-            "loader_backend 'torch' (pickled torch DataLoaders) is not yet ported to scgrhc_torch"
-        )
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError(
             "building the dataset from more than one process is not yet ported to scgrhc_torch"
@@ -58,10 +56,15 @@ def save_dataloaders(params, device=None) -> None:
     def make(segs):
         return SegmentStore.from_segments(segs, params.segment_size, minmax_scg, minmax_rhc)
 
-    SegmentLoader(make(train_segments), params.batch_size, shuffle=True,
-                  seed=params.seed).save(params.train_path)
-    SegmentLoader(make(valid_segments), 1, shuffle=True, seed=params.seed).save(params.valid_path)
-    SegmentLoader(make(test_segments), 1, shuffle=True, seed=params.seed).save(params.test_path)
+    splits = ((train_segments, params.batch_size, params.train_path),
+              (valid_segments, 1, params.valid_path), (test_segments, 1, params.test_path))
+    for segs, batch_size, path in splits:
+        if getattr(params, "loader_backend", "native") == "torch":
+            # the reference's artifact (recordutil.py:202-209): a pickled
+            # torch DataLoader, shuffled
+            export_torch_loader(make(segs), batch_size, True, path)
+        else:
+            SegmentLoader(make(segs), batch_size, shuffle=True, seed=params.seed).save(path)
 
     with open(os.path.join(params.dir_path, "record_log.txt"), "w") as f:
         f.write(f"Dataset created: {datetime.now()}\n")

@@ -33,6 +33,7 @@ import torch
 
 from scgrhc_torch.core.device import resolve_device
 from scgrhc_torch.core.timelog import timelog
+from scgrhc_torch.core.trace import trace
 from scgrhc_torch.data.loaders import load_dataloader
 from scgrhc_torch.eval.infer import predict_split
 from scgrhc_torch.models.convert import generator_from_state_dict
@@ -165,9 +166,10 @@ def run(params, loader_type: str, checkpoint_path: str, device=None) -> None:
                 pending = (pool.submit(_load_generator, params, todo[next_todo])
                            if next_todo < len(todo) else None)
                 next_todo += 1
-                real, pred, scores = predict_split(gen, store, batch=params.eval_batch)
-                _write_comparison_csv(_comparison_rows(store, real, pred, scores),
-                                      comp_dir_path, ckpt_name)
+                with trace(f"eval_{loader_type}", device=dev):
+                    real, pred, scores = predict_split(gen, store, batch=params.eval_batch)
+                    comparisons = _comparison_rows(store, real, pred, scores)
+                _write_comparison_csv(comparisons, comp_dir_path, ckpt_name)
         finally:
             if pending is not None:
                 pending.cancel()

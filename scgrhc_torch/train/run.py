@@ -32,6 +32,7 @@ import torch
 
 from scgrhc_torch.core.device import resolve_device
 from scgrhc_torch.core.timelog import timelog
+from scgrhc_torch.core.trace import annotate, trace
 from scgrhc_torch.data.loaders import load_dataloader
 from scgrhc_torch.train import checkpoint as ckpt_io
 from scgrhc_torch.train.wgan import TrainConfig, init_state, step_rng, train_step
@@ -76,10 +77,12 @@ def _refuse_unported(params) -> None:
 
 def _step_mode(state, loader, cfg, seed, epoch, device):
     for i, (scg, rhc) in enumerate(loader.batches(epoch)):
-        d, g = train_step(state, torch.from_numpy(scg).to(device),
-                          torch.from_numpy(rhc).to(device),
-                          step_rng(seed, epoch, i, device), cfg)
-        yield i, d.tolist(), float(g)
+        with annotate("train_step"):
+            d, g = train_step(state, torch.from_numpy(scg).to(device),
+                              torch.from_numpy(rhc).to(device),
+                              step_rng(seed, epoch, i, device), cfg)
+            d_list, g_loss = d.tolist(), float(g)
+        yield i, d_list, g_loss
 
 
 def _epoch_mode(state, loader, cfg, seed, epoch, device):
@@ -87,12 +90,14 @@ def _epoch_mode(state, loader, cfg, seed, epoch, device):
     order = torch.from_numpy(loader.epoch_order(epoch)).to(device)
     bs = loader.batch_size
     losses = []
-    for i, s in enumerate(range(0, len(order), bs)):
-        idx = order[s:s + bs]
-        d, g = train_step(state, scg_all[idx], rhc_all[idx], step_rng(seed, epoch, i, device),
-                          cfg)
-        losses.append(torch.cat((d, g[None])))
-    for i, row in enumerate(torch.stack(losses).tolist() if losses else []):
+    with annotate("train_epoch"):
+        for i, s in enumerate(range(0, len(order), bs)):
+            idx = order[s:s + bs]
+            d, g = train_step(state, scg_all[idx], rhc_all[idx],
+                              step_rng(seed, epoch, i, device), cfg)
+            losses.append(torch.cat((d, g[None])))
+        rows = torch.stack(losses).tolist() if losses else []
+    for i, row in enumerate(rows):
         yield i, row[:-1], row[-1]
 
 
@@ -132,28 +137,30 @@ def run(params, device=None, plot: bool = True) -> dict:
     stats = []
     ok = False
     try:
-        while epoch < total_epochs:
-            t0 = perf_counter()
-            for i, d_step, g_loss in epoch_steps(state, loader, cfg, params.seed, epoch, dev):
-                d_losses.extend(d_step)
-                g_losses.append(g_loss)
-                if i > 0 and (i % 10 == 0 or i == n_batches - 1):
-                    print(timelog(f"waveform_train | {params.dir_path} | epoch "
-                                  f"{epoch}/{total_epochs} | batch {i}/{n_batches}", start_time))
-                    g_sum, d_sum = sum(g_losses), sum(d_losses)
-                    print(f"  G Loss Diff: {g_sum - g_total}")
-                    print(f"  D Loss Diff: {d_sum - d_total}")
-                    g_total, d_total = g_sum, d_sum
-                    if plot:
-                        _plot_losses(g_losses, d_losses, epoch, total_epochs, i, n_batches,
-                                     params.dir_path)
-            ckpt_io.save(
-                os.path.join(params.checkpoint_dir_path, f"{epoch:03d}.checkpoint"),
-                start_time=start_time, epoch=epoch, g_losses=g_losses, d_losses=d_losses,
-                state=state, cfg=cfg, block=not getattr(params, "checkpoint_async", False),
-            )
-            stats.append({"epoch": epoch, "steps": n_batches, "seconds": perf_counter() - t0})
-            epoch += 1
+        with trace("train", device=dev):
+            while epoch < total_epochs:
+                t0 = perf_counter()
+                for i, d_step, g_loss in epoch_steps(state, loader, cfg, params.seed, epoch, dev):
+                    d_losses.extend(d_step)
+                    g_losses.append(g_loss)
+                    if i > 0 and (i % 10 == 0 or i == n_batches - 1):
+                        print(timelog(f"waveform_train | {params.dir_path} | epoch "
+                                      f"{epoch}/{total_epochs} | batch {i}/{n_batches}",
+                                      start_time))
+                        g_sum, d_sum = sum(g_losses), sum(d_losses)
+                        print(f"  G Loss Diff: {g_sum - g_total}")
+                        print(f"  D Loss Diff: {d_sum - d_total}")
+                        g_total, d_total = g_sum, d_sum
+                        if plot:
+                            _plot_losses(g_losses, d_losses, epoch, total_epochs, i, n_batches,
+                                         params.dir_path)
+                ckpt_io.save(
+                    os.path.join(params.checkpoint_dir_path, f"{epoch:03d}.checkpoint"),
+                    start_time=start_time, epoch=epoch, g_losses=g_losses, d_losses=d_losses,
+                    state=state, cfg=cfg, block=not getattr(params, "checkpoint_async", False),
+                )
+                stats.append({"epoch": epoch, "steps": n_batches, "seconds": perf_counter() - t0})
+                epoch += 1
         ok = True
     finally:
         try:

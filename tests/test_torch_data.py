@@ -285,8 +285,6 @@ def test_data_stage_overwrite_guards(port_db, tmp_path, existing):
 
 
 def test_data_stage_refuses_unported(port_db, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        data_run.save_dataloaders(Params(_exp(tmp_path, "torch", loader_backend="torch")))
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="more than one process"):
         data_run.save_dataloaders(Params(_exp(tmp_path, "multi")))

@@ -386,7 +386,8 @@ def test_pipeline_on_cpu_and_jax_reads_it_back(synth_db, tmp_path, monkeypatch, 
 def test_cli_refuses_unported_and_defaults_to_cuda(tmp_path, monkeypatch, capsys):
     assert cli(["--help"]) == 0
     usage = capsys.readouterr().out
-    for cmd in ("sweep", "report", "plots", "demo", "export", "export-loaders", "summary"):
+    assert "export-loaders <dir> [out_dir]" in usage
+    for cmd in ("sweep", "report", "plots", "demo", "export", "summary"):
         assert cmd in usage
         with pytest.raises(SystemExit, match="not yet ported"):
             cli([cmd, str(tmp_path)])

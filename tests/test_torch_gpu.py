@@ -814,3 +814,49 @@ def test_dw_stream_at_its_shared_memory_limit(cuda, o):
     with pytest.raises(ValueError, match="shared memory"):
         k2.critic_layer_bwd_dwdb(x, w, b, dy, "linear")
     k2.critic_layer_bwd_dx(x, w, b, dy, "linear")  # dx alone has no limit
+
+
+def test_trace_records_k1f_on_the_card(cuda, tmp_path):
+    """``core.trace.trace`` on the card: one K1f launch inside the block
+    shows in the Chrome trace as the conv core and the row pass, with
+    device times."""
+    import json
+
+    from scgrhc_torch.core import trace
+
+    x, w, b = (torch.from_numpy(a).to(cuda) for a in _conv_inputs(4, 64, 128, 750))
+    k1f.conv_in_relu(x, w, b)  # the first-use build stays outside the trace
+    torch.cuda.synchronize()
+    before = k1f.conv_in_relu.launches
+    with trace.trace("k1f", out_dir=str(tmp_path), device=cuda):
+        k1f.conv_in_relu(x, w, b)
+        torch.cuda.synchronize()
+    assert k1f.conv_in_relu.launches == before + 1
+    files = list((tmp_path / "k1f").iterdir())
+    assert len(files) == 1
+    with open(files[0]) as f:
+        kernels = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    names = [e["name"] for e in kernels]
+    assert sum("conv_mma_kernel" in n for n in names) >= 1, names
+    assert sum("row_kernel" in n for n in names) >= 1, names
+    assert all(e["dur"] > 0 for e in kernels)
+
+
+def test_bench_kernels_mode_on_the_card(cuda):
+    """``python -m scgrhc_torch.bench --mode kernels`` prints one line, with
+    the card's name, from K3 and K4 on the card."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    proc = subprocess.run([sys.executable, "-m", "scgrhc_torch.bench", "--mode", "kernels"],
+                          cwd=Path(__file__).resolve().parents[1], capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert len(lines) == 1
+    line = json.loads(lines[0])
+    assert line["metric"] == "cuda_gate_normalize" and line["value"] > 0
+    assert line["device"] == torch.cuda.get_device_name(0) and line["power_limit"]
+    assert line["vs_baseline"] > 0 and line["stream_norm_speedup"] > 0

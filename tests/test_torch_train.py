@@ -370,13 +370,24 @@ def test_store_normalization_matches_jax_from_segments():
 
 
 def test_loader_refuses_reference_torch_pickle(tmp_path):
+    """A pickle that is no loader file is refused with the formats named; a
+    reference torch DataLoader pickle now reads (its parity with scgrhc:
+    tests/test_torch_loader_artifacts.py)."""
     import pickle
+
+    from scgrhc_torch.data.torch_export import export_torch_loader
 
     path = str(tmp_path / "loader.pickle")
     with open(path, "wb") as f:
         pickle.dump([1, 2, 3], f)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="not a loader file"):
         load_dataloader(path)
+    scg, rhc = _raw_windows(3, 1, seed=2)
+    store = SegmentStore.from_windows(scg, rhc, "SYN000", np.arange(3) * T)
+    export_torch_loader(store, 2, True, path)
+    got = load_dataloader(path, seed=4)
+    assert (got.batch_size, got.shuffle, got.seed) == (2, True, 4)
+    np.testing.assert_array_equal(got.dataset.scg, store.scg)
 
 
 # ---- training runs on the CPU -----------------------------------------------
