@@ -13,6 +13,16 @@ model's full width, counting kernel launches from 0 just before each:
   * serving, through ``scgrhc_torch.pipeline.serve.run`` on synthetic
     records (random weights from a fixed seed), with one short record
     cross-checked against the same request served on the CPU;
+  * whole records, through the daemon's continuous mode (``{"record": ...,
+    "continuous": true}``: 14 K1f launches a record, at N = 1 and T = L)
+    on the 600-s and 1800-s records, with each request's time and peak
+    device memory, the 600-s answer held to the float64 forward within
+    twice the CPU's own f32 distance (float64 on the card, the plain
+    versions), and ``python -m scgrhc_torch predict
+    <dir> SYN000 last --continuous`` in a new process; K1f alone at the 14
+    layer shapes of the 1800-s record (T = 900,000), against float64 and
+    its plain version, timed and split by trace into the conv core and the
+    row pass;
   * training, through ``scgrhc_torch.train.run.run`` on the 400 windows of
     a 600-s synthetic record: 2 epochs in epoch mode, then a resume to a
     third in step mode, in this process and in a new one
@@ -31,12 +41,22 @@ model's full width, counting kernel launches from 0 just before each:
     on the card and on the CPU, and 2 epochs of training at B = 32, with the
     same launch counts as at T = 750.
 
-Then three more phases:
+Then more phases:
 
   * the loader artifacts: the pipeline experiment's data stage again with
     ``loader_backend: "torch"`` (pickled torch DataLoaders), read back by
     the port to the native files' arrays exactly, and one epoch trained
     from each set of files to the same losses;
+  * calibration: the daemon with ``--calibrate`` on the pipeline
+    experiment, its calibrated waveform held to the normalized one × (hi −
+    lo) + lo, (lo, hi) to a float64 reduction of the train loader's RHC
+    (min, max);
+  * int8: the 17 quantized convs' int8 products at N = 512 equal in int32
+    to the CPU's, the int8 forward against f32 above a PCC of 0.9 a window
+    at tests/test_quant.py's conditions (random weights, uniform windows),
+    and ``test <dir> valid last`` with ``"dtype": "int8"`` beside float32
+    (finite scores; each window's PCC against float32 and against the
+    CPU's int8 read), both timed;
   * a traced training epoch: ``SCGRHC_PROFILE_DIR`` set around one epoch
     of the 600-s record, the Chrome trace checked for the ``train_epoch``
     span and the port's kernels, and the step's device time split from it
@@ -44,7 +64,9 @@ Then three more phases:
     kernel of the port, and that time by the autograd node that launched
     it);
   * the port's bench: each mode of ``python -m scgrhc_torch.bench`` as a
-    process of its own, its one JSON line held and printed.
+    process of its own (and ``--dtype int8`` in the inference and eval
+    modes, ``--continuous`` in the stream mode), its one JSON line held
+    and printed.
 
 K3 is also held at T = 12,289 and timed at N = 37, 300, 2,400 and 19,200
 beside an empty kernel on its grid (the launch floor); the data stage's
@@ -621,7 +643,7 @@ def serve_end_to_end(torch, smoke: Smoke, root: str, card: str) -> dict:
     smoke.check("error" in resp[-1] and "ValueError" in resp[-1]["error"],
                 "bad record name is a per-request error")
 
-    report = {"wall_s": wall, "launches": launches, "requests": []}
+    report = {"wall_s": wall, "launches": launches, "requests": [], "exp": exp}
     chunks_total = 2 * math.ceil(warm / N_CHUNK)  # the two warm-up streams
     for i, (req, r) in enumerate(zip(requests[1:5], resp[1:5]), start=1):
         name = req["record"]
@@ -1836,7 +1858,8 @@ def pipeline_end_to_end(torch, smoke: Smoke, root: str, card: str) -> dict:
 
 # The port's kernels as CUPTI names them (csrc/*.cu, conv3.cuh).
 PORT_KERNEL = re.compile(r"\b(?:conv_mma|conv_stream|dx_stream|dw_mma|dw_stream|dw_reduce|db|"
-                         r"dc_linear|row|gate_normalize|normalize_windows)_kernel\b")
+                         r"dc_linear|row|row_part|row_apply|gate_normalize|"
+                         r"normalize_windows)_kernel\b")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # The device time of a step by who launched it: the port's kernels, cuDNN's
 # convolutions (the plain ops left on the path: the GP's second order, the
@@ -2009,13 +2032,16 @@ def trace_training(torch, smoke: Smoke, root: str, card: str, loader: str,
 # Each mode of ``python -m scgrhc_torch.bench`` in its own process, at the
 # root bench.py's defaults: (mode, metric, unit).
 BENCH_RUNS = (
-    ("inference", "generator_inference_throughput", "segments/s/chip"),
-    ("train", "wgan_train_throughput", "segments/s/chip"),
-    ("train-torch", "wgan_train_torch_cpu_baseline", "segments/s"),
-    ("eval", "eval_all_throughput", "segment-evals/s/chip"),
-    ("stream", "stream_infer_xrealtime", "x_realtime/chip"),
-    ("data", "data_stage_throughput", "signal-seconds/s"),
-    ("kernels", "cuda_gate_normalize", "windows/s/chip"),
+    (["inference"], "generator_inference_throughput", "segments/s/chip"),
+    (["inference", "--dtype", "int8"], "generator_inference_throughput", "segments/s/chip"),
+    (["train"], "wgan_train_throughput", "segments/s/chip"),
+    (["train-torch"], "wgan_train_torch_cpu_baseline", "segments/s"),
+    (["eval"], "eval_all_throughput", "segment-evals/s/chip"),
+    (["eval", "--dtype", "int8"], "eval_all_throughput", "segment-evals/s/chip"),
+    (["stream"], "stream_infer_xrealtime", "x_realtime/chip"),
+    (["stream", "--continuous"], "stream_infer_xrealtime", "x_realtime/chip"),
+    (["data"], "data_stage_throughput", "signal-seconds/s"),
+    (["kernels"], "cuda_gate_normalize", "windows/s/chip"),
 )
 
 
@@ -2024,9 +2050,10 @@ def bench_modes(smoke: Smoke, card: str, kind: str) -> dict:
     mode's metric and unit, a finite positive value, and the card named."""
     limit = card.rsplit(",", 1)[-1].strip()
     lines = {}
-    for mode, metric, unit in BENCH_RUNS:
+    for args, metric, unit in BENCH_RUNS:
+        mode = " ".join(args)
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "scgrhc_torch.bench", "--mode", mode],
+        proc = subprocess.run([sys.executable, "-m", "scgrhc_torch.bench", "--mode", *args],
                               cwd=os.path.dirname(os.path.abspath(__file__)),
                               capture_output=True, text=True, timeout=600)
         secs = time.perf_counter() - t0
@@ -2105,6 +2132,438 @@ def loader_artifacts(torch, smoke: Smoke, root: str, card: str) -> dict:
     return {"data_stage_s": secs, "windows": counts, "losses_equal": same}
 
 
+# ---- whole records, calibration and int8 ---------------------------------------
+
+# The continuous mode runs K1f at N = 1 and T = L, the whole record: 900,000
+# steps on the 1800-s record.
+T_RECORD = int(RECORDS[1][1] * 500)
+# An int8 window's output against the f32 path's, per window, at the
+# conditions tests/test_quant.py asks it at: random weights and uniform
+# inputs.  On SCG windows the JAX package's int8 forward itself falls
+# below it (tests/test_torch_quant.py), so there the phase reads the PCC,
+# and that of the card's int8 against the CPU's, without holding them.
+MIN_INT8_PCC = 0.9
+
+
+def _kernel_split(torch, fn) -> dict:
+    """Device ms of one call of ``fn`` by kernel name (a torch.profiler
+    trace of the CUDA activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    finally:
+        os.remove(path)
+    out: dict[str, float] = {}
+    for e in events:
+        m = PORT_KERNEL.search(e["name"])
+        key = m.group(0) if m else "other"
+        out[key] = out.get(key, 0.0) + e["dur"] / 1e3
+    return out
+
+
+def check_whole_record_k1f(torch, smoke: Smoke) -> dict:
+    """K1f at the continuous mode's 14 layer shapes on the 1800-s record
+    (N = 1, T = 900,000), inputs uniform in [0, 1) like the normalized
+    record: each layer's kernel and plain f32 version against the layer in
+    float64 (the plain version on the card in f64); the kernel must stay
+    within ENVELOPE_FACTOR times the plain f32 version's distance.  Times
+    of the kernel and the plain version, the kernel's split between the
+    conv core and the row pass, and its bounds: the convs' operations at
+    the f32 FMA peak and at 3xTF32, the bytes of x, y and the f32
+    scratch."""
+    from scgrhc_torch.ops.kernels.conv_block import conv_in_relu, conv_in_relu_plain
+
+    t = T_RECORD
+    shapes = [(cin, o, t) for cin, o, _ in _layer_shapes(len(CHANNELS))]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    per_shape, split = {}, {}
+    for cin, o, _ in dict.fromkeys(shapes):
+        bound = 1.0 / math.sqrt(cin * 3)
+        x = torch.rand(1, cin, t, device="cuda", generator=gen)
+        w = (torch.rand(o, cin, 3, device="cuda", generator=gen) * 2 - 1) * bound
+        b = (torch.rand(o, device="cuda", generator=gen) * 2 - 1) * bound
+        y = conv_in_relu(x, w, b)
+        plain = conv_in_relu_plain(x, w, b)
+        ref = conv_in_relu_plain(x.double(), w.double(), b.double())
+        errs = {"kernel_vs_f64": float((y - ref).abs().max()),
+                "plain_vs_f64": float((plain - ref).abs().max()),
+                "kernel_vs_plain": float((y - plain).abs().max())}
+        del y, plain, ref
+        ms = _time_ms(torch, lambda: conv_in_relu(x, w, b), reps=3, warmup=1)
+        for _ in range(3):  # a profiler session now and then comes back empty
+            traced = _kernel_split(torch, lambda: conv_in_relu(x, w, b))
+            if sum(traced.values()) > ms / 2:
+                break
+        for k, v in traced.items():
+            split[k] = split.get(k, 0.0) + v * shapes.count((cin, o, t))
+        flops = 6.0 * cin * o * t
+        nbytes = 4.0 * (cin * t + 2 * o * t)  # x, y and the f32 scratch
+        rec = {**errs, "layers": shapes.count((cin, o, t)), "trace_ms": traced, "ms": ms,
+               "plain_ms": _time_ms(torch, lambda: conv_in_relu_plain(x, w, b), reps=3,
+                                    warmup=1),
+               "flop_bound_ms": flops / PEAK_F32_FLOPS * 1e3,
+               "byte_bound_ms": nbytes / PEAK_BYTES * 1e3,
+               "rate_bound_ms": max(flops / PEAK_TF32X3_FLOPS, nbytes / PEAK_BYTES) * 1e3}
+        per_shape[f"{cin}x{o}x{t}"] = rec
+        print(f"conv_in_relu N=1 C_in={cin} O={o} T={t}: max abs err kernel vs f64 "
+              f"{errs['kernel_vs_f64']:.3g}, plain f32 vs f64 {errs['plain_vs_f64']:.3g}, "
+              f"kernel vs plain {errs['kernel_vs_plain']:.3g}; kernel {rec['ms']:.3f} ms, plain "
+              f"{rec['plain_ms']:.3f} ms", flush=True)
+        del x, w, b
+    total = {k: sum(r[k] * r["layers"] for r in per_shape.values())
+             for k in ("ms", "plain_ms", "flop_bound_ms", "byte_bound_ms", "rate_bound_ms")}
+    bound = max(total["flop_bound_ms"], total["byte_bound_ms"])
+    print(f"conv_in_relu N=1 T={t}, the 14 layers of a continuous forward: kernel "
+          f"{total['ms']:.2f} ms (by the trace: conv core {split.get('conv_mma_kernel', 0.0):.2f}, "
+          f"row pass {split.get('row_part_kernel', 0.0):.2f} + "
+          f"{split.get('row_apply_kernel', 0.0):.2f} in pieces, "
+          f"{split.get('row_kernel', 0.0):.2f} a warp a row, other "
+          f"{split.get('other', 0.0):.2f}), plain {total['plain_ms']:.2f} ms, bound {bound:.3f} ms (f32 FMA), "
+          f"{total['rate_bound_ms']:.3f} ms at 3xTF32 (bytes of x, y and the scratch)",
+          flush=True)
+    return {**total, "bound_ms": bound, "trace_ms": split,
+            "bound_by": "operations" if total["flop_bound_ms"] >= total["byte_bound_ms"]
+            else "bytes",
+            "max_kernel_vs_f64": max(r["kernel_vs_f64"] for r in per_shape.values()),
+            "per_shape": per_shape}
+
+
+def _f64_continuous(torch, params, name: str):
+    """The checkpoint's continuous forward in float64 (the plain blocks, on
+    the card: cuDNN and PyTorch's reductions in float64, a second of work
+    where the CPU takes half a minute), from the record's float32 samples,
+    normalized in float64."""
+    from scgrhc_torch.models.cp import apply_continuous
+    from scgrhc_torch.models.generator import plain_block
+    from scgrhc_torch.pipeline.predict import load_generator_params, read_scg
+
+    x = read_scg(params, name).T.astype(np.float32).astype(np.float64)
+    x = (x - x.min()) / (x.max() - x.min() + 1e-4)
+    gen64 = load_generator_params(params, "001.checkpoint", "cuda").double()
+    with torch.inference_mode():
+        y = apply_continuous(gen64, torch.from_numpy(x).cuda()[None], block=plain_block)
+        return y[0, 0].cpu().numpy()
+
+
+def continuous_end_to_end(torch, smoke: Smoke, exp: str, card: str) -> dict:
+    """The serving phase's records through the daemon's continuous mode
+    (``{"record": ..., "continuous": true}``), K1f counted from 0 and read
+    per request (14 a record), the peak device memory per request; the
+    600-s answer against the float64 forward within ENVELOPE_FACTOR times
+    the CPU's own f32 distance from it; then
+    ``python -m scgrhc_torch predict <dir> SYN000 last --continuous`` in a
+    new process, its .npy equal to the daemon's answer and its sidecar in
+    the continuous mode."""
+    from scgrhc_torch.core import paths
+    from scgrhc_torch.core.params import Params
+    from scgrhc_torch.ops.kernels.conv_block import conv_in_relu
+    from scgrhc_torch.ops.kernels.dsp import normalize_windows
+    from scgrhc_torch.pipeline import serve
+    from scgrhc_torch.pipeline.predict import load_generator_params, predict_continuous, read_scg
+
+    params = Params(os.path.join(exp, "params.json"))
+    # the 600-s record twice: the first request warms the path (cuDNN, the
+    # caching allocator), and the first answer is held to float64
+    names = [RECORDS[0][0], RECORDS[0][0], RECORDS[1][0]]
+    snaps, peaks = [], []
+
+    def lines():
+        for name in names:
+            snaps.append(conv_in_relu.launches)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            yield json.dumps({"record": name, "continuous": True}) + "\n"
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated())
+        snaps.append(conv_in_relu.launches)
+
+    out = io.StringIO()
+    conv_in_relu.launches = 0
+    normalize_windows.launches = 0
+    serve.run(params, checkpoint="last", stdin=lines(), stdout=out)
+    resp = [json.loads(line) for line in out.getvalue().splitlines()]
+    smoke.check(normalize_windows.launches == 0,
+                f"continuous: {normalize_windows.launches} K4 launches, expected 0")
+    report = {"requests": []}
+    waves = {}
+    smoke.check(len(resp) == len(names), f"continuous: {len(resp)} responses for {len(names)}")
+    for i, (name, r) in enumerate(zip(names, resp)):
+        if not smoke.check("error" not in r and r.get("mode") == "continuous",
+                           f"continuous {name}: {r}"):
+            continue
+        n = int(dict(RECORDS)[name] * 500)
+        wave = np.load(r["path"])
+        if name in waves:
+            smoke.check(np.array_equal(wave, waves[name]),
+                        f"continuous {name}: a repeated request gave other values")
+        waves[name] = wave
+        k1 = snaps[i + 1] - snaps[i]
+        smoke.check(k1 == 14, f"continuous {name}: {k1} K1f launches, expected 14")
+        smoke.check(r["n_samples"] == n == waves[name].shape[0]
+                    and bool(np.isfinite(waves[name]).all()),
+                    f"continuous {name}: {r['n_samples']} samples, expected {n}, finite "
+                    f"{bool(np.isfinite(waves[name]).all())}")
+        rec = {"record": name, "samples": n, "ms": r["ms"], "k1f": k1, "warm": i > 0,
+               "peak_gb": peaks[i] / 1e9, "msamples_per_s": n / r["ms"] / 1e3}
+        report["requests"].append(rec)
+        print(f"continuous {name}{' (first request)' if i == 0 else ''}: {n} samples in one "
+              f"pass, {r['ms']} ms "
+              f"({rec['msamples_per_s']:.2f} Msamples/s), peak device memory "
+              f"{rec['peak_gb']:.2f} GB, K1f launches {k1} on {card}", flush=True)
+    name = names[0]
+    if name in waves:
+        t0 = time.perf_counter()
+        cpu = predict_continuous(load_generator_params(params, "001.checkpoint", "cpu"),
+                                 read_scg(params, name))
+        cpu_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = _f64_continuous(torch, params, name)
+        f64_s = time.perf_counter() - t0
+        errs = {"cuda_vs_f64": float(np.abs(waves[name] - ref).max()),
+                "cpu_vs_f64": float(np.abs(cpu - ref).max()),
+                "cuda_vs_cpu": float(np.abs(waves[name] - cpu).max())}
+        smoke.check(errs["cuda_vs_f64"] <= ENVELOPE_FACTOR * errs["cpu_vs_f64"],
+                    f"continuous {name}: cuda vs f64 {errs['cuda_vs_f64']}, over "
+                    f"{ENVELOPE_FACTOR} x the cpu's f32 {errs['cpu_vs_f64']}")
+        print(f"continuous {name} against float64 (outputs within [{ref.min():.3g}, "
+              f"{ref.max():.3g}]): max abs err " + ", ".join(
+                  f"{k.replace('_vs_', ' vs ')} {v:.3g}" for k, v in errs.items())
+              + f" (cuda vs f64 within {ENVELOPE_FACTOR:g} x cpu vs f64); cpu f32 {cpu_s:.1f} s, "
+              f"f64 on the card {f64_s:.1f} s", flush=True)
+        report.update(max_abs_err=errs, cpu_s=cpu_s, f64_s=f64_s)
+    # the CLI, in a new process
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "scgrhc_torch", "predict", exp, name, "last", "--continuous"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, SCGRHC_DATA=paths.DATA_PATH),
+    )
+    cli_s = time.perf_counter() - t0
+    if smoke.check(proc.returncode == 0, f"predict --continuous: rc {proc.returncode}\n"
+                                         f"{proc.stderr[-3000:]}"):
+        pred_dir = os.path.join(exp, "predictions")
+        side = json.load(open(os.path.join(pred_dir, f"{name}.json")))
+        npy = np.load(os.path.join(pred_dir, f"{name}.npy"))
+        same = name in waves and np.array_equal(npy, waves[name])
+        smoke.check(side["mode"] == "continuous" and side["n_samples"] == npy.shape[0]
+                    and same, f"predict --continuous: sidecar {side}, equal to the daemon's "
+                              f"answer {same}")
+        print(f"predict {name} last --continuous in a new process: {cli_s:.1f} s (process "
+              f"start and kernel load included), {npy.shape[0]} samples, equal to the "
+              f"daemon's answer {same}, sidecar mode {side['mode']}", flush=True)
+        report.update(cli_s=cli_s, cli_equal=same)
+    return report
+
+
+def calibrate_end_to_end(torch, smoke: Smoke, root: str, card: str) -> dict:
+    """On the pipeline phase's experiment (it has a train split): the daemon
+    started with ``--calibrate`` answers a windowed request with
+    ``"calibrated": true`` and a continuous one too, and a request that
+    sets ``"calibrate": false`` with the normalized waveform; the
+    calibrated waveform equals the normalized one × (hi − lo) + lo within
+    f32 rounding, with (lo, hi) a float64 reduction of the train loader's
+    stored RHC (min, max).  K1f and K4 counted from 0 over the three
+    requests."""
+    from scgrhc_torch.core.params import Params
+    from scgrhc_torch.data.loaders import load_dataloader
+    from scgrhc_torch.ops.kernels.conv_block import conv_in_relu
+    from scgrhc_torch.ops.kernels.dsp import normalize_windows
+    from scgrhc_torch.pipeline import serve
+    from scgrhc_torch.pipeline.predict import cohort_rhc_minmax
+
+    params = Params(os.path.join(root, "pipeline", "params.json"))
+    mm = load_dataloader(params.train_path).dataset.minmax_rhc.astype(np.float64)
+    lo, hi = float(mm[:, 0].min()), float(mm[:, 1].max())
+    smoke.check(cohort_rhc_minmax(params) == (lo, hi),
+                f"calibrate: cohort_rhc_minmax {cohort_rhc_minmax(params)}, float64 {(lo, hi)}")
+    name = "SYN001"
+    reqs = [{"record": name, "save": False}, {"record": name, "save": False, "calibrate": False},
+            {"record": name, "save": False, "continuous": True}]
+    out = io.StringIO()
+    conv_in_relu.launches = 0
+    normalize_windows.launches = 0
+    serve.run(params, checkpoint="last", calibrate=True, stream_batch=N_CHUNK,
+              stdin=io.StringIO("".join(json.dumps(r) + "\n" for r in reqs)), stdout=out)
+    launches = (conv_in_relu.launches, normalize_windows.launches)
+    resp = [json.loads(line) for line in out.getvalue().splitlines()]
+    if not smoke.check(len(resp) == 3 and all("waveform" in r for r in resp),
+                       f"calibrate: responses {[r.get('error') for r in resp]}"):
+        return {}
+    chunks = math.ceil(int(PIPELINE_SECONDS * 500) // T / N_CHUNK)
+    smoke.check(launches == (14 * (2 * chunks + 1), 2 * chunks),
+                f"calibrate: launches K1f, K4 {launches} for 2 x {chunks} chunks and a record")
+    smoke.check([r["calibrated"] for r in resp] == [True, False, True]
+                and [r["mode"] for r in resp] == ["windowed", "windowed", "continuous"],
+                f"calibrate: flags {[(r['calibrated'], r['mode']) for r in resp]}")
+    cal, raw = (np.asarray(r["waveform"], np.float32) for r in resp[:2])
+    want = raw.astype(np.float64) * (hi - lo) + lo
+    # f32 rounding of the device's (hi - lo), product and sum: a few ulps
+    slack = 1e-6 * (np.abs(raw) * abs(hi - lo) + abs(lo))
+    err = float(np.abs(cal - want).max())
+    smoke.check(cal.shape == raw.shape and bool((np.abs(cal - want) <= slack).all()),
+                f"calibrate: calibrated waveform off the normalized one x (hi - lo) + lo by "
+                f"{err}")
+    print(f"calibrate: serve --calibrate on the pipeline experiment, record {name}: (lo, hi) "
+          f"= ({lo}, {hi}) mmHg from {len(mm)} train windows, equal to float64; calibrated "
+          f"request {resp[0]['ms']} ms, uncalibrated {resp[1]['ms']} ms, calibrated continuous "
+          f"{resp[2]['ms']} ms; max abs err against raw x (hi - lo) + lo {err:.3g}; launches "
+          f"K1f {launches[0]} K4 {launches[1]} on {card}", flush=True)
+    return {"lo": lo, "hi": hi, "ms": [r["ms"] for r in resp], "max_abs_err": err,
+            "launches": {"conv_in_relu": launches[0], "normalize_windows": launches[1]}}
+
+
+def _int8_conv_inputs(q):
+    """(name, module, C_in, T_in) of the 17 quantized convs at the windowed
+    path's lengths (T = 750)."""
+    from scgrhc_torch.models.generator import BLOCKS
+
+    out = []
+    for (name, _, _), (cin, _, t) in zip(BLOCKS, _layer_shapes(len(CHANNELS))[::2]):
+        convs = getattr(q, name)
+        out += [(f"{name}.0", convs[0], cin, t), (f"{name}.3", convs[1], convs[0].wq.shape[0], t)]
+    for name, t in (("up3", T - 6), ("up2", T - 4), ("up1", T - 2)):
+        up = getattr(q, name)
+        out.append((name, up, up.wq.shape[1], t))
+    return out
+
+
+def check_int8_products(torch, smoke: Smoke, card: str) -> dict:
+    """Each of the 17 quantized convs' int8 product on the card at N = 512
+    equal in int32 to the same product on the CPU, from the same int8
+    inputs, and timed (``models.quant.int8_conv``: ``torch._int_mm`` over an
+    im2col of the three taps); then the int8 forward at N = 512 on uniform
+    windows with random weights, each window correlated with the f32
+    forward above MIN_INT8_PCC."""
+    from scgrhc_torch.models.generator import Generator
+    from scgrhc_torch.models.quant import int8_conv
+
+    q = Generator(len(CHANNELS), torch.Generator().manual_seed(1234)).cuda().cast(torch.int8)
+    rng = torch.Generator(device="cuda").manual_seed(7)
+    report, equal, card_ms, cpu_s = {"convs": {}}, True, 0.0, 0.0
+    for name, conv, cin, t in _int8_conv_inputs(q):
+        xq = torch.randint(-127, 128, (N_CHUNK, cin, t), device="cuda", generator=rng,
+                           dtype=torch.int8)
+        y = int8_conv(xq, conv.wq, conv.padding)
+        t0 = time.perf_counter()
+        ref = int8_conv(xq.cpu(), conv.wq.cpu(), conv.padding)
+        cpu_s += time.perf_counter() - t0
+        same = y.dtype == ref.dtype == torch.int32 and torch.equal(y.cpu(), ref)
+        ms = _time_ms(torch, lambda: int8_conv(xq, conv.wq, conv.padding), reps=3, warmup=1)
+        card_ms += ms
+        equal &= same
+        report["convs"][name] = {"shape": [N_CHUNK, cin, t, conv.wq.shape[0]], "equal": same,
+                                 "ms": ms}
+        smoke.check(same, f"int8 {name} ({N_CHUNK}, {cin}, {t}) -> {conv.wq.shape[0]}: the "
+                          f"card's int32 differs from the CPU's")
+        del xq, y, ref
+    print(f"int8: the 17 quantized convs' products at N={N_CHUNK} equal to the CPU's in int32: "
+          f"{equal}; card {card_ms:.2f} ms for the 17 (torch._int_mm with its im2col), the CPU "
+          f"{cpu_s:.1f} s on {card}", flush=True)
+    # the whole int8 forward against f32 at tests/test_quant.py's conditions
+    gen = Generator(len(CHANNELS), torch.Generator().manual_seed(1234)).cuda().eval()
+    x = torch.rand(N_CHUNK, len(CHANNELS), T, device="cuda", generator=rng)
+    with torch.inference_mode():
+        yq, y = (g(x)[:, 0].double().cpu().numpy() for g in (q, gen))
+    pcc = [float(np.corrcoef(a, b)[0, 1]) for a, b in zip(y, yq)]
+    smoke.check(bool(np.isfinite(yq).all()) and min(pcc) > MIN_INT8_PCC,
+                f"int8 forward at N={N_CHUNK}, uniform windows: least PCC against f32 "
+                f"{min(pcc)}")
+    print(f"int8: the generator's int8 forward at N={N_CHUNK} on uniform windows, random "
+          f"weights: per-window PCC against f32 min {min(pcc):.4f} (> {MIN_INT8_PCC:g})",
+          flush=True)
+    report.update(all_equal=equal, card_ms=card_ms, cpu_s=cpu_s, uniform_pcc_min=min(pcc))
+    return report
+
+
+def int8_end_to_end(torch, smoke: Smoke, root: str, card: str) -> dict:
+    """``test <dir> valid last`` on the pipeline's experiment with ``"dtype":
+    "int8"`` and in float32, each in a directory of its own: the same rows,
+    finite scores, no K1f launch in int8; each window's int8 prediction
+    read against the float32 one and against the same int8 scoring on the
+    CPU; both stages and the train split's scoring alone timed."""
+    from scgrhc_torch.core.params import Params
+    from scgrhc_torch.data.loaders import load_dataloader
+    from scgrhc_torch.eval import infer
+    from scgrhc_torch.eval import run as eval_run
+    from scgrhc_torch.models.convert import generator_from_state_dict
+    from scgrhc_torch.ops.kernels.conv_block import conv_in_relu
+    from scgrhc_torch.select.run import get_float_array
+    from scgrhc_torch.train import checkpoint as ckpt_io
+
+    report = {}
+    src = Params(os.path.join(root, "pipeline", "params.json"))
+    stages, preds = {}, {}
+    for dtype in ("float32", "int8"):
+        d = os.path.join(root, f"eval_{dtype}")
+        os.makedirs(d)
+        for f in ("checkpoints", os.path.basename(src.train_path),
+                  os.path.basename(src.valid_path), os.path.basename(src.test_path)):
+            os.symlink(os.path.join(src.dir_path, f), os.path.join(d, f))
+        params = Params(_write_params(d, total_epochs=2, eval_batch=N_EVAL, seed=0, dtype=dtype))
+        conv_in_relu.launches = 0
+        t0 = time.perf_counter()
+        eval_run.run(params, "valid", "last")
+        torch.cuda.synchronize()
+        stages[dtype] = {"s": time.perf_counter() - t0, "k1f": conv_in_relu.launches}
+        ckpt = ckpt_io.get_last_checkpoint_path(params.checkpoint_dir_path)
+        rows = _read_csv(os.path.join(params.comparison_dir_path, "valid",
+                                      f"{ckpt.split('.')[0]}.csv"))
+        preds[dtype] = {(r["filename"], r["start_idx"]): (get_float_array(r["pred_rhc"]),
+                                                           float(r["pcc_r"])) for r in rows}
+    chunks = math.ceil(len(load_dataloader(src.valid_path).dataset) / N_EVAL)
+    smoke.check(stages["int8"]["k1f"] == 0 and stages["float32"]["k1f"] == 14 * chunks,
+                f"int8 eval: K1f launches {stages} for {chunks} chunks")
+    keys = sorted(preds["float32"])
+    pcc = [float(np.corrcoef(preds["float32"][k][0], preds["int8"][k][0])[0, 1]) for k in keys]
+    finite = all(np.isfinite(preds["int8"][k][0]).all() and np.isfinite(preds["int8"][k][1])
+                 for k in keys)
+    smoke.check(bool(keys) and sorted(preds["int8"]) == keys and finite,
+                f"int8 eval: {len(keys)} windows (float32 {len(preds['float32'])}), finite "
+                f"{finite}")
+    # the same checkpoint's int8 scoring of the valid split on the CPU
+    sd = ckpt_io.load(os.path.join(src.checkpoint_dir_path, ckpt))["g_state_dict"]
+    valid = load_dataloader(src.valid_path).dataset
+    _, cpu_pred, _ = infer.predict_split(generator_from_state_dict(sd).eval().cast(torch.int8),
+                                         valid, batch=N_EVAL)
+    by_key = {(n, str(int(i))): k for k, (n, i) in enumerate(zip(valid.record_names,
+                                                                 valid.start_idx))}
+    cpu_pcc = [float(np.corrcoef(preds["int8"][k][0], cpu_pred[by_key[k]])[0, 1])
+               for k in keys]
+    # the scoring alone, on the train split in chunks of eval_batch
+    store = load_dataloader(src.train_path).dataset
+    gen = generator_from_state_dict(sd, "cuda").eval()
+    scoring = {}
+    for dtype, g in (("float32", gen), ("int8", gen.cast(torch.int8))):
+        infer.predict_split(g, store, batch=N_EVAL)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        infer.predict_split(g, store, batch=N_EVAL)
+        torch.cuda.synchronize()
+        scoring[dtype] = time.perf_counter() - t0
+    print(f"int8: test <dir> valid last, {len(keys)} windows: int8 {stages['int8']['s']:.2f} s, "
+          f"float32 {stages['float32']['s']:.2f} s (checkpoint load and CSV write included); "
+          f"per-window PCC of int8 against float32 min {min(pcc):.4f}, median "
+          f"{float(np.median(pcc)):.4f}; of the card's int8 against the CPU's int8 min "
+          f"{min(cpu_pcc):.4f}, median {float(np.median(cpu_pcc)):.4f} (read, not held: "
+          f"the JAX package's int8 loses the same correlation on SCG windows); the train "
+          f"split's scoring alone ({len(store)} windows, "
+          f"chunks of {N_EVAL}): int8 {scoring['int8'] * 1e3:.1f} ms, float32 "
+          f"{scoring['float32'] * 1e3:.1f} ms on {card}", flush=True)
+    report.update(eval=stages, pcc_min=min(pcc), pcc_median=float(np.median(pcc)),
+                  cpu_pcc_min=min(cpu_pcc), cpu_pcc_median=float(np.median(cpu_pcc)),
+                  scoring_s=scoring, windows=len(keys))
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -2167,9 +2626,14 @@ def main() -> int:
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         serve = serve_end_to_end(torch, smoke, os.path.join(root, "serve"), card)
+        whole = {"kernel": check_whole_record_k1f(torch, smoke),
+                 "serve": continuous_end_to_end(torch, smoke, serve["exp"], card)}
         train = train_end_to_end(torch, smoke, os.path.join(root, "train"), card)
         pipeline = pipeline_end_to_end(torch, smoke, os.path.join(root, "pipeline"), card)
         artifacts = loader_artifacts(torch, smoke, os.path.join(root, "pipeline"), card)
+        calibrated = calibrate_end_to_end(torch, smoke, os.path.join(root, "pipeline"), card)
+        int8 = {"products": check_int8_products(torch, smoke, card),
+                **int8_end_to_end(torch, smoke, os.path.join(root, "pipeline"), card)}
         traced = trace_training(torch, smoke, os.path.join(root, "trace"), card,
                                 write_train_data(os.path.join(root, "trace"))[0],
                                 train["ms_per_step"])
@@ -2188,7 +2652,10 @@ def main() -> int:
          "max_abs_err": k1f["max_abs_err"], "ms": k1f["ms"],
          "plain_ms": k1f["plain_ms"], "bound_ms": k1f["bound_ms"],
          "bound_by": k1f["bound_by"], "library_ms": None,
-         "rate_bound_ms": k1f["rate_bound_ms"]},
+         "rate_bound_ms": k1f["rate_bound_ms"],
+         "continuous_launches": sum(r["k1f"] for r in whole["serve"]["requests"]),
+         "whole_record": {k: whole["kernel"][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "rate_bound_ms", "max_kernel_vs_f64")}},
         {"name": "normalize_windows", "route": "cuda",
          "source": "scgrhc_torch/csrc/normalize_windows.cu",
          "replaces": "scgrhc/ops/pallas/dsp.py:157",
@@ -2239,7 +2706,8 @@ def main() -> int:
                    "conv_in_relu": k1f, "normalize_windows": k4,
                    "conv_in_relu_bwd": k1b, **k2, "gate_and_normalize": k3, "sass_hmma": sass,
                    "ptxas_conv_core": core,
-                   "serve": serve, "train": train, "pipeline": pipeline, "long_windows": long,
+                   "serve": serve, "continuous": whole, "calibrate": calibrated, "int8": int8,
+                   "train": train, "pipeline": pipeline, "long_windows": long,
                    "loader_artifacts": artifacts, "trace": traced, "bench": bench,
                    "errors": smoke.errors}, f, indent=1)
     if smoke.errors:

@@ -21,20 +21,17 @@ USAGE = (
     "       python -m scgrhc_torch train <dir> [--device D]\n"
     "       python -m scgrhc_torch test <dir> <train|valid|test> <all|last|ckpt> [--device D]\n"
     "       python -m scgrhc_torch select <dir>            (host only)\n"
-    "       python -m scgrhc_torch serve <dir> [ckpt|best|last] [--warm N]\n"
-    "                                [--timeout S] [--device D]\n"
+    "       python -m scgrhc_torch serve <dir> [ckpt|best|last] [--calibrate]\n"
+    "                                [--warm N] [--timeout S] [--device D]\n"
     "       python -m scgrhc_torch predict <dir> <record> [ckpt|best|last]\n"
-    "                                [--overlap S] [--device D]\n"
+    "                                [--overlap S] [--continuous] [--calibrate]\n"
+    "                                [--device D]\n"
     "       python -m scgrhc_torch export-loaders <dir> [out_dir]  (host only)\n"
     "D is cuda (default) or cpu.  Not yet ported: sweep, report, plots, demo,\n"
     "export, summary."
 )
 
-_NOT_PORTED = {
-    "--continuous": "the continuous mode (--continuous)",
-    "--calibrate": "cohort calibration (--calibrate)",
-    "--mesh": "mesh sharding (--mesh)",
-}
+_NOT_PORTED = {"--mesh": "mesh sharding (--mesh)"}
 _NOT_PORTED_COMMANDS = ("sweep", "report", "plots", "demo", "export", "summary")
 # subcommand: (arguments before the flags, including the subcommand)
 _MIN_ARGS = {"data": 2, "train": 2, "test": 4, "select": 2, "serve": 2, "predict": 3,
@@ -112,7 +109,7 @@ def main(argv: list[str] | None = None) -> int:
         from scgrhc_torch.pipeline import serve
 
         serve.run(
-            params, checkpoint=which,
+            params, checkpoint=which, calibrate="--calibrate" in rest,
             warm=_option(rest, "--warm", int, 0),
             timeout=_option(rest, "--timeout", float, None),
             device=device,
@@ -123,6 +120,7 @@ def main(argv: list[str] | None = None) -> int:
         predict.run(
             params, argv[2], checkpoint=which,
             overlap_s=_option(rest, "--overlap", float, 0.0),
+            continuous="--continuous" in rest, calibrate="--calibrate" in rest,
             device=device,
         )
     return 0

@@ -28,8 +28,9 @@
 // tensor cores over (O, T) tiles (conv_mma_kernel; its note is above it),
 // with conv_stream_kernel and dx_stream_kernel for the forward and dx below
 // 16 output channels, then row_kernel for the modes that need a whole row
-// of c, which goes through an f32 scratch.  No pass holds a whole row of
-// c, so T has no limit; the launchers walk N in chunks of 65535 samples
+// of c, which goes through an f32 scratch (the in_relu forward's rows past
+// kRowPiece steps in pieces: row_part_kernel, row_apply_kernel).  No pass
+// holds a whole row of c, so T has no limit; the launchers walk N in chunks of 65535 samples
 // (launch_layer_fwd, launch_layer_bwd).
 // The dw pass (its own note is above dw_mma_kernel) is split over samples
 // into per-block partial sums that a second kernel adds in a fixed order.
@@ -1002,6 +1003,80 @@ row_kernel(float* __restrict__ c, const T* __restrict__ dy, T* __restrict__ y, i
   }
 }
 
+// Rows longer than kRowPiece steps (the continuous mode's whole record:
+// N = 1, T = 900,000 on an 1800-s record) take the in_relu forward's row
+// pass in pieces.  row_kernel there gave the card's 132 SMs 64 blocks (one
+// warp for each of 512 rows), and each lane summed 28,125 steps in order:
+// its statistics moved the continuous forward 6.7x as far from float64 as
+// the plain f32 path's on a 600-s record.  row_part_kernel: a block per
+// (row, piece of kRowPiece steps); each thread sums its 32 steps in order,
+// the block adds the threads' sums in a fixed tree, into part (s, q).
+// row_apply_kernel: a block per (row, piece) adds its row's partial sums in
+// a fixed order (a warp: lanes over the pieces, then the warp's tree), so
+// every block of a row takes the same mean and rsig, then normalizes its
+// piece.  The partial sums go to the f32 scratch past c (conv_plan's
+// row_parts).
+constexpr int kRowPiece = 32 * kThreads;
+
+__global__ void __launch_bounds__(kThreads)
+row_part_kernel(const float* __restrict__ c, float2* __restrict__ part, int len, int parts) {
+  const size_t r = blockIdx.x;
+  const int t0 = blockIdx.y * kRowPiece;
+  const int t1 = len - t0 < kRowPiece ? len : t0 + kRowPiece;
+  const float* cr = c + r * len;
+  float s = 0.f, q = 0.f;
+  for (int t = t0 + threadIdx.x; t < t1; t += kThreads) {
+    const float v = cr[t];
+    s += v;
+    q += v * v;
+  }
+  s = warp_sum(s);
+  q = warp_sum(q);
+  __shared__ float2 sums[kWarps];
+  if ((threadIdx.x & 31) == 0) sums[threadIdx.x >> 5] = make_float2(s, q);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float2 a = sums[0];
+#pragma unroll
+    for (int i = 1; i < kWarps; ++i) {
+      a.x += sums[i].x;
+      a.y += sums[i].y;
+    }
+    part[r * parts + blockIdx.y] = a;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+row_apply_kernel(const float* __restrict__ c, const float2* __restrict__ part,
+                 T* __restrict__ y, int len, int parts) {
+  const size_t r = blockIdx.x;
+  __shared__ float2 stat;
+  if (threadIdx.x < 32) {
+    float s = 0.f, q = 0.f;
+    for (int i = threadIdx.x; i < parts; i += 32) {
+      const float2 p = part[r * parts + i];
+      s += p.x;
+      q += p.y;
+    }
+    s = warp_sum(s);
+    q = warp_sum(q);
+    if (threadIdx.x == 0) {
+      const float mean = s / (float)len;
+      float var = q / (float)len - mean * mean;
+      var = var < 0.f ? 0.f : var;
+      stat = make_float2(mean, rsqrtf(var + kEps));
+    }
+  }
+  __syncthreads();
+  const float mean = stat.x, rsig = stat.y;
+  const int t0 = blockIdx.y * kRowPiece;
+  const int t1 = len - t0 < kRowPiece ? len : t0 + kRowPiece;
+  const size_t base = r * len;
+  for (int t = t0 + threadIdx.x; t < t1; t += kThreads)
+    store(y + base + t, relu((c[base + t] - mean) * rsig));
+}
+
 
 // ---- host launchers ---------------------------------------------------------
 
@@ -1115,12 +1190,17 @@ enum ConvPath { kPathNone = 0, kPathMma = 1, kPathStream = 2 };
 
 // A pass's launch plan for n samples (conv3.py's conv_plan mirrors it; the
 // launchers take the plan of each chunk of samples): the conv kernel's
-// path and grid, the row pass's blocks (0: none), and whether the forward
-// writes c into the wrapper's f32 scratch (n, cout, len) first.
+// path and grid, the row pass's blocks (row_kernel; 0: none), its pieces
+// a row where the in_relu forward's rows are longer than kRowPiece
+// (row_part_kernel and row_apply_kernel; 0: none), and whether the forward
+// writes c into the wrapper's f32 scratch (n, cout, len) first; with row
+// pieces the scratch holds their (n, cout, row_parts) float2 partial sums
+// after c, from the next even element.
 struct ConvPlan {
   int path;
   dim3 grid;
   int row_blocks;
+  int row_parts;
   bool scratch;
 };
 
@@ -1132,7 +1212,7 @@ unsigned cdiv(long long a, long long b) { return (unsigned)((a + b - 1) / b); }
 
 ConvPlan conv_plan(int n, int cin, int cout, int len, int mode, int pass) {
   constexpr int BM = ConvTile<float>::BM, BN = ConvTile<float>::BN;
-  ConvPlan p{kPathNone, dim3(0, 0, 0), 0, false};
+  ConvPlan p{kPathNone, dim3(0, 0, 0), 0, 0, false};
   if (pass == kPassDx) {
     // M = cin, K = 3 * cout: below 16 output channels a stream over dc
     p.path = cout < kConvStreamBelow ? kPathStream : kPathMma;
@@ -1146,7 +1226,9 @@ ConvPlan conv_plan(int n, int cin, int cout, int len, int mode, int pass) {
   p.grid = stream ? dim3(cdiv(len, kStreamSteps), n, 1) : dim3(cdiv(len, BN), cdiv(cout, BM), n);
   // the conv kernels' epilogues add the bias and relu; the rest is the row pass's
   const bool row = mode == kInRelu || (mode == kRelu && (stream || pass == kPassDc));
-  p.row_blocks = row ? (int)cdiv((long long)n * cout, kWarps) : 0;
+  const bool pieces = pass == kPassFwd && mode == kInRelu && len > kRowPiece;
+  p.row_blocks = row && !pieces ? (int)cdiv((long long)n * cout, kWarps) : 0;
+  p.row_parts = pieces ? (int)cdiv(len, kRowPiece) : 0;
   p.scratch = pass == kPassFwd && row;
   return p;
 }
@@ -1229,6 +1311,17 @@ cudaError_t launch_row(int blocks, float* c, const T* dy, T* y, int rows, int le
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_row_pieces(int parts, const float* c, float2* part, T* y, int rows, int len,
+                              cudaStream_t stream) {
+  const dim3 grid(rows, parts);
+  row_part_kernel<<<grid, kThreads, 0, stream>>>(c, part, len, parts);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  row_apply_kernel<T><<<grid, kThreads, 0, stream>>>(c, part, y, len, parts);
+  return cudaGetLastError();
+}
+
 // The layer's forward (K1f: the in_relu mode; K2f): y (n, cout, len) in
 // T; c is the f32 scratch (n, cout, len) where conv_plan asks for one,
 // else null.
@@ -1254,6 +1347,12 @@ cudaError_t launch_layer_fwd(const void* x, const void* w, const void* b, void* 
       const cudaError_t err =
           launch_layer_conv<T, float, false>(p, xp, wp, bp, cp, cin, cout, len, stream);
       if (err != cudaSuccess) return err;
+      if (p.row_parts > 0) {
+        float2* part = reinterpret_cast<float2*>(static_cast<float*>(c) +
+                                                 (((size_t)n * cout * len + 1) & ~(size_t)1)) +
+                       (size_t)n0 * cout * p.row_parts;
+        return launch_row_pieces<T>(p.row_parts, cp, part, yp, nc * cout, len, stream);
+      }
       constexpr int kRow = MODE == kInRelu ? kRowInReluFwd : kRowReluFwd;
       return launch_row<T, kRow>(p.row_blocks, cp, nullptr, yp, nc * cout, len, stream);
     }

@@ -22,7 +22,9 @@
 // tiles (O, T) 64 x 128 and writes c to an f32 scratch (N, O, T) that the
 // wrapper allocates (780 MB at N = 512, O = 512, T = 744); row_kernel, a
 // warp per (n, o) row, takes the instance norm's statistics over T in a
-// fixed order and writes y.  The round trip of c costs bytes the
+// fixed order and writes y.  Rows past 8192 steps (the continuous mode's
+// whole record) are cut into pieces of a block each, their partial sums
+// added in a fixed order (row_part_kernel, row_apply_kernel).  The round trip of c costs bytes the
 // operations dwarf, and no pass holds a whole row, so T has no limit.  The
 // backward recomputes c into the dc scratch and turns it into dc in place;
 // the TPU kernel's cross-sample dw sum ran down a sequential grid, here it
@@ -34,7 +36,9 @@ using namespace scgrhc;
 
 // x (n, cin, len), w (cout, cin, 3), b (cout,), y (n, cout, len), all
 // contiguous and of one dtype: 0 = float32, 1 = bfloat16; c an f32
-// scratch of n*cout*len (conv3.py's conv_plan, in_relu, pass 0).  Returns
+// scratch of n*cout*len, with 2*n*cout*row_parts more from the next even
+// element where the plan cuts rows into pieces (conv3.py's conv_plan,
+// in_relu, pass 0; scratch_numel).  Returns
 // the launch's cudaError_t (0 on success); it does not synchronise.
 extern "C" int scgrhc_conv_in_relu(const void* x, const void* w, const void* b, void* y,
                                    void* c, int n, int cin, int cout, int len, int dtype,

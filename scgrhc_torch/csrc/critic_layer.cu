@@ -63,7 +63,8 @@ cudaError_t bwd(int mode, const void* x, const void* w, const void* b, const voi
 
 // mode: 0 = linear, 1 = relu, 2 = in_relu; dtype: 0 = float32,
 // 1 = bfloat16.  x (n, cin, len), w (cout, cin, 3), b (cout,), y (n, cout,
-// len), all contiguous; c an f32 scratch of n*cout*len where the plan
+// len), all contiguous; c an f32 scratch of n*cout*len (and the row
+// pieces' partial sums after it: conv3.py's scratch_numel) where the plan
 // (scgrhc_critic_plan, pass 0) asks for one, else null.  Returns the
 // launch's cudaError_t; no synchronise.
 extern "C" int scgrhc_critic_layer_fwd(const void* x, const void* w, const void* b, void* y,
@@ -101,9 +102,10 @@ extern "C" int scgrhc_critic_layer_bwd(const void* x, const void* w, const void*
 
 // The launch plan of a conv pass (0 forward, 1 the dc pass's recompute,
 // 2 dx) for n samples, as the launchers take it for each chunk of
-// samples: out[0..5] = path (0 none, 1 mma, 2 stream), the grid's x, y,
-// z, the row pass's blocks, and 1 when the forward needs the f32 scratch
-// c.  conv3.py's conv_plan mirrors it.  Returns 0.
+// samples: out[0..6] = path (0 none, 1 mma, 2 stream), the grid's x, y,
+// z, the row pass's blocks, 1 when the forward needs the f32 scratch c,
+// and the row pass's pieces a row.  conv3.py's conv_plan mirrors it.
+// Returns 0.
 extern "C" int scgrhc_critic_plan(int n, int cin, int cout, int len, int mode, int pass,
                                   int* out) {
   const ConvPlan p = conv_plan(n, cin, cout, len, mode, pass);
@@ -113,5 +115,6 @@ extern "C" int scgrhc_critic_plan(int n, int cin, int cout, int len, int mode, i
   out[3] = (int)p.grid.z;
   out[4] = p.row_blocks;
   out[5] = p.scratch ? 1 : 0;
+  out[6] = p.row_parts;
   return 0;
 }

@@ -7,7 +7,10 @@ run on the device.  The reference evaluates segment by segment at batch 1
 on the CPU (waveform_test.py:58-67).
 
 JAX pads each chunk to a static size so that one compiled program serves
-them all; PyTorch runs eagerly, so chunks keep their own sizes.  The JAX
+them all; PyTorch runs eagerly, so chunks keep their own sizes.  The
+chunks are the JAX package's all the same, which the int8 generator needs:
+its activation scales span a chunk (:mod:`scgrhc_torch.models.quant`;
+JAX's zero-padded windows leave them as they are).  The JAX
 package's ``predict_split_multi`` (K checkpoints stacked under ``vmap``)
 has no counterpart: ``vmap`` cannot pass through K1f's ctypes launch, and
 a loop over checkpoints is :func:`predict_split` once per checkpoint.
@@ -46,8 +49,9 @@ def host_real(store) -> np.ndarray:
 
 
 def predict_split(gen, store, batch: int = 256):
-    """Run the generator (in eval mode, on its device) over every segment
-    of a store.  Returns (real (N, T), pred (N, T), both denormalized
+    """Run the generator (in eval mode, on its device; a ``Generator`` or the
+    int8 ``QuantGenerator``) over every segment of a store, ``batch``
+    segments at a time.  Returns (real (N, T), pred (N, T), both denormalized
     float32 numpy, and a dict of (N,) numpy score arrays)."""
     n = len(store)
     t = store.segment_samples

@@ -11,8 +11,10 @@ CSVs are written with the standard library, byte for byte as pandas'
 ``to_csv(index=False)`` writes them (floats as ``repr``, NaN as an empty
 field).
 
-The split is scored on the device in chunks (:mod:`scgrhc_torch.eval.infer`),
-one checkpoint after another; a background thread loads the next
+The split is scored on the device in chunks of ``eval_batch`` windows
+(:mod:`scgrhc_torch.eval.infer`), in the params' ``dtype`` (``"int8"``
+through :class:`scgrhc_torch.models.quant.QuantGenerator`), one
+checkpoint after another; a background thread loads the next
 checkpoint from disk while the current one runs.  ``eval_stack`` is
 accepted and ignored: ``scgrhc`` stacks checkpoints under ``vmap``, which
 cannot pass through K1f's ctypes launch, so in the port a stack would be
@@ -108,9 +110,11 @@ def _load_generator(params, ckpt_name):
 
 
 def _to_device(gen, params, dev):
+    """The generator on ``dev`` in the params' inference dtype: bfloat16
+    casts in place, int8 returns the quantized module (``Generator.cast``)."""
     gen = gen.to(dev).eval()
     if params.dtype != "float32":
-        gen.cast(getattr(torch, params.dtype))  # int8 raises: not yet ported
+        gen = gen.cast(getattr(torch, params.dtype))
     return gen
 
 

@@ -120,13 +120,17 @@ class Generator(nn.Module):
         """The compute dtype: that of the double-conv weights."""
         return self.enc1.convs[0].weight.dtype
 
-    def cast(self, dtype) -> "Generator":
+    def cast(self, dtype) -> nn.Module:
         """Cast every weight for reduced-precision compute EXCEPT ``final``,
         which keeps its dtype, so the output epilogue runs at its own
         precision (``scgrhc.models.generator.cast_params``).  In place;
-        returns self.  The int8 inference tree is not ported."""
+        returns self.  ``torch.int8`` instead returns the quantized
+        inference module (:class:`scgrhc_torch.models.quant.QuantGenerator`,
+        on this generator's device) and leaves this one as it is."""
         if dtype == torch.int8:
-            raise NotImplementedError("int8 generator inference is not yet ported")
+            from scgrhc_torch.models.quant import QuantGenerator
+
+            return QuantGenerator(self)
         for name, child in self.named_children():
             if name != "final":
                 child.to(dtype)

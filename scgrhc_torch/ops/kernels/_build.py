@@ -38,7 +38,7 @@ _SIGNATURES = {
     "scgrhc_critic_layer_fwd": (_P,) * 5 + (_I,) * 6 + (_P,),
     # x, w, b, dy, dx, dw, db, dc, part, n, cin, cout, len, mode, nsplit, dtype, stream
     "scgrhc_critic_layer_bwd": (_P,) * 9 + (_I,) * 7 + (_P,),
-    # n, cin, cout, len, mode, pass, out (int[6])
+    # n, cin, cout, len, mode, pass, out (int[7])
     "scgrhc_critic_plan": (_I,) * 6 + (_P,),
     # w, out, n, m, stream
     "scgrhc_normalize_windows": (_P, _P, _I, _I, _P),

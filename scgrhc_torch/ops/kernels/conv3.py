@@ -68,6 +68,11 @@ DW_BLOCKS, DW_STREAM_BLOCKS = 264, 528
 CONV_STREAM_BELOW = 16
 CONV_TILE_M, CONV_TILE_N, CONV_STREAM_STEPS = 64, 128, 64
 ROW_WARPS = 8
+# The in_relu forward's rows longer than ROW_PIECE steps (the continuous
+# mode's whole record) take the row pass in pieces of ROW_PIECE steps, a
+# block each, whose (sum, sum of squares) go to the scratch after c and
+# are added in a fixed order: row_parts pieces a row.
+ROW_PIECE = 8192
 PASSES = ("fwd", "dc", "dx")
 PATHS = ("none", "mma", "stream")
 
@@ -82,8 +87,9 @@ DW_STREAM_DC_BYTES = 232448 - 6 * 1024
 class ConvPlan:
     path: str  # one of PATHS; "none" for the linear dc pass (dc = dy)
     grid: tuple[int, int, int]  # the conv kernel's blocks (x, y, z)
-    row_blocks: int  # blocks of the row pass after it, 0 for none
+    row_blocks: int  # blocks of the row pass after it (a warp a row), 0 for none
     scratch: tuple[int, int, int] | None  # the forward's f32 c, allocated by the wrapper
+    row_parts: int = 0  # pieces a row where the row pass runs in pieces, else 0
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -107,18 +113,29 @@ def conv_plan(n: int, cin: int, cout: int, t: int, mode: str, pass_: str = "fwd"
     else:
         path, grid = "mma", (_cdiv(t, CONV_TILE_N), _cdiv(cout, CONV_TILE_M), n)
     row = mode == "in_relu" or (mode == "relu" and (stream or pass_ == "dc"))
-    rows = _cdiv(n * cout, ROW_WARPS) if row else 0
-    return ConvPlan(path, grid, rows, (n, cout, t) if pass_ == "fwd" and row else None)
+    pieces = pass_ == "fwd" and mode == "in_relu" and t > ROW_PIECE
+    rows = _cdiv(n * cout, ROW_WARPS) if row and not pieces else 0
+    return ConvPlan(path, grid, rows, (n, cout, t) if pass_ == "fwd" and row else None,
+                    _cdiv(t, ROW_PIECE) if pieces else 0)
+
+
+def scratch_numel(plan: ConvPlan) -> int:
+    """The f32 elements of the forward's scratch: c, then, where the row
+    pass runs in pieces, two partial sums a piece from the next even
+    element (csrc/conv3.cuh: launch_layer_fwd)."""
+    n, cout, t = plan.scratch
+    c = n * cout * t
+    return c + c % 2 + 2 * n * cout * plan.row_parts if plan.row_parts else c
 
 
 def c_plan(n: int, cin: int, cout: int, t: int, mode: str, pass_: str = "fwd") -> ConvPlan:
     """The C launchers' own plan (``scgrhc_critic_plan``), for holding
     :func:`conv_plan` to it."""
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 7)()
     _build.library().scgrhc_critic_plan(n, cin, cout, t, MODE_CODE[mode], PASSES.index(pass_),
                                         out)
-    path, gx, gy, gz, rows, scratch = out
-    return ConvPlan(PATHS[path], (gx, gy, gz), rows, (n, cout, t) if scratch else None)
+    path, gx, gy, gz, rows, scratch, parts = out
+    return ConvPlan(PATHS[path], (gx, gy, gz), rows, (n, cout, t) if scratch else None, parts)
 
 
 @dataclass(frozen=True)
@@ -256,15 +273,16 @@ def _stream(x) -> int:
 
 def launch_fwd(entry: str, what: str, x, w, b, mode: str, mode_arg: bool = True):
     """The forward kernel ``entry`` on CUDA tensors → y (N, O, T) in x's
-    dtype, with the f32 scratch c that :func:`conv_plan` asks for (or
-    null).  ``mode_arg`` False: the entry point takes no mode (the
-    generator's, which is in_relu only)."""
+    dtype, with the f32 scratch that :func:`conv_plan` asks for
+    (:func:`scratch_numel`; or null).  ``mode_arg`` False: the entry point
+    takes no mode (the generator's, which is in_relu only)."""
     check_inputs(what, x, w, b)
     n, cin, t = x.shape
     o = w.shape[0]
     y = torch.empty((n, o, t), dtype=x.dtype, device=x.device)
-    shape = conv_plan(n, cin, o, t, mode).scratch
-    c = None if shape is None else torch.empty(shape, dtype=torch.float32, device=x.device)
+    plan = conv_plan(n, cin, o, t, mode)
+    c = (None if plan.scratch is None
+         else torch.empty(scratch_numel(plan), dtype=torch.float32, device=x.device))
     extra = (MODE_CODE[mode],) if mode_arg else ()
     with torch.cuda.device(x.device):
         err = getattr(_build.library(), entry)(

@@ -1,15 +1,21 @@
 """Whole-record SCG→RHC prediction, the PyTorch counterpart of
-``scgrhc.pipeline.predict`` (windowed mode).
+``scgrhc.pipeline.predict``.
 
 Loads an experiment's checkpoint (``best`` through checkpoint_best.txt,
 ``last``, or an explicit name), reads the record's SCG channels, and runs
-:func:`scgrhc_torch.parallel.stream.stream_infer` over the whole record.
+the whole record on the device: windowed
+(:func:`scgrhc_torch.parallel.stream.stream_infer`: per-window
+normalization as in training, optional overlap-and-blend) or, with
+``continuous``, seam-free (:func:`predict_continuous`: one normalization
+over the record and one U-Net pass over the whole sequence,
+:mod:`scgrhc_torch.models.cp`).  ``calibrate`` denormalizes the
+prediction to the train split's RHC range (:func:`cohort_rhc_minmax`).
 
 Output: ``<dir>/predictions/<record>.npy`` (float32 waveform at 500 Hz)
 plus a small JSON sidecar with provenance.
 
-Not yet ported: the continuous mode, cohort calibration, mesh sharding
-and Orbax checkpoints; each raises :class:`NotImplementedError`.
+Not yet ported: mesh sharding and Orbax checkpoints; each raises
+:class:`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -19,15 +25,18 @@ import os
 from time import time
 
 import numpy as np
+import torch
 
 from scgrhc_torch.core.device import resolve_device
 from scgrhc_torch.core.timelog import timelog
+from scgrhc_torch.data.loaders import load_dataloader
 from scgrhc_torch.io.catalog import (
     SAMPLE_FREQ,
     get_channels,
     read_record,
     read_record_digital,
 )
+from scgrhc_torch.models import cp
 from scgrhc_torch.models.convert import generator_from_state_dict
 from scgrhc_torch.parallel.stream import STREAM_BATCH, stream_infer
 from scgrhc_torch.train import checkpoint as ckpt_io
@@ -78,12 +87,43 @@ def predict_record(gen, params, record_name: str, overlap: int,
             overlap=overlap, rhc_minmax=rhc_minmax,
             calibration=(gain, base, sentinel),
         )
-    record = read_record(record_name)
-    scg = get_channels(record, params.in_channels, 0, record.sig_len)
+    scg = read_scg(params, record_name)
     return stream_infer(
         gen, scg.T.astype(np.float32), segment_samples=t, batch=batch,
         overlap=overlap, rhc_minmax=rhc_minmax,
     )
+
+
+def predict_continuous(gen, scg: np.ndarray, rhc_minmax=None) -> np.ndarray:
+    """One whole-record pass on ``gen``'s device: scg (L, C) → (L,) float32.
+    The record's joint (C, L) min-max normalization (``+1e-4`` in the
+    span), then :func:`scgrhc_torch.models.cp.apply_continuous` at
+    (1, C, L), then the optional denormalization to ``rhc_minmax``."""
+    dev = next(gen.parameters()).device
+    with torch.inference_mode():
+        x = torch.from_numpy(np.ascontiguousarray(scg.T, dtype=np.float32)).to(dev)
+        lo, hi = x.min(), x.max()
+        x = (x - lo) / (hi - lo + 1e-4)
+        out = cp.apply_continuous(gen, x[None])[0, 0].float().cpu().numpy()
+    if rhc_minmax is not None:
+        rlo, rhi = rhc_minmax
+        out = out * (rhi - rlo) + rlo
+    return out
+
+
+def cohort_rhc_minmax(params) -> tuple[float, float]:
+    """The calibration range: the joint (min, max) over the stored RHC
+    (min, max) of every segment of the experiment's train split, so that a
+    prediction on a new record (no RHC) comes out in mmHg through the eval
+    stage's reverse min-max (reference: waveform_test.py:21-25)."""
+    mm = load_dataloader(params.train_path).dataset.minmax_rhc
+    return float(mm[:, 0].min()), float(mm[:, 1].max())
+
+
+def read_scg(params, record_name: str) -> np.ndarray:
+    """The record's SCG channels, (L, C) physical values."""
+    record = read_record(record_name)
+    return get_channels(record, params.in_channels, 0, record.sig_len)
 
 
 def run(
@@ -98,12 +138,13 @@ def run(
     mesh: bool = False,
     device=None,
 ) -> str:
-    """Predict one record's full RHC waveform; returns the .npy path."""
-    for flag, feature in ((continuous, "the continuous mode (--continuous)"),
-                          (calibrate, "cohort calibration (--calibrate)"),
-                          (mesh, "mesh sharding (--mesh)")):
-        if flag:
-            raise not_ported(feature)
+    """Predict one record's full RHC waveform; returns the .npy path.
+
+    ``continuous`` runs the seam-free whole-record mode; ``calibrate``
+    (without an explicit ``rhc_minmax``) denormalizes to the train split's
+    RHC range."""
+    if mesh:
+        raise not_ported("mesh sharding (--mesh)")
     start_time = time()
     ckpt_name = resolve_checkpoint(params, checkpoint)
     print(
@@ -114,9 +155,21 @@ def run(
         )
     )
     gen = load_generator_params(params, ckpt_name, device)
+    if calibrate and rhc_minmax is None:
+        rhc_minmax = cohort_rhc_minmax(params)
+        print(
+            timelog(
+                f"waveform_predict | calibrated to train-cohort RHC range "
+                f"[{rhc_minmax[0]:.1f}, {rhc_minmax[1]:.1f}] mmHg",
+                start_time,
+            )
+        )
     t = params.segment_samples
     overlap = int(overlap_s * SAMPLE_FREQ)
-    pred = predict_record(gen, params, record_name, overlap, rhc_minmax)
+    if continuous:
+        pred = predict_continuous(gen, read_scg(params, record_name), rhc_minmax)
+    else:
+        pred = predict_record(gen, params, record_name, overlap, rhc_minmax)
 
     out_dir = out_dir or os.path.join(params.dir_path, "predictions")
     os.makedirs(out_dir, exist_ok=True)
@@ -128,7 +181,7 @@ def run(
                 "record": record_name,
                 "checkpoint": ckpt_name,
                 "in_channels": params.in_channels,
-                "mode": "windowed",
+                "mode": "continuous" if continuous else "windowed",
                 "segment_samples": t,
                 "overlap_samples": overlap,
                 "denormalized": rhc_minmax is not None,

@@ -9,13 +9,17 @@ requests on stdin with one JSON response line on stdout per request:
     {"record": "PATIENT01"}                          → predict + save .npy
     {"record": "...", "overlap_s": 0.5}              → overlap-and-blend
     {"record": "...", "save": false}                 → waveform inline
+    {"record": "...", "continuous": true}            → seam-free whole-record mode
+    {"record": "...", "calibrate": true}             → denormalize to the train
+                                                       split's RHC range (mmHg)
     {"cmd": "ping"}                                  → liveness check
     {"cmd": "quit"}                                  → clean shutdown
 
-Responses carry per-request wall-clock latency.  Errors are per request:
-one bad request does not stop the daemon.  Not yet ported: the
-``continuous`` and ``calibrate`` request modes (each answered with a
-"not yet ported" error) and the daemon's ``--calibrate`` and ``--mesh``.
+Responses carry the mode, whether the waveform is calibrated, and
+per-request wall-clock latency.  The daemon's ``--calibrate`` reads the
+calibration range at start-up and makes it every request's default;
+without it, the first request that asks reads it.  Errors are per request:
+one bad request does not stop the daemon.  Not yet ported: ``--mesh``.
 """
 
 from __future__ import annotations
@@ -32,9 +36,12 @@ from scgrhc_torch.core.timelog import timelog
 from scgrhc_torch.io.catalog import SAMPLE_FREQ
 from scgrhc_torch.parallel.stream import STREAM_BATCH, stream_infer
 from scgrhc_torch.pipeline.predict import (
+    cohort_rhc_minmax,
     load_generator_params,
     not_ported,
+    predict_continuous,
     predict_record,
+    read_scg,
     resolve_checkpoint,
 )
 
@@ -86,20 +93,26 @@ def _handle(req: dict, ctx: dict) -> dict:
     name = req["record"]
     if not _valid_record_name(name):
         raise ValueError(f"invalid record name {name!r} (bare names only)")
-    if req.get("continuous", False):
-        raise not_ported("the continuous mode")
-    if req.get("calibrate", False):
-        raise not_ported("cohort calibration")
     overlap = int(float(req.get("overlap_s", 0.0)) * SAMPLE_FREQ)
-    pred = predict_record(ctx["gen"], params, name, overlap,
-                          batch=ctx["stream_batch"])
+    rhc_minmax = None
+    if req.get("calibrate", ctx["calibrate"]):
+        if ctx["rhc_minmax"] is None:  # daemon started without --calibrate
+            ctx["rhc_minmax"] = cohort_rhc_minmax(params)
+        rhc_minmax = ctx["rhc_minmax"]
+    if req.get("continuous", False):
+        pred = predict_continuous(ctx["gen"], read_scg(params, name), rhc_minmax)
+        mode = "continuous"
+    else:
+        pred = predict_record(ctx["gen"], params, name, overlap, rhc_minmax,
+                              batch=ctx["stream_batch"])
+        mode = "windowed"
     resp = {
         "record": name,
-        "mode": "windowed",
+        "mode": mode,
         "n_samples": int(pred.shape[0]),
         "seconds": round(pred.shape[0] / SAMPLE_FREQ, 3),
         "checkpoint": ctx["ckpt_name"],
-        "calibrated": False,
+        "calibrated": rhc_minmax is not None,
         "ms": round((perf_counter() - t0) * 1e3, 1),
     }
     if req.get("save", True):
@@ -149,9 +162,9 @@ def run(
     """Serve until EOF or ``{"cmd": "quit"}``.  Returns requests served.
 
     ``device`` defaults to CUDA (``"cpu"`` runs the plain versions);
-    ``timeout`` (CLI ``--timeout S``) bounds each request's wall clock."""
-    if calibrate:
-        raise not_ported("cohort calibration (--calibrate)")
+    ``calibrate`` (CLI ``--calibrate``) denormalizes every request that
+    does not say otherwise; ``timeout`` (CLI ``--timeout S``) bounds each
+    request's wall clock."""
     if mesh:
         raise not_ported("mesh sharding (--mesh)")
     stdin = stdin or sys.stdin
@@ -163,6 +176,8 @@ def run(
         "params": params,
         "ckpt_name": ckpt_name,
         "gen": load_generator_params(params, ckpt_name, device),
+        "calibrate": calibrate,
+        "rhc_minmax": cohort_rhc_minmax(params) if calibrate else None,
         "out_dir": out_dir or os.path.join(params.dir_path, "predictions"),
         "stream_batch": stream_batch,
     }

@@ -125,14 +125,39 @@ def test_mode_variants(tiny, capsys, mode, variant):
         assert (line["loop"], line["fuse"]) == ("step", extra[5])
 
 
+@pytest.mark.parametrize("mode,flags", [("inference", ["--infer-batch", "2", "--depth", "1"]),
+                                        ("eval", ["--ckpts", "2", "--segments", "3",
+                                                  "--eval-batch", "2"]),
+                                        ("stream", ["--minutes", "0.02", "--continuous"])])
+def test_int8_and_continuous_lines(tiny, capsys, mode, flags):
+    """``--dtype int8`` in the inference and eval modes and ``--mode stream
+    --continuous`` run, and print bench.py's line for the mode (bench.py
+    runs the same flags through scgrhc.models.quant and scgrhc.models.cp)."""
+    if mode != "stream":
+        flags = [*flags, "--dtype", "int8"]
+    line = bench.main(["--mode", mode, "--device", "cpu", *flags])
+    assert len(capsys.readouterr().out.strip().splitlines()) == 1
+    metric, unit, keys = JAX_LINES[JAX_MODE[mode]]
+    assert (line["metric"], line["unit"]) == (metric, unit)
+    extra = {"inference": ["dtype", "batch"], "eval": [], "stream": []}[mode]
+    base = [k for k in keys if k not in ("dtype", "batch", "timing")] if mode == "inference" \
+        else keys
+    assert list(line) == base + extra + ["device", "power_limit"]
+    assert math.isfinite(line["value"]) and line["value"] > 0
+    if mode == "inference":
+        assert line["dtype"] == "int8"
+    if mode == "stream":
+        assert line["mode"] == "continuous"
+
+
 @pytest.mark.parametrize("argv,why", [
     (["--conv-backend", "pallas"], "K1f/K1b"),
     (["--critic-backend", "fused"], "K2f/K2dx/K2dw"),
     (["--remat"], "rematerialisation"),
     (["--compile-budget", "60"], "nvcc"),
     (["--rng-impl", "rbg"], "threefry"),
-    (["--dtype", "int8"], "quant.py"),
-    (["--mode", "stream", "--continuous"], "cp.py"),
+    (["--mode", "train", "--dtype", "int8"], "inference-only"),
+    (["--mode", "eval", "--continuous"], "whole-record"),
     (["--mode", "eval", "--stack", "8"], "one checkpoint at a time"),
 ])
 def test_refused_flags_say_why(argv, why):

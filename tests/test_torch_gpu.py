@@ -860,3 +860,97 @@ def test_bench_kernels_mode_on_the_card(cuda):
     assert line["metric"] == "cuda_gate_normalize" and line["value"] > 0
     assert line["device"] == torch.cuda.get_device_name(0) and line["power_limit"]
     assert line["vs_baseline"] > 0 and line["stream_norm_speedup"] > 0
+
+
+# ---- whole records (models/cp.py) and int8 (models/quant.py) ---------------------
+
+# The continuous mode's length on an 1800-s record, and the factor within
+# which the kernel path must stay of the plain f32 path's distance from
+# float64 (both on the card).
+T_RECORD = 900_000
+ENVELOPE_FACTOR = 2.0
+
+
+@pytest.mark.parametrize("n,ci,o,t", [(1, 256, 512, 8193), (2, 64, 128, 20_000),
+                                      (1, 512, 512, T_RECORD)])
+def test_conv_in_relu_row_pieces_against_float64(cuda, n, ci, o, t):
+    """Past 8192 steps K1f's row pass runs in pieces (row_part_kernel,
+    row_apply_kernel): against the layer in float64, the kernel stays within
+    ENVELOPE_FACTOR times the plain f32 version's distance, at inputs in
+    [0, 1) like the continuous mode's normalized record."""
+    from scgrhc_torch.ops.kernels import conv3
+
+    assert conv3.conv_plan(n, ci, o, t, "in_relu").row_parts > 0
+    gen = torch.Generator(device=cuda).manual_seed(t)
+    bound = 1.0 / np.sqrt(ci * 3)
+    x = torch.rand(n, ci, t, device=cuda, generator=gen)
+    w = (torch.rand(o, ci, 3, device=cuda, generator=gen) * 2 - 1) * bound
+    b = (torch.rand(o, device=cuda, generator=gen) * 2 - 1) * bound
+    got = k1f.conv_in_relu(x, w, b)
+    plain = k1f.conv_in_relu_plain(x, w, b)
+    ref = k1f.conv_in_relu_plain(x.double(), w.double(), b.double())
+    kernel_err = float((got - ref).abs().max())
+    plain_err = float((plain - ref).abs().max())
+    print(f"\nK1f rows of {t} steps, {ci}->{o}: kernel vs f64 {kernel_err:.3g}, plain f32 "
+          f"vs f64 {plain_err:.3g}")
+    assert kernel_err <= ENVELOPE_FACTOR * plain_err
+    gb = k1f.conv_in_relu(x.bfloat16(), w.bfloat16(), b.bfloat16()).float()
+    wantb = k1f.conv_in_relu_plain(x.bfloat16().float(), w.bfloat16().float(),
+                                   b.bfloat16().float())
+    torch.testing.assert_close(gb, wantb, atol=BF16_TOL, rtol=1e-2)
+
+
+def test_continuous_forward_against_float64_at_a_whole_record(cuda):
+    """``models.cp.apply_continuous`` over 900,000 steps (an 1800-s record,
+    normalized to [0, 1)): 14 K1f launches, and the kernel path within
+    ENVELOPE_FACTOR times the plain f32 path's distance from float64."""
+    from scgrhc_torch.models.cp import apply_continuous
+
+    gen = Generator(4, torch.Generator().manual_seed(0)).to(cuda).eval()
+    x = torch.rand(1, 4, T_RECORD, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+    before = k1f.conv_in_relu.launches
+    with torch.inference_mode():
+        got = apply_continuous(gen, x)
+        torch.cuda.synchronize()
+        assert k1f.conv_in_relu.launches == before + 14
+        plain = apply_continuous(gen, x, block=plain_block)
+        ref = apply_continuous(gen.double(), x.double(), block=plain_block)
+    assert got.shape == (1, 1, T_RECORD) and torch.isfinite(got).all()
+    kernel_err = float((got - ref).abs().max())
+    plain_err = float((plain - ref).abs().max())
+    print(f"\ncontinuous forward at T={T_RECORD}: kernel path vs f64 {kernel_err:.3g}, plain "
+          f"f32 vs f64 {plain_err:.3g}")
+    assert kernel_err <= ENVELOPE_FACTOR * plain_err
+
+
+@pytest.mark.parametrize("n,ci,t,o,pad", [(2, 4, 750, 64, 1), (3, 3, 750, 64, 1),
+                                          (2, 512, 744, 256, 2), (1, 64, 5, 64, 1),
+                                          (4, 512, 744, 512, 1), (1, 5, 3, 7, 2)])
+def test_int8_conv_on_the_card_equals_the_cpu(cuda, n, ci, t, o, pad):
+    """``models.quant.int8_conv`` (``torch._int_mm``, cuBLASLt on the card)
+    equals the same product on the CPU in int32, bit for bit, at channel
+    counts that are no multiple of 8 and at 16 rows or fewer too."""
+    from scgrhc_torch.models.quant import int8_conv
+
+    g = torch.Generator().manual_seed(n * ci + t)
+    xq = torch.randint(-127, 128, (n, ci, t), generator=g, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (o, ci, 3), generator=g, dtype=torch.int8)
+    got = int8_conv(xq.to(cuda), wq.to(cuda), pad)
+    assert got.dtype == torch.int32 and got.shape == (n, o, t + 2 * pad - 2)
+    assert torch.equal(got.cpu(), int8_conv(xq, wq, pad))
+
+
+def test_int8_generator_on_the_card(cuda):
+    """The quantized generator on the card launches no K1f, and each
+    window's output is correlated with the f32 forward's above 0.9 (uniform
+    inputs, random weights, as tests/test_quant.py)."""
+    gen = Generator(4, torch.Generator().manual_seed(0)).to(cuda).eval()
+    x = torch.rand(8, 4, 750, device=cuda, generator=torch.Generator(cuda).manual_seed(2))
+    q = gen.cast(torch.int8)
+    before = k1f.conv_in_relu.launches
+    with torch.inference_mode():
+        yq = q(x)[:, 0].double().cpu().numpy()
+        assert k1f.conv_in_relu.launches == before
+        y = gen(x)[:, 0].double().cpu().numpy()
+    assert np.isfinite(yq).all()
+    assert min(np.corrcoef(a, b)[0, 1] for a, b in zip(y, yq)) > 0.9

@@ -123,7 +123,7 @@ def test_serve_defaults_to_cuda_and_refuses_without_it(exp_dir, monkeypatch):
         _serve(tserve, TParams(str(exp_dir / "params.json")), [{"cmd": "ping"}])
 
 
-@pytest.mark.parametrize("kw", [{"calibrate": True}, {"mesh": True}])
+@pytest.mark.parametrize("kw", [{"mesh": True}])
 def test_serve_flags_not_yet_ported(exp_dir, kw):
     from scgrhc_torch.pipeline import serve as tserve
 
@@ -131,7 +131,7 @@ def test_serve_flags_not_yet_ported(exp_dir, kw):
         _serve(tserve, TParams(str(exp_dir / "params.json")), [], device="cpu", **kw)
 
 
-@pytest.mark.parametrize("kw", [{"continuous": True}, {"calibrate": True}, {"mesh": True}])
+@pytest.mark.parametrize("kw", [{"mesh": True}])
 def test_predict_flags_not_yet_ported(exp_dir, kw):
     from scgrhc_torch.pipeline import predict
 
@@ -140,30 +140,13 @@ def test_predict_flags_not_yet_ported(exp_dir, kw):
                     device="cpu", **kw)
 
 
-@pytest.mark.parametrize(
-    "argv",
-    [["serve", "{d}", "--calibrate"], ["serve", "{d}", "last", "--mesh"],
-     ["predict", "{d}", "SYN000", "--continuous"]],
-)
+@pytest.mark.parametrize("argv", [["serve", "{d}", "last", "--mesh"],
+                                  ["predict", "{d}", "SYN000", "--mesh"]])
 def test_cli_flags_not_yet_ported(exp_dir, argv):
     from scgrhc_torch.__main__ import main
 
     with pytest.raises(SystemExit, match="not yet ported"):
         main([a.format(d=exp_dir) for a in argv])
-
-
-def test_serve_request_modes_not_yet_ported(exp_dir):
-    from scgrhc_torch.pipeline import serve as tserve
-
-    served, resp = _serve(
-        tserve, TParams(str(exp_dir / "params.json")),
-        [{"record": "SYN000", "continuous": True},
-         {"record": "SYN000", "calibrate": True}, {"cmd": "ping"}],
-        device="cpu",
-    )
-    assert served == 0
-    assert all("not yet ported" in r["error"] for r in resp[:2])
-    assert resp[2]["ok"] is True
 
 
 def test_cli_serve_on_cpu(exp_dir, monkeypatch, capsys):
