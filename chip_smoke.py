@@ -63,6 +63,16 @@ Then more phases:
     (busy share, the ten costliest device operations, the time in no
     kernel of the port, and that time by the autograd node that launched
     it);
+  * the host-side CLI (the ``cli`` phase): ``demo`` on 2 synthetic 60-s
+    records in process (the five training kernels counted from 0; without
+    matplotlib its figures are skipped with a line that says so),
+    ``export`` of its best checkpoint read back as ``torch.save`` and
+    through the port's loader, ``report`` over its root, waveform_07 (PA, 2
+    SCG channels) trained 1 epoch in f32 with ``channel_bucket`` off and on
+    (the port reads the key and ignores it, so the checkpoints must be
+    equal bit for bit), ``run_sweep`` in process on
+    waveform_23 and waveform_07 under ``train_profile: "fast"``, and
+    ``summary`` on the demo's database, each sub-phase's seconds printed;
   * the port's bench: each mode of ``python -m scgrhc_torch.bench`` as a
     process of its own (and ``--dtype int8`` in the inference and eval
     modes, ``--continuous`` in the stream mode), its one JSON line held
@@ -2564,6 +2574,182 @@ def int8_end_to_end(torch, smoke: Smoke, root: str, card: str) -> dict:
     return report
 
 
+# ---- the host-side CLI: demo, export, report, channel_bucket, sweep --fast, summary --------
+
+# The channel_bucket runs: waveform_07 of the sweep (PA, 2 SCG channels,
+# batch 64) on a synthetic database of 4 records x 120 s.
+BUCKET_RECORDS, BUCKET_SECONDS = 4, 120.0
+
+
+def cli_end_to_end(torch, smoke: Smoke, root: str, card: str) -> dict:
+    """The host-side CLI on the card: ``demo`` in process (the five training
+    kernels counted from 0), ``export`` of its best checkpoint read back
+    both ways, ``report`` over its root, waveform_07 trained with
+    ``channel_bucket`` off and on (equal checkpoints), ``run_sweep``
+    in process on waveform_23 and _07 under ``train_profile: "fast"``, and
+    ``summary`` on the demo's database."""
+    import contextlib
+    import importlib.util
+
+    from scgrhc_torch import summary
+    from scgrhc_torch.__main__ import main as cli
+    from scgrhc_torch.core import paths
+    from scgrhc_torch.core.params import Params
+    from scgrhc_torch.data import run as data_run
+    from scgrhc_torch.pipeline import demo, sweep
+    from scgrhc_torch.train import checkpoint as ckpt_io
+    from scgrhc_torch.train import run as train_run
+    from scgrhc_torch.utils.experiments import make_params_dict, write_experiments
+    from scgrhc_torch.utils.synth import make_synthetic_database
+
+    fns = {k: fn for k, fn in _kernel_counters().items() if k in TRAIN_KERNELS}
+    report, log = {}, io.StringIO()
+
+    def zero():
+        for fn in fns.values():
+            fn.launches = 0
+
+    def timed(what, fn):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        report.setdefault("seconds", {})[what] = secs
+        print(f"cli {what}: {secs:.2f} s on {card}", flush=True)
+        return out
+
+    # demo: the synthetic database, the pipeline on the card, the figures
+    mark = log.tell()
+    zero()
+    exp = timed("demo", lambda: demo.run(os.path.join(root, "demo"), epochs=1, n_records=2,
+                                         duration_s=60.0))
+    launches = {k: fn.launches for k, fn in fns.items()}
+    report["demo_launches"] = launches
+    smoke.check(all(v > 0 for v in launches.values()), f"demo: launches {launches}")
+    demo_out = log.getvalue()[mark:]
+    best_txt = os.path.join(exp, "checkpoint_best.txt")
+    smoke.check(os.path.exists(best_txt), "demo: no checkpoint_best.txt")
+    best = open(best_txt).read().split()[1] if os.path.exists(best_txt) else "?"
+    for split in ("valid", "test"):
+        smoke.check(os.path.exists(os.path.join(exp, "comparisons", split,
+                                                best.split(".")[0] + ".csv")),
+                    f"demo: no {split} comparison CSV for {best}")
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    skipped = "figures skipped" in demo_out
+    smoke.check(skipped == (not have_mpl),
+                f"demo: figures skipped {skipped} with matplotlib installed {have_mpl}")
+    print(f"cli demo: launches {launches}; best {best}; matplotlib installed {have_mpl}, "
+          f"figures skipped {skipped}", flush=True)
+
+    # export the best checkpoint; read it back as torch.save and through load
+    params = Params(os.path.join(exp, "params.json"))
+    src = os.path.join(params.checkpoint_dir_path, best)
+    out_path = os.path.join(exp, best + ".torch")
+    timed("export", lambda: cli(["export", exp, "best"]))
+    ck, exported = ckpt_io.load(src), torch.load(out_path, weights_only=False)
+    for k in ("g_state_dict", "d_state_dict"):
+        smoke.check(all(isinstance(v, torch.Tensor) and tuple(v.shape) == ck[k][p].shape
+                        for p, v in exported[k].items()) and exported[k].keys() == ck[k].keys(),
+                    f"export: {k} entries are not tensors of the checkpoint's shapes")
+    back = ckpt_io.load(out_path)
+    same = all(np.array_equal(back[k][p], v) for k in ("g_state_dict", "d_state_dict")
+               for p, v in ck[k].items()) and all(
+        np.array_equal(np.asarray(back[k]["state"][i][m]), s[m])
+        for k in ("g_optimizer_state_dict", "d_optimizer_state_dict")
+        for i, s in ck[k]["state"].items() for m in ("exp_avg", "exp_avg_sq"))
+    smoke.check(same and "format" not in exported, "export: read back differs")
+
+    # report over the demo's root
+    timed("report", lambda: cli(["report", os.path.join(root, "demo")]))
+    rows = _read_csv(os.path.join(root, "demo", "sweep_report.csv"))
+    smoke.check(len(rows) == 1 and rows[0]["checkpoint"] == best,
+                f"report: {[(r['experiment'], r['checkpoint']) for r in rows]}, best {best}")
+
+    # channel_bucket: waveform_07 (2 channels) 1 epoch in f32, key off and on
+    db = make_synthetic_database(os.path.join(root, "bucket_db"), n_records=BUCKET_RECORDS,
+                                 duration_s=BUCKET_SECONDS, seed=1)
+    paths.set_data_path(os.path.dirname(db))
+    runs = {}
+    for name, extra in (("off", {}), ("on", {"channel_bucket": True})):
+        d = os.path.join(root, f"bucket_{name}")
+        os.makedirs(d)
+        cfg = make_params_dict(7, "PA", ["patch_ACC_lat", "patch_ACC_hf"], total_epochs=1,
+                               seed=0, **extra)
+        cfg["dir_path"] = d
+        with open(os.path.join(d, "params.json"), "w") as f:
+            json.dump(cfg, f)
+        runs[name] = Params(os.path.join(d, "params.json"))
+    with contextlib.redirect_stdout(log):
+        data_run.run(runs["off"])
+    for f in ("loader_train.pickle", "loader_valid.pickle", "loader_test.pickle"):
+        shutil.copy(os.path.join(runs["off"].dir_path, f), os.path.join(runs["on"].dir_path, f))
+    for name in ("off", "on"):
+        zero()
+        timed(f"channel_bucket {name}", lambda: train_run.run(runs[name], plot=False))
+        report[f"bucket_{name}_launches"] = {k: fn.launches for k, fn in fns.items()}
+    off, on = (_ckpt(runs[n], 0) for n in ("off", "on"))
+    smoke.check(on["g_state_dict"]["enc1.0.weight"].shape == (64, 2, 3)
+                and on["d_state_dict"]["model.0.weight"].shape == (64, 3, 3),
+                "channel_bucket: the checkpoint is not at the true channel count")
+    max_diff = _max_state_diff(off, on)
+    losses_equal = off["g_losses"] == on["g_losses"] and off["d_losses"] == on["d_losses"]
+    print(f"channel_bucket on vs off, waveform_07 1 epoch f32 ({len(off['g_losses'])} steps): "
+          f"losses equal {losses_equal}, max weight/moment diff {max_diff:.3g} on {card}",
+          flush=True)
+    report["channel_bucket"] = {"losses_equal": losses_equal, "max_diff": max_diff}
+    smoke.check(losses_equal and max_diff == 0.0,
+                f"channel_bucket on vs off differ: {report['channel_bucket']}")
+
+    # sweep --fast: waveform_23 (1 channel) and waveform_07 (2), in process
+    dirs = [d for d in write_experiments(os.path.join(root, "sweep"), total_epochs=1,
+                                         train_profile="fast")
+            if d.endswith(("waveform_07", "waveform_23"))]
+    per_config = {}
+    real_inproc = sweep.run_experiment_inproc
+
+    def timed_inproc(d, device=None):
+        t0 = time.perf_counter()
+        code = real_inproc(d, device)
+        torch.cuda.synchronize()
+        per_config[os.path.basename(d)] = time.perf_counter() - t0
+        return code
+
+    sweep.run_experiment_inproc = timed_inproc
+    zero()
+    try:
+        codes = timed("sweep --fast", lambda: sweep.run_sweep(dirs, inproc=True))
+    finally:
+        sweep.run_experiment_inproc = real_inproc
+    launches = {k: fn.launches for k, fn in fns.items()}
+    smoke.check(all(v > 0 for v in launches.values()), f"sweep --fast: launches {launches}")
+    smoke.check(list(codes.values()) == [0, 0], f"sweep --fast: exit codes {codes}")
+    for d in dirs:
+        p = Params(os.path.join(d, "params.json"))
+        names = ckpt_io.list_checkpoints(p.checkpoint_dir_path)
+        c = len(p.in_channels)
+        shapes = (ckpt_io.load(os.path.join(p.checkpoint_dir_path, names[0]))["g_state_dict"]
+                  ["enc1.0.weight"].shape if names else None)
+        smoke.check(names == ["000.checkpoint"] and shapes == (64, c, 3),
+                    f"sweep --fast {os.path.basename(d)}: checkpoints {names}, enc1 {shapes}")
+    print("cli sweep --fast per config: " + ", ".join(f"{k} {v:.2f} s" for k, v in
+                                                      per_config.items())
+          + f"; launches {launches} on {card}", flush=True)
+    report.update(sweep_codes=codes, sweep_config_s=per_config, sweep_launches=launches)
+
+    # summary on the demo's database, without pandas
+    paths.set_data_path(os.path.join(root, "demo", "db"))
+    mark = log.tell()
+    timed("summary", summary.main)
+    text = log.getvalue()[mark:]
+    smoke.check(all(f"----- {s} -----" in text for s in ("All", "Male", "Female"))
+                and "pandas" not in sys.modules, "summary: sections missing or pandas imported")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_cli.log"), "w") as f:
+        f.write(log.getvalue())
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -2640,6 +2826,7 @@ def main() -> int:
         long = {"kernels": check_long_kernels(torch, smoke),
                 "serve": serve_long(torch, smoke, os.path.join(root, "long_serve"), card),
                 "train": train_long(torch, smoke, os.path.join(root, "long_train"), card)}
+        cli_phase = cli_end_to_end(torch, smoke, os.path.join(root, "cli"), card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     bench = bench_modes(smoke, card, kind)
@@ -2709,6 +2896,7 @@ def main() -> int:
                    "serve": serve, "continuous": whole, "calibrate": calibrated, "int8": int8,
                    "train": train, "pipeline": pipeline, "long_windows": long,
                    "loader_artifacts": artifacts, "trace": traced, "bench": bench,
+                   "cli": cli_phase,
                    "errors": smoke.errors}, f, indent=1)
     if smoke.errors:
         print(f"chip_smoke: {len(smoke.errors)} check(s) failed", file=sys.stderr)

@@ -1,10 +1,10 @@
 """CLI entry point: ``python -m scgrhc_torch <dir> | all | data | train |
-test | select | serve | predict ...``.
+test | select | serve | predict | export-loaders | export | report | plots |
+demo | sweep | summary ...``.
 
 Argument handling follows ``python -m scgrhc`` (``scgrhc/pipeline/run.py``),
-plus ``--device`` (default ``cuda``).  Subcommands and flags of ``scgrhc``
-that the port does not have yet are refused with a "not yet ported"
-message.
+plus ``--device`` (default ``cuda``) for the commands that touch a device.
+``--mesh`` is not yet ported and is refused.
 """
 
 from __future__ import annotations
@@ -27,15 +27,22 @@ USAGE = (
     "                                [--overlap S] [--continuous] [--calibrate]\n"
     "                                [--device D]\n"
     "       python -m scgrhc_torch export-loaders <dir> [out_dir]  (host only)\n"
-    "D is cuda (default) or cpu.  Not yet ported: sweep, report, plots, demo,\n"
-    "export, summary."
+    "       python -m scgrhc_torch export <dir> <ckpt|best|last> [out_path]  (host only)\n"
+    "       python -m scgrhc_torch report [root]           (host only)\n"
+    "       python -m scgrhc_torch plots <dir> <split> <ckpt|best> [n]  (host only)\n"
+    "       python -m scgrhc_torch demo [workdir] [--epochs N] [--records N]\n"
+    "                                [--seconds S] [--device D]\n"
+    "       python -m scgrhc_torch sweep [root] [--jobs N] [--epochs E] [--seed S]\n"
+    "                                [--train-mode M] [--fast] [--prune]\n"
+    "                                [--inproc|--subproc] [--device D]\n"
+    "       python -m scgrhc_torch summary                 (host only; SCGRHC_DATA)\n"
+    "D is cuda (default) or cpu."
 )
 
 _NOT_PORTED = {"--mesh": "mesh sharding (--mesh)"}
-_NOT_PORTED_COMMANDS = ("sweep", "report", "plots", "demo", "export", "summary")
 # subcommand: (arguments before the flags, including the subcommand)
 _MIN_ARGS = {"data": 2, "train": 2, "test": 4, "select": 2, "serve": 2, "predict": 3,
-             "export-loaders": 2}
+             "export-loaders": 2, "export": 3, "plots": 4}
 
 
 def _option(rest: list[str], flag: str, kind, default):
@@ -54,14 +61,70 @@ def _params(dir_name: str):
     return Params(os.path.join(dir_name, "params.json"))
 
 
+def _root_and_flags(argv: list[str], default: str) -> tuple[str, list[str]]:
+    """``[<cmd>, [root], flags...]`` → (root or ``default``, flags)."""
+    if len(argv) > 1 and not argv[1].startswith("--"):
+        return argv[1], argv[2:]
+    return default, argv[1:]
+
+
+def _flags(rest: list[str], cmd: str, spec: dict) -> dict:
+    """Parse ``--flag value`` and bare ``--flag`` options; ``spec`` maps a
+    flag to (key, kind) for one taking a value, or to (key, constant) for a
+    bare one.  An unknown flag exits, as ``scgrhc`` does."""
+    out, i = {}, 0
+    while i < len(rest):
+        if rest[i] not in spec:
+            raise SystemExit(f"unknown {cmd} flag {rest[i]}")
+        key, kind = spec[rest[i]]
+        if callable(kind):
+            try:
+                out[key] = kind(rest[i + 1])
+            except (IndexError, ValueError):
+                raise SystemExit(USAGE)
+            i += 2
+        else:
+            out[key] = kind
+            i += 1
+    return out
+
+
+_SWEEP_FLAGS = {"--jobs": ("jobs", int), "--epochs": ("total_epochs", int),
+                "--seed": ("seed", int), "--train-mode": ("train_mode", str),
+                "--prune": ("prune", True), "--inproc": ("inproc", True),
+                "--subproc": ("inproc", False), "--fast": ("train_profile", "fast"),
+                "--device": ("device", str)}
+_DEMO_FLAGS = {"--epochs": ("epochs", int), "--records": ("n_records", int),
+               "--seconds": ("duration_s", float), "--device": ("device", str)}
+
+
+def _sweep(argv: list[str]) -> int:
+    """``sweep [root] [flags]``: write the 32 configs of waveform_06..37
+    under root (default ``.``) and run them all (``scgrhc/pipeline/run.py:
+    50-114``).  ``train_mode`` defaults to "step" here, as in ``scgrhc``;
+    ``--fast`` sets ``train_profile: "fast"``, and the in-process runner is
+    the default at one job with ``--fast``."""
+    from scgrhc_torch.pipeline.sweep import run_sweep
+    from scgrhc_torch.utils.experiments import write_experiments
+
+    root, rest = _root_and_flags(argv, ".")
+    opts = _flags(rest, "sweep", _SWEEP_FLAGS)
+    jobs, prune, device = opts.pop("jobs", 1), opts.pop("prune", False), opts.pop("device", None)
+    inproc = opts.pop("inproc", None)
+    overrides = {"train_mode": "step", **opts}
+    if inproc is None:
+        inproc = jobs <= 1 and overrides.get("train_profile") == "fast"
+    dirs = write_experiments(root, **overrides)
+    results = run_sweep(dirs, jobs=jobs, inproc=inproc, prune=prune, device=device)
+    return 0 if all(c == 0 for c in results.values()) else 1
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
         print(USAGE)
         return 0
     cmd = argv[0]
-    if cmd in _NOT_PORTED_COMMANDS:
-        raise SystemExit(f"the {cmd} subcommand is not yet ported to scgrhc_torch")
     first = _MIN_ARGS.get(cmd, 1)
     if len(argv) < first or cmd.startswith("-"):
         raise SystemExit(USAGE)
@@ -69,8 +132,27 @@ def main(argv: list[str] | None = None) -> int:
     for flag, feature in _NOT_PORTED.items():
         if flag in rest:
             raise SystemExit(f"{feature} is not yet ported to scgrhc_torch")
-    device = _option(rest, "--device", str, None)
 
+    if cmd == "summary":
+        from scgrhc_torch.summary import main as summary_main
+
+        summary_main()
+        return 0
+    if cmd == "report":
+        from scgrhc_torch.pipeline import report
+
+        report.run(argv[1] if len(argv) > 1 else ".")
+        return 0
+    if cmd == "demo":
+        from scgrhc_torch.pipeline import demo
+
+        workdir, rest = _root_and_flags(argv, "scgrhc_demo")
+        demo.run(workdir, **_flags(rest, "demo", _DEMO_FLAGS))
+        return 0
+    if cmd == "sweep":
+        return _sweep(argv)
+
+    device = _option(rest, "--device", str, None)
     if cmd not in _MIN_ARGS:  # the pipeline on one dir, or the reference's `all`
         from scgrhc_torch.pipeline import run as pipeline_run
 
@@ -105,6 +187,26 @@ def main(argv: list[str] | None = None) -> int:
         out_dir = rest[0] if rest and not rest[0].startswith("--") else None
         for path in export_torch_loaders(params, out_dir):
             print(f"Exported {path}")
+    elif cmd == "export":
+        # re-encode a checkpoint as a torch.save file for the reference's
+        # tools; the default output lies OUTSIDE checkpoint_dir_path, where a
+        # .torch file would shadow the real checkpoint in the reference's
+        # reverse-lex resume sort (scgrhc/pipeline/run.py:142-169)
+        from scgrhc_torch.pipeline.predict import resolve_checkpoint
+        from scgrhc_torch.train import checkpoint as ckpt_io
+
+        name = resolve_checkpoint(params, argv[2])
+        src = os.path.join(params.checkpoint_dir_path, name)
+        out = rest[0] if rest and not rest[0].startswith("--") else os.path.join(
+            params.dir_path, name + ".torch")
+        ckpt_io.export_torch(src, out)
+        print(f"Exported {src} -> {out}")
+    elif cmd == "plots":
+        from scgrhc_torch.pipeline import plots
+        from scgrhc_torch.pipeline.predict import resolve_checkpoint
+
+        n = int(rest[0]) if rest and not rest[0].startswith("--") else 5
+        plots.run(params, argv[2], resolve_checkpoint(params, argv[3]), n=n)
     elif cmd == "serve":
         from scgrhc_torch.pipeline import serve
 

@@ -20,8 +20,10 @@ accepted and ignored: ``scgrhc`` stacks checkpoints under ``vmap``, which
 cannot pass through K1f's ctypes launch, so in the port a stack would be
 the same per-checkpoint forwards in a loop, the serial path's bits.
 
-Not yet ported, and refused: Orbax checkpoints, ``shape_bucket`` and
-``channel_bucket``.
+``channel_bucket`` and ``shape_bucket`` are read and ignored, as in
+training (:mod:`scgrhc_torch.train.run`): they pad to fixed shapes so that
+XLA's programs are shared, and the port's kernels need no fixed shapes.
+Not yet ported, and refused: Orbax checkpoints.
 """
 
 from __future__ import annotations
@@ -96,12 +98,6 @@ def _write_comparison_csv(comparisons, comp_dir_path, ckpt_name) -> None:
     write_csv(path, CSV_COLUMNS, comparisons)
 
 
-def _refuse_unported(params) -> None:
-    for key in ("shape_bucket", "channel_bucket"):
-        if getattr(params, key, False):
-            raise NotImplementedError(f"{key} is not yet ported to scgrhc_torch")
-
-
 def _load_generator(params, ckpt_name):
     """A checkpoint's generator on the CPU (the load-ahead thread's part);
     an Orbax checkpoint raises."""
@@ -123,7 +119,6 @@ def run(params, loader_type: str, checkpoint_path: str, device=None) -> None:
     checkpoint_message = f"{checkpoint_path if checkpoint_path else 'last checkpoint'}"
     print(timelog(f"Run waveform_test for {params.dir_path} | {loader_type} | "
                   f"{checkpoint_message}", start_time))
-    _refuse_unported(params)
     dev = resolve_device(device)
 
     if loader_type == "train":

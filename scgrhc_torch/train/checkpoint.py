@@ -217,3 +217,26 @@ def restore(ckpt: dict, cfg, in_channels: int, device):
     _load_adam(g_opt, ckpt.get("g_optimizer_state_dict"))
     _load_adam(d_opt, ckpt.get("d_optimizer_state_dict"))
     return TrainState(g, d, g_opt, d_opt)
+
+
+def _cpu_tensor(v) -> torch.Tensor:
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().contiguous()
+    return torch.from_numpy(np.ascontiguousarray(v))
+
+
+def export_torch(ckpt_path: str, out_path: str) -> None:
+    """Re-encode a checkpoint (native pickle or reference zip) as a
+    ``torch.save`` file the reference scripts load: state dicts and Adam
+    moments as CPU tensors, no ``format`` key
+    (``scgrhc/train/checkpoint.py:409-423``)."""
+    ckpt = load(ckpt_path)
+    ckpt.pop("format", None)
+    for k in ("g_state_dict", "d_state_dict"):
+        ckpt[k] = {kk: _cpu_tensor(vv) for kk, vv in ckpt[k].items()}
+    for k in ("g_optimizer_state_dict", "d_optimizer_state_dict"):
+        if k in ckpt:
+            for pstate in ckpt[k]["state"].values():
+                for kk in ("exp_avg", "exp_avg_sq"):
+                    pstate[kk] = _cpu_tensor(pstate[kk])
+    torch.save(ckpt, out_path)

@@ -18,8 +18,21 @@ epoch, batch index) (:func:`scgrhc_torch.train.wgan.step_rng`), so they
 draw the same masks and eps, and so does a run resumed from any epoch, in
 the same process or a new one: their checkpoints agree bit for bit, on
 the CPU and on the card.
-``shape_bucket``, ``channel_bucket``, ``checkpoint_backend: "orbax"``, an
-``rng_impl`` other than threefry and a multi-process launch are not yet
+
+The keys of ``train_profile: "fast"`` that ``scgrhc`` needs for XLA are
+read and change nothing here, so a run trains and saves what it does with
+them off:
+
+  * ``channel_bucket`` and ``shape_bucket`` pad the SCG channels to 4 and
+    a short batch (and the epoch scan's rows) to fixed sizes so that the
+    sweep's configs share compiled XLA programs.  The port launches its
+    kernels at any shape and has no programs to share, so padding would
+    only add work.
+  * ``rng_impl`` (``"threefry"``, ``"rbg"``, ``"unsafe_rbg"``) picks JAX's
+    generator in ``scgrhc``.  The port draws from ``torch.Generator``
+    under every impl: draws cannot match across frameworks anyway.
+
+``checkpoint_backend: "orbax"`` and a multi-process launch are not yet
 ported and raise.  ``plot_async`` is read for compatibility only.
 """
 
@@ -59,16 +72,14 @@ def _plot_losses(g_losses, d_losses, epoch, total_epochs, batch, n_batches, dir_
     plt.close()
 
 
+RNG_IMPLS = ("threefry", "rbg", "unsafe_rbg")
+
+
 def _refuse_unported(params) -> None:
-    for key in ("shape_bucket", "channel_bucket"):
-        if getattr(params, key, False):
-            raise NotImplementedError(f"{key} is not yet ported to scgrhc_torch")
+    if getattr(params, "rng_impl", "threefry") not in RNG_IMPLS:
+        raise ValueError(f"rng_impl must be one of {RNG_IMPLS}, got {params.rng_impl!r}")
     if getattr(params, "checkpoint_backend", "reference") == "orbax":
         raise NotImplementedError("checkpoint_backend 'orbax' is not yet ported to scgrhc_torch")
-    if getattr(params, "rng_impl", "threefry") != "threefry":
-        raise NotImplementedError(
-            f"rng_impl {params.rng_impl!r} is not yet ported to scgrhc_torch (threefry only)"
-        )
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError(
             "training over more than one device is not yet ported to scgrhc_torch"

@@ -36,7 +36,9 @@ def test_port_imports_pull_in_no_jax():
     assert "scgrhc_torch.pipeline.serve" in res["imported"]
     assert "scgrhc_torch.ops.kernels.conv_block" in res["imported"]
     for name in ("scgrhc_torch.ops.kernels.dsp", "scgrhc_torch.pipeline.run",
-                 "scgrhc_torch.select.run"):
+                 "scgrhc_torch.select.run", "scgrhc_torch.summary",
+                 "scgrhc_torch.pipeline.sweep", "scgrhc_torch.pipeline.report",
+                 "scgrhc_torch.pipeline.plots", "scgrhc_torch.pipeline.demo"):
         assert name in res["imported"]
     assert res["bad"] == []
 

@@ -468,8 +468,7 @@ def test_jax_checkpoint_resumes_training_in_port(tmp_path):
     assert ck["g_optimizer_state_dict"]["state"][0]["step"] == 3 + 3
 
 
-@pytest.mark.parametrize("key,value", [("shape_bucket", True), ("channel_bucket", True),
-                                       ("checkpoint_backend", "orbax"), ("rng_impl", "rbg")])
+@pytest.mark.parametrize("key,value", [("checkpoint_backend", "orbax")])
 def test_unported_training_keys_raise(tmp_path, key, value):
     exp = _experiment(tmp_path, "refused", **{key: value})
     with pytest.raises(NotImplementedError, match="not yet ported"):
