@@ -73,6 +73,16 @@ Then more phases:
     equal bit for bit), ``run_sweep`` in process on
     waveform_23 and waveform_07 under ``train_profile: "fast"``, and
     ``summary`` on the demo's database, each sub-phase's seconds printed;
+  * the data axis (the ``dist`` phase): ``torchrun --nproc-per-node=2 -m
+    scgrhc_torch <dir> --device cuda:0`` on the pipeline's configuration,
+    both ranks on this card over gloo (NCCL refuses two ranks on one
+    device), against the pipeline phase's run at world size 1 (the loader
+    files and record log equal, rank 1 writing nothing, each rank's kernel
+    launches, the weights after 2 epochs within a bound, both wall times:
+    two ranks sharing one card is no scaling figure); DP steps over NCCL
+    in a world of one rank, equal bit for bit to the steps with no process
+    group; ``predict <dir> LONG030 last --mesh`` (1200 windows) at world
+    size 2 over gloo against world size 1, both timed;
   * the port's bench: each mode of ``python -m scgrhc_torch.bench`` as a
     process of its own (and ``--dtype int8`` in the inference and eval
     modes, ``--continuous`` in the stream mode), its one JSON line held
@@ -1243,11 +1253,12 @@ def _pinned_step(torch, dev, dtype, inputs, n_critic: int, reverse_critic: bool 
     state.generator.to(dtype)
     state.critic.to(dtype)
 
-    def apply(opt, params, loss):
+    def apply(opt, params, loss, reduce=None):
         sign = -1.0 if reverse_critic and opt is state.d_opt else 1.0
         for p, g in zip(params, torch.autograd.grad(loss, params)):
             p.grad = sign * g
         opt.step()
+        return loss.detach()
 
     seams = (gen_mod.dropout, wgan._draw_eps, wgan._apply)
     gen_mod.dropout, wgan._draw_eps, wgan._apply = dropout, draw_eps, apply
@@ -2750,6 +2761,304 @@ def cli_end_to_end(torch, smoke: Smoke, root: str, card: str) -> dict:
     return report
 
 
+# ---- the data axis: two ranks on one card, and NCCL at world size 1 ------------
+
+# One rank of a world that torchrun launched: the kernel launch counts set to
+# 0 just before each run of ``python -m scgrhc_torch <argv>`` (``reps`` runs in
+# one process group; with one run the CLI joins the group itself, from
+# torchrun's environment), the files the rank wrote under <exp> (an audit
+# hook) and each run's seconds, written as JSON to <out>.<rank>.
+_DIST_PROC = r"""
+import importlib, json, os, sys, time
+out, exp, kernels, reps = sys.argv[1], sys.argv[2], json.loads(sys.argv[3]), int(sys.argv[4])
+argv = sys.argv[5:]
+writes = []
+def audit(event, args):
+    if event in ("open", "os.rename", "os.replace", "os.remove"):
+        path = str(args[0])
+        if path.startswith(exp + os.sep) and (event != "open" or args[1] is None
+                                              or any(c in args[1] for c in "wax+")):
+            writes.append(os.path.relpath(path, exp))
+sys.addaudithook(audit)
+import torch
+from scgrhc_torch.__main__ import main
+from scgrhc_torch.parallel import comm
+fns = {k: getattr(importlib.import_module("scgrhc_torch.ops.kernels." + m), k)
+       for k, m in kernels.items()}
+if reps > 1:
+    comm.init_distributed(device=argv[argv.index("--device") + 1])
+secs, launches = [], []
+for _ in range(reps):
+    for fn in fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rc = main(argv)
+    torch.cuda.synchronize()
+    secs.append(time.perf_counter() - t0)
+    launches.append({k: fn.launches for k, fn in fns.items()})
+rank = int(os.environ["RANK"])
+comm.destroy()
+with open(f"{out}.{rank}", "w") as f:
+    json.dump({"rank": rank, "rc": rc, "secs": secs, "launches": launches, "writes": writes}, f)
+"""
+# ``predict --mesh`` at world size 2 against world size 1 on the same card:
+# each rank runs blocks of 256 windows where one process runs 512, and the
+# plain ops on the path (cuDNN's attention and upsampling convs) may take
+# other algorithms at other batch sizes; outputs are O(1).
+TOL_MESH = 1e-4
+# The pipeline's first critic loss at world size 2 against world size 1:
+# one forward, its batch mean summed in two halves and all-reduced.
+TOL_DIST_LOSS0 = 1e-5  # relative
+# The pipeline's weights after 2 epochs (68 steps) at world size 2 against
+# world size 1: the cross-process gradient sum adds the two halves in
+# another order, the trajectories part at f32 rounding from the first
+# update and the WGAN dynamics amplify it.  Reading 6.7e-3 on an H100 (the
+# first critic loss equal); the bound is 3x.
+TOL_DIST_WEIGHTS = 2e-2
+DIST_STEPS = 3  # the steps held bit for bit over NCCL at world size 1
+
+
+def _torchrun(root: str, name: str, exp: str, argv: list[str], env: dict,
+              reps: int = 1, timeout: float = 600) -> tuple[list[dict], float, str]:
+    """``torchrun --standalone --nproc-per-node=2`` of _DIST_PROC: each rank's
+    record, the wall time (process start included) and the log; every
+    process of the launch is killed if it runs over ``timeout``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(root, "dist_proc.py")
+    with open(script, "w") as f:
+        f.write(_DIST_PROC)
+    out = os.path.join(root, f"dist_{name}")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node=2",
+           script, out, exp, json.dumps(ALL_KERNELS), str(reps), *argv]
+    env = dict(os.environ, PYTHONPATH=here, **env)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        log = proc.communicate(timeout=timeout)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        log = proc.communicate()[0] + f"\nkilled after {timeout} s"
+    wall = time.perf_counter() - t0
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, f"chip_smoke_dist_{name}.log"), "w") as f:
+        f.write(log)
+    ranks = []
+    if proc.returncode == 0:
+        for r in range(2):
+            with open(f"{out}.{r}") as f:
+                ranks.append(json.load(f))
+    return ranks, wall, log
+
+
+def dist_pipeline(torch, smoke: Smoke, root: str, card: str, world_one: dict) -> dict:
+    """``torchrun --nproc-per-node=2 -m scgrhc_torch <dir> --device cuda:0``:
+    the pipeline experiment's configuration (4 records x 1800 s, 2 epochs)
+    at world size 2, both ranks on this card over gloo, against the
+    pipeline phase's world-size-1 run of the same experiment."""
+    from scgrhc_torch.core.params import Params
+    from scgrhc_torch.train import checkpoint as ckpt_io
+    from scgrhc_torch.train.wgan import TrainConfig, launches_per_step
+
+    one = Params(os.path.join(root, "pipeline", "params.json"))
+    d = os.path.join(root, "dist")
+    os.makedirs(d)
+    two = Params(_write_params(d, total_epochs=2, eval_stack=8, eval_batch=N_EVAL, seed=0,
+                               data_backend="device"))
+    ranks, wall, log = _torchrun(root, "pipeline", d, [d, "--device", "cuda:0"],
+                                 {"SCGRHC_DATA": os.path.join(root, "db")})
+    if not smoke.check(len(ranks) == 2 and all(r["rc"] == 0 for r in ranks),
+                       f"torchrun -m scgrhc_torch <dir> at world size 2:\n{log[-3000:]}"):
+        return {"wall_s": wall}
+    smoke.check("2 rank(s) over gloo" in log, "the world of two ranks on one card is not gloo's")
+    # the loader files and record log (rank 0 built them), and who wrote
+    for name in ("loader_train.pickle", "loader_valid.pickle", "loader_test.pickle"):
+        with open(os.path.join(one.dir_path, name), "rb") as f1, \
+                open(os.path.join(d, name), "rb") as f2:
+            smoke.check(f1.read() == f2.read(), f"dist pipeline: {name} differs from world 1's")
+    logs = [open(os.path.join(p, "record_log.txt")).read().splitlines()[1:]
+            for p in (one.dir_path, d)]
+    smoke.check(logs[0] == logs[1], f"dist pipeline: record_log.txt {logs}")
+    smoke.check(ranks[1]["writes"] == [], f"rank 1 wrote {ranks[1]['writes'][:5]}")
+    smoke.check("checkpoint_best.txt" in ranks[0]["writes"], "rank 0 wrote no checkpoint_best.txt")
+    # the launches of each rank: every training step on both ranks (each its
+    # block), one generator forward per eval chunk on both, K3 on rank 0
+    counts = {k: len(v) for k, v in _loader_counts(two).items()}
+    steps = 2 * math.ceil(counts["train"] / N_TRAIN)
+    per_step = launches_per_step(TrainConfig.from_params(two))
+    chunks = 2 * math.ceil(counts["valid"] / N_EVAL) + math.ceil(counts["test"] / N_EVAL)
+    for r, rec in enumerate(ranks):
+        want = {k: per_step.get(k, 0) * steps for k in ALL_KERNELS}
+        want["conv_in_relu"] += 14 * chunks
+        want["gate_and_normalize"] = PIPELINE_RECORDS if r == 0 else 0
+        smoke.check(rec["launches"][0] == want,
+                    f"dist pipeline rank {r}: launches {rec['launches'][0]}, expected {want}")
+    # the trained weights and losses against world size 1
+    a, b = (ckpt_io.load(os.path.join(p.checkpoint_dir_path, "001.checkpoint"))
+            for p in (one, two))
+    weights = max(float(np.abs(a[k][p] - b[k][p]).max())
+                  for k in ("g_state_dict", "d_state_dict") for p in a[k])
+    loss0 = abs(b["d_losses"][0] - a["d_losses"][0]) / abs(a["d_losses"][0])
+    smoke.check(np.isfinite(b["g_losses"] + b["d_losses"]).all(), "dist pipeline: non-finite loss")
+    smoke.check(loss0 <= TOL_DIST_LOSS0, f"dist pipeline: first critic loss rel {loss0}")
+    smoke.check(weights <= TOL_DIST_WEIGHTS, f"dist pipeline: weights max-abs {weights}")
+    print(f"dist pipeline: torchrun --nproc-per-node=2 -m scgrhc_torch <dir> --device cuda:0 "
+          f"(2 ranks on one card over gloo) in {wall:.1f} s, world size 1 in "
+          f"{world_one.get('wall_s', math.nan):.1f} s (process start included; two ranks "
+          f"sharing one card is a rehearsal of the data axis, not a scaling figure); "
+          f"launches rank 0 {ranks[0]['launches'][0]}, rank 1 {ranks[1]['launches'][0]}; "
+          f"rank 1 wrote {len(ranks[1]['writes'])} files, rank 0 {len(ranks[0]['writes'])}; "
+          f"loader files equal; first critic loss rel {loss0:.3g}; weights after 2 epochs "
+          f"max-abs {weights:.3g} from world size 1; on {card}", flush=True)
+    return {"wall_s": wall, "world_one_wall_s": world_one.get("wall_s"), "steps": steps,
+            "launches": [r["launches"][0] for r in ranks],
+            "writes": [len(r["writes"]) for r in ranks], "loss0_rel": loss0,
+            "weights_max_abs": weights}
+
+
+def _loader_counts(params) -> dict:
+    from scgrhc_torch.data.loaders import load_dataloader
+
+    return {k: load_dataloader(getattr(params, f"{k}_path")).dataset.record_names
+            for k in ("train", "valid", "test")}
+
+
+def nccl_world_one(torch, smoke: Smoke, root: str, card: str) -> dict:
+    """DIST_STEPS training steps at B = 32 through ``DataParallelTrainer`` in
+    a world of one rank over NCCL (its collectives on the card), held bit
+    for bit to the same steps with no process group, run before (a warm-up)
+    and after (timed beside them); the comm helpers' collectives on CUDA
+    tensors."""
+    from scgrhc_torch.parallel import comm
+    from scgrhc_torch.parallel.dp import DataParallelTrainer
+    from scgrhc_torch.parallel.mesh import make_mesh
+    from scgrhc_torch.train.wgan import (TrainConfig, init_state, launches_per_step, step_rng,
+                                         train_step)
+
+    cfg = TrainConfig(n_critic=N_CRITIC, alpha=ALPHA)
+    rng = np.random.default_rng(5)
+    scg = torch.from_numpy(rng.random((N_TRAIN, len(CHANNELS), T), dtype=np.float32)).cuda()
+    rhc = torch.from_numpy(rng.random((N_TRAIN, 1, T), dtype=np.float32)).cuda()
+    rows = torch.arange(N_TRAIN, device="cuda")
+    fns = _kernel_counters()
+
+    def steps(trainer):
+        state = init_state(0, len(CHANNELS), cfg, "cuda")
+        if trainer is not None:
+            trainer.place_state(state)
+        for fn in fns.values():
+            fn.launches = 0
+        losses = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(DIST_STEPS):
+            g = step_rng(0, 0, i, "cuda")
+            d, gl = (train_step(state, scg, rhc, g, cfg) if trainer is None
+                     else trainer.step(state, scg, rhc, rows, g, cfg))
+            losses.append(torch.cat((d, gl[None])))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / DIST_STEPS * 1e3
+        tensors = [*state.generator.parameters(), *state.critic.parameters()]
+        for opt in (state.g_opt, state.d_opt):
+            tensors += [v for s in opt.state.values() for v in s.values() if torch.is_tensor(v)]
+        return tensors, torch.stack(losses), ms, {k: fn.launches for k, fn in fns.items()}
+
+    plain, plain_losses, _, _ = steps(None)
+    comm.init_distributed(f"file://{os.path.join(root, 'nccl_store')}", 1, 0)
+    try:
+        backend = torch.distributed.get_backend()
+        x = torch.arange(6.0, device="cuda")
+        gathered = comm.all_gather(x.clone())
+        collectives = (torch.equal(gathered, x) and torch.equal(comm.all_reduce_sum(x.clone()), x)
+                       and torch.equal(comm.broadcast(x.clone()), x)
+                       and comm.on_primary("x", lambda: 1) == 1)
+        comm.barrier("nccl")
+        dp, dp_losses, dp_ms, launches = steps(DataParallelTrainer(make_mesh()))
+    finally:
+        comm.destroy()
+    again, again_losses, plain_ms, _ = steps(None)
+    same = all(len(x) == len(plain) and all(torch.equal(a, b) for a, b in zip(x, plain))
+               and torch.equal(losses, plain_losses)
+               for x, losses in ((dp, dp_losses), (again, again_losses)))
+    want = {k: v * DIST_STEPS for k, v in launches_per_step(cfg).items()}
+    smoke.check(backend == "nccl", f"world of one: backend {backend}")
+    smoke.check(collectives, "NCCL at world size 1: a collective changed its input")
+    smoke.check(same, "DP steps over NCCL at world size 1 differ from the steps with no group")
+    smoke.check(all(launches[k] == v for k, v in want.items()),
+                f"DP steps over NCCL: launches {launches}, expected {want}")
+    print(f"nccl: {DIST_STEPS} DP steps at B = {N_TRAIN} in a world of one rank over {backend}, "
+          f"{'equal' if same else 'NOT equal'} bit for bit (weights, Adam state, losses) to the "
+          f"same steps with no process group; {dp_ms:.1f} ms a step against {plain_ms:.1f}; "
+          f"launches {launches}; NCCL at two or more cards: unverified (one card here); "
+          f"on {card}", flush=True)
+    return {"backend": backend, "equal": same, "ms_per_step": dp_ms,
+            "plain_ms_per_step": plain_ms, "launches": launches}
+
+
+def dist_predict(torch, smoke: Smoke, root: str, card: str, serve_exp: str) -> dict:
+    """``predict <dir> LONG030 last --mesh`` (1800 s, 1200 windows in chunks
+    of 512, 512 and 176) at world size 2 (torchrun, both ranks on this card
+    over gloo, two runs in one group) against world size 1 in this process
+    (``--mesh`` a mesh of one), both timed warm."""
+    from scgrhc_torch.core import paths
+    from scgrhc_torch.core.params import Params
+    from scgrhc_torch.pipeline import predict
+
+    data_root = os.path.join(os.path.dirname(serve_exp), "db")
+    paths.set_data_path(data_root)
+    params = Params(os.path.join(serve_exp, "params.json"))
+    fns = _kernel_counters()
+    one_ms = []
+    for _ in range(2):
+        for fn in fns.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        path = predict.run(params, "LONG030", "last", mesh=True, device="cuda",
+                           out_dir=os.path.join(root, "dist_one"))
+        torch.cuda.synchronize()
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+    one_launches = {k: fn.launches for k, fn in fns.items() if fn.launches}
+    want = np.load(path)
+    argv = ["predict", serve_exp, "LONG030", "last", "--mesh", "--device", "cuda:0"]
+    ranks, wall, log = _torchrun(root, "predict", serve_exp, argv, {"SCGRHC_DATA": data_root},
+                                 reps=2)
+    if not smoke.check(len(ranks) == 2 and all(r["rc"] == 0 for r in ranks),
+                       f"torchrun -m scgrhc_torch predict --mesh:\n{log[-3000:]}"):
+        return {"wall_s": wall}
+    got = np.load(os.path.join(serve_exp, "predictions", "LONG030.npy"))
+    err = float(np.abs(got - want).max()) if got.shape == want.shape else math.inf
+    smoke.check(got.shape == want.shape == (1200 * T,), f"predict --mesh: shape {got.shape}")
+    smoke.check(err <= TOL_MESH, f"predict --mesh at world size 2 against 1: {err}")
+    smoke.check(ranks[1]["writes"] == [], f"predict --mesh: rank 1 wrote {ranks[1]['writes']}")
+    smoke.check("predictions/LONG030.npy" in ranks[0]["writes"], "predict --mesh: no .npy")
+    for r, rec in enumerate(ranks):
+        got_l = {k: v for k, v in rec["launches"][-1].items() if v}
+        smoke.check(got_l == {"conv_in_relu": 42, "normalize_windows": 3},
+                    f"predict --mesh rank {r}: launches {got_l}")
+    two_ms = [s * 1e3 for s in ranks[0]["secs"]]
+    print(f"dist predict --mesh: LONG030 (1800 s, 1200 windows), world size 2 (2 ranks on one "
+          f"card over gloo) {two_ms[-1]:.1f} ms warm ({two_ms[0]:.1f} cold, the launch "
+          f"{wall:.1f} s with process start), world size 1 {one_ms[-1]:.1f} ms warm; max-abs "
+          f"{err:.3g} (tol {TOL_MESH:g}); launches a rank {ranks[0]['launches'][-1]}, world 1 "
+          f"{one_launches}; rank 1 wrote nothing; on {card}", flush=True)
+    return {"world_two_ms": two_ms, "world_one_ms": one_ms, "launch_wall_s": wall,
+            "max_abs_err": err, "launches": [r["launches"][-1] for r in ranks]}
+
+
+def dist_end_to_end(torch, smoke: Smoke, root: str, card: str, world_one: dict,
+                    serve_exp: str) -> dict:
+    """The data axis on one card (module doc): the pipeline and ``predict
+    --mesh`` at world size 2 over gloo, and DP steps over NCCL at world size
+    1."""
+    t0 = time.perf_counter()
+    out = {"pipeline": dist_pipeline(torch, smoke, root, card, world_one),
+           "nccl": nccl_world_one(torch, smoke, root, card),
+           "predict": dist_predict(torch, smoke, root, card, serve_exp)}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"dist phase: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2827,6 +3136,8 @@ def main() -> int:
                 "serve": serve_long(torch, smoke, os.path.join(root, "long_serve"), card),
                 "train": train_long(torch, smoke, os.path.join(root, "long_train"), card)}
         cli_phase = cli_end_to_end(torch, smoke, os.path.join(root, "cli"), card)
+        dist = dist_end_to_end(torch, smoke, os.path.join(root, "pipeline"), card, pipeline,
+                               serve["exp"])
     finally:
         shutil.rmtree(root, ignore_errors=True)
     bench = bench_modes(smoke, card, kind)
@@ -2896,7 +3207,7 @@ def main() -> int:
                    "serve": serve, "continuous": whole, "calibrate": calibrated, "int8": int8,
                    "train": train, "pipeline": pipeline, "long_windows": long,
                    "loader_artifacts": artifacts, "trace": traced, "bench": bench,
-                   "cli": cli_phase,
+                   "cli": cli_phase, "dist": dist,
                    "errors": smoke.errors}, f, indent=1)
     if smoke.errors:
         print(f"chip_smoke: {len(smoke.errors)} check(s) failed", file=sys.stderr)

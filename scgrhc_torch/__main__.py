@@ -4,7 +4,15 @@ demo | sweep | summary ...``.
 
 Argument handling follows ``python -m scgrhc`` (``scgrhc/pipeline/run.py``),
 plus ``--device`` (default ``cuda``) for the commands that touch a device.
-``--mesh`` is not yet ported and is refused.
+
+Over N cards, one process per card: ``torchrun --nproc-per-node=N -m
+scgrhc_torch <dir>`` (or any launcher that sets ``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``).  The CLI then joins
+the process group first (:func:`scgrhc_torch.parallel.comm.init_distributed`,
+whose backend follows ``--device``) and leaves it on exit.  ``serve
+--mesh``, serving from more than one rank, ``predict --continuous`` over
+more than one rank and the host-side commands over more than one rank
+(``_SINGLE_RANK``) are not yet ported and are refused.
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ USAGE = (
     "                                [--warm N] [--timeout S] [--device D]\n"
     "       python -m scgrhc_torch predict <dir> <record> [ckpt|best|last]\n"
     "                                [--overlap S] [--continuous] [--calibrate]\n"
-    "                                [--device D]\n"
+    "                                [--mesh] [--device D]\n"
     "       python -m scgrhc_torch export-loaders <dir> [out_dir]  (host only)\n"
     "       python -m scgrhc_torch export <dir> <ckpt|best|last> [out_path]  (host only)\n"
     "       python -m scgrhc_torch report [root]           (host only)\n"
@@ -36,10 +44,10 @@ USAGE = (
     "                                [--train-mode M] [--fast] [--prune]\n"
     "                                [--inproc|--subproc] [--device D]\n"
     "       python -m scgrhc_torch summary                 (host only; SCGRHC_DATA)\n"
-    "D is cuda (default) or cpu."
+    "D is cuda (default) or cpu.  Over N cards: torchrun --nproc-per-node=N -m\n"
+    "scgrhc_torch ...; D is then each rank's own card (or cuda:0 to share one)."
 )
 
-_NOT_PORTED = {"--mesh": "mesh sharding (--mesh)"}
 # subcommand: (arguments before the flags, including the subcommand)
 _MIN_ARGS = {"data": 2, "train": 2, "test": 4, "select": 2, "serve": 2, "predict": 3,
              "export-loaders": 2, "export": 3, "plots": 4}
@@ -98,6 +106,26 @@ _DEMO_FLAGS = {"--epochs": ("epochs", int), "--records": ("n_records", int),
                "--seconds": ("duration_s", float), "--device": ("device", str)}
 
 
+# one process each: over several ranks every rank would write the same files
+_SINGLE_RANK = ("demo", "sweep", "summary", "report", "plots", "export", "export-loaders")
+
+
+def _refusal(cmd: str, rest: list[str]) -> str | None:
+    """What of this command line is not yet ported, or None."""
+    from scgrhc_torch.parallel import comm
+
+    world = comm.process_count()
+    if cmd == "serve" and ("--mesh" in rest or world > 1):
+        from scgrhc_torch.pipeline.serve import SERVE_MESH
+
+        return SERVE_MESH
+    if cmd == "predict" and "--continuous" in rest and world > 1:
+        return "continuous prediction over more than one rank (models.cp.apply_cp)"
+    if cmd in _SINGLE_RANK and world > 1:
+        return f"{cmd} over more than one rank"
+    return None
+
+
 def _sweep(argv: list[str]) -> int:
     """``sweep [root] [flags]``: write the 32 configs of waveform_06..37
     under root (default ``.``) and run them all (``scgrhc/pipeline/run.py:
@@ -128,10 +156,28 @@ def main(argv: list[str] | None = None) -> int:
     first = _MIN_ARGS.get(cmd, 1)
     if len(argv) < first or cmd.startswith("-"):
         raise SystemExit(USAGE)
-    rest = argv[first:]
-    for flag, feature in _NOT_PORTED.items():
-        if flag in rest:
-            raise SystemExit(f"{feature} is not yet ported to scgrhc_torch")
+    from scgrhc_torch.parallel import comm
+
+    device = _option(argv, "--device", str, None)
+    created = comm.init_distributed(device=device)
+    try:
+        if created and device != "cpu":
+            # every rank builds (or loads) the kernels before any stage, so
+            # that no rank's first build runs while another waits for it in
+            # a collective
+            from scgrhc_torch.ops.kernels import _build
+
+            _build.build()
+        return _main(cmd, argv, argv[first:])
+    finally:
+        if created:
+            comm.destroy()
+
+
+def _main(cmd: str, argv: list[str], rest: list[str]) -> int:
+    feature = _refusal(cmd, rest)
+    if feature is not None:
+        raise SystemExit(f"{feature} is not yet ported to scgrhc_torch")
 
     if cmd == "summary":
         from scgrhc_torch.summary import main as summary_main
@@ -223,7 +269,7 @@ def main(argv: list[str] | None = None) -> int:
             params, argv[2], checkpoint=which,
             overlap_s=_option(rest, "--overlap", float, 0.0),
             continuous="--continuous" in rest, calibrate="--calibrate" in rest,
-            device=device,
+            mesh="--mesh" in rest, device=device,
         )
     return 0
 

@@ -133,11 +133,31 @@ class Params:
 
     @staticmethod
     def _draw_seed() -> int:
-        """One random seed for an unseeded run.
+        """One random seed for an unseeded run, agreed across the ranks.
 
-        Single-process only: agreeing on one seed across the processes of
-        a distributed run is the parallel tier's work and is not ported."""
-        return random.SystemRandom().randrange(2**31)
+        Under a process group every rank adopts rank 0's draw, or the
+        replicas' inits and shuffles would quietly diverge; the group
+        (``torch.distributed``, which ``scgrhc_torch.parallel.comm.
+        init_distributed`` starts) must therefore exist before
+        ``Params(...)``.  A launch whose environment names a world
+        (``WORLD_SIZE`` > 1) while no group is up raises instead of letting
+        each process draw its own seed."""
+        import torch.distributed as dist
+
+        seed = random.SystemRandom().randrange(2**31)
+        if dist.is_initialized():
+            box = [seed]
+            dist.broadcast_object_list(box, src=0)
+            return int(box[0])
+        world = os.environ.get("WORLD_SIZE", "1")
+        if world.isdigit() and int(world) > 1:
+            raise RuntimeError(
+                f'"seed": null on a multi-process launch (WORLD_SIZE={world}) requires '
+                "scgrhc_torch.parallel.comm.init_distributed() before Params(...): no "
+                "process group is up, so each process would draw a different seed and "
+                "the replicated state would quietly diverge."
+            )
+        return seed
 
     @staticmethod
     def init_json(path: str) -> dict[str, Any]:

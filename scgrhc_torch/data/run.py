@@ -9,8 +9,10 @@ native loader files at the paths of ``params.json``.  Overwrite guards and
 
 ``loader_backend: "torch"`` writes the reference's own artifacts instead,
 pickled torch DataLoaders (:mod:`scgrhc_torch.data.torch_export`), which
-``scgrhc`` and the port read back.  Single process:
-a multi-process launch (``WORLD_SIZE`` > 1) is not yet ported and raises.
+``scgrhc`` and the port read back.  Under a process group rank 0 builds
+the files (K3 on its card with ``data_backend: "device"``) while the
+other ranks wait; a failure on rank 0 is an error on every rank
+(:func:`scgrhc_torch.parallel.comm.on_primary`).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from scgrhc_torch.data.split import split_segments
 from scgrhc_torch.data.store import SegmentStore, get_global_minmax_vals
 from scgrhc_torch.data.torch_export import export_torch_loader
 from scgrhc_torch.dsp.segment import get_segments
+from scgrhc_torch.parallel import comm
 
 
 def save_dataloaders(params, device=None) -> None:
@@ -36,10 +39,6 @@ def save_dataloaders(params, device=None) -> None:
         raise Exception("Valid file already exists!")
     elif os.path.exists(params.test_path):
         raise Exception("Test file already exists!")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "building the dataset from more than one process is not yet ported to scgrhc_torch"
-        )
 
     all_segments = get_segments(params, device=device)
     if not all_segments:
@@ -78,4 +77,6 @@ def run(params, device=None) -> None:
     start_time = time()
     # log-line parity with the reference stage banner (recordutil.py:229)
     print(timelog(f"Run recordutil for {params.dir_path}", start_time))
-    save_dataloaders(params, device)
+    comm.refuse_lone_rank()
+    # one writer; the others read the shared files once it is done
+    comm.on_primary("data_end", save_dataloaders, params, device)

@@ -24,6 +24,12 @@ the same per-checkpoint forwards in a loop, the serial path's bits.
 training (:mod:`scgrhc_torch.train.run`): they pad to fixed shapes so that
 XLA's programs are shared, and the port's kernels need no fixed shapes.
 Not yet ported, and refused: Orbax checkpoints.
+
+Under a process group of N > 1 ranks each chunk is split over the ranks
+(:func:`scgrhc_torch.eval.infer.predict_split` with the data mesh), as
+``scgrhc`` shards evaluation over its devices, and only rank 0 writes the
+comparison CSVs; every rank waits for each write and fails with it
+(:func:`scgrhc_torch.parallel.comm.on_primary`).
 """
 
 from __future__ import annotations
@@ -41,6 +47,8 @@ from scgrhc_torch.core.trace import trace
 from scgrhc_torch.data.loaders import load_dataloader
 from scgrhc_torch.eval.infer import predict_split
 from scgrhc_torch.models.convert import generator_from_state_dict
+from scgrhc_torch.parallel import comm
+from scgrhc_torch.parallel.mesh import make_mesh
 from scgrhc_torch.pipeline.predict import resolve_checkpoint
 from scgrhc_torch.train import checkpoint as ckpt_io
 
@@ -92,7 +100,8 @@ def _comparison_rows(store, real, pred, scores) -> list[dict]:
     ]
 
 
-def _write_comparison_csv(comparisons, comp_dir_path, ckpt_name) -> None:
+def _write_comparison_csv(store, real, pred, scores, comp_dir_path, ckpt_name) -> None:
+    comparisons = _comparison_rows(store, real, pred, scores)
     comparisons.sort(key=lambda c: c["pcc_r"], reverse=True)
     path = os.path.join(comp_dir_path, f"{ckpt_name.split('.')[0]}.csv")
     write_csv(path, CSV_COLUMNS, comparisons)
@@ -119,7 +128,9 @@ def run(params, loader_type: str, checkpoint_path: str, device=None) -> None:
     checkpoint_message = f"{checkpoint_path if checkpoint_path else 'last checkpoint'}"
     print(timelog(f"Run waveform_test for {params.dir_path} | {loader_type} | "
                   f"{checkpoint_message}", start_time))
+    comm.refuse_lone_rank()
     dev = resolve_device(device)
+    mesh = make_mesh()
 
     if loader_type == "train":
         loader_path = params.train_path
@@ -166,10 +177,13 @@ def run(params, loader_type: str, checkpoint_path: str, device=None) -> None:
                            if next_todo < len(todo) else None)
                 next_todo += 1
                 with trace(f"eval_{loader_type}", device=dev):
-                    real, pred, scores = predict_split(gen, store, batch=params.eval_batch)
-                    comparisons = _comparison_rows(store, real, pred, scores)
-                _write_comparison_csv(comparisons, comp_dir_path, ckpt_name)
+                    real, pred, scores = predict_split(gen, store, batch=params.eval_batch,
+                                                       mesh=mesh)
+                    # one writer; select reads the CSVs next
+                    comm.on_primary("test_csv", _write_comparison_csv, store, real, pred,
+                                    scores, comp_dir_path, ckpt_name)
         finally:
             if pending is not None:
                 pending.cancel()
+    comm.barrier("test_end")
 

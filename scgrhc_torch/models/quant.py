@@ -21,7 +21,12 @@ reaches 1536 · 127².
 
 The activation scale spans a whole tensor, so one window's output depends
 on the other windows of its batch: callers chunk as the JAX package does
-(``eval_batch`` in evaluation).
+(``eval_batch`` in evaluation).  When the ranks of a data mesh split a
+chunk, :meth:`QuantGenerator.sharded` makes each scale the max over the
+chunk's real windows on every rank (the caller's max-reduction, one
+``all_reduce(MAX)`` for each of the 17 scales), so each window's output is
+that of one process; the pad windows that round a chunk up to the mesh
+take no part in it.
 
 Rounding is half to even on both sides (``torch.round``, ``jnp.round``)
 after the same float32 division, so the int8 values match the JAX
@@ -30,6 +35,7 @@ package's bit for bit.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 
 import torch
@@ -58,6 +64,10 @@ def act_scale(x):
     """The symmetric per-tensor scale of x: ``max|x| / 127`` (at least
     1e-12), a float32 scalar tensor."""
     return torch.clamp_min(x.abs().amax() / Q, EPS)
+
+
+def _same(t):
+    return t
 
 
 def quantize_act(x, s=None):
@@ -127,21 +137,43 @@ class QuantGenerator(nn.Module):
         for name in ("att3", "att2", "att1", "final"):
             self.add_module(name, copy.deepcopy(getattr(gen, name)).float())
         self.in_channels = gen.in_channels
+        self._rows, self._reduce_max = None, _same  # set by sharded()
 
-    @staticmethod
-    def _block(convs, x):
+    @contextlib.contextmanager
+    def sharded(self, rows: int, reduce_max):
+        """Within the block, this rank holds a block of a chunk split over
+        the ranks, whose first ``rows`` windows are real, and
+        ``reduce_max(t)`` is the max of a tensor over the ranks: each
+        activation scale is that of the real windows of every rank."""
+        self._rows, self._reduce_max = rows, reduce_max
+        try:
+            yield self
+        finally:
+            self._rows, self._reduce_max = None, _same
+
+    def _scale(self, x):
+        """:func:`act_scale` of x's real windows (all of them outside
+        :meth:`sharded`), max-reduced over the ranks.  The max of the ranks'
+        scales is the scale of their max: x ↦ max(x / 127, 1e-12) is
+        monotone."""
+        real = x[:self._rows]
+        return self._reduce_max(act_scale(real) if len(real) else x.new_tensor(EPS))
+
+    def _quantize(self, x):
+        return quantize_act(x, self._scale(x))
+
+    def _block(self, convs, x):
         """2 × (int8 conv k3 p1 → instance norm → relu); x float32 or an
         already quantized (int8 x, scale) pair; float32 out."""
-        xq, sx = x if isinstance(x, tuple) else quantize_act(x)
+        xq, sx = x if isinstance(x, tuple) else self._quantize(x)
         h = torch.relu(instance_norm(convs[0](xq, sx)))
-        return torch.relu(instance_norm(convs[1](*quantize_act(h))))
+        return torch.relu(instance_norm(convs[1](*self._quantize(h))))
 
-    @staticmethod
-    def _pool(x):
+    def _pool(self, x):
         """Max pool, then quantize at the unpooled tensor's scale: rounding
         and clipping are monotone and x ≥ 0 after the relu, so this is the
         JAX package's quantize-then-pool, bit for bit."""
-        return quantize_act(max_pool1d_k3s1(x), act_scale(x))
+        return quantize_act(max_pool1d_k3s1(x), self._scale(x))
 
     def forward(self, x, rng=None, train: bool = False):
         """``train`` raises: dropout would be an eval-mode identity here."""
@@ -155,6 +187,6 @@ class QuantGenerator(nn.Module):
         for up, att, dec, skip in ((self.up3, self.att3, self.dec3, e3),
                                    (self.up2, self.att2, self.dec2, e2),
                                    (self.up1, self.att1, self.dec1, e1)):
-            d = _pad_size(up(*quantize_act(d)), skip)
+            d = _pad_size(up(*self._quantize(d)), skip)
             d = self._block(dec, torch.cat((d, att(d, skip)), dim=1))
         return _pad_size(conv1d(d, self.final.weight, self.final.bias), x)

@@ -74,8 +74,17 @@ def dropout(x, rate: float, rng: torch.Generator | None, train: bool):
     if not train or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+    mask = rand(x.shape, rng, x.device) < keep
     return torch.where(mask, x / keep, 0.0)
+
+
+def rand(shape, rng, device, dtype=None):
+    """U[0, 1) draws of ``shape`` from ``rng``: a ``torch.Generator`` (or
+    None), or a draw function ``rng(shape, device, dtype)`` that a caller
+    passes to make the draws its own way."""
+    if callable(rng):
+        return rng(shape, device, dtype)
+    return torch.rand(shape, generator=rng, device=device, dtype=dtype)
 
 
 def relu(x):

@@ -1,4 +1,4 @@
-"""Whole-record streaming inference on one device, the PyTorch counterpart of
+"""Whole-record streaming inference, the PyTorch counterpart of
 ``scgrhc.parallel.stream``.
 
 A record is (optionally) calibrated from int16 ADC on the device, framed
@@ -10,9 +10,14 @@ reads the predictions back once at the end.  Windows are independent (the
 normalization is per window and instance norm per instance), so chunking
 changes no value.
 
-Not ported yet: the multi-device ``mesh`` sharding and
-``mesh_for_request``.  The JAX package pads window counts to buckets to
-bound XLA recompiles; PyTorch runs eagerly and needs no bucketing.
+With a ``mesh`` (:mod:`scgrhc_torch.parallel.mesh`), each chunk's windows
+are split over the ranks: each rank frames and normalizes its block (K4),
+runs it through the U-Net on its card, and the blocks are gathered in rank
+order to every rank.  :func:`mesh_for_request` decides when: a record of
+at most ``STREAM_BATCH`` windows keeps the one-rank path.  The JAX
+package pads window counts to buckets to bound XLA recompiles; PyTorch
+runs eagerly and needs no bucketing, so a sharded chunk is padded only up
+to a multiple of the mesh size.
 """
 
 from __future__ import annotations
@@ -21,8 +26,26 @@ import numpy as np
 import torch
 
 from scgrhc_torch.ops.kernels.dsp import normalize_windows
+from scgrhc_torch.parallel.mesh import Mesh, fetch_rows, pad_rows, round_up, row_block
 
 STREAM_BATCH = 512  # windows per chunk
+
+
+def mesh_for_request(mesh, n_samples: int, segment_samples: int,
+                     overlap: int = 0, batch: int = STREAM_BATCH):
+    """The mesh :func:`stream_infer` should shard THIS request over, or None.
+
+    The serving and predict mesh policy of ``scgrhc``: records whose window
+    count fits one chunk (``n <= batch``) keep the one-rank path; only
+    records past it shard their windows.  An out-of-range ``overlap``
+    returns None, so that the caller's ``stream_infer`` raises its own
+    ValueError."""
+    t = segment_samples
+    if mesh is None or not 0 <= overlap < t:
+        return None
+    hop = t - overlap if overlap else t
+    n = (n_samples - t) // hop + 1 if n_samples >= t else 0
+    return mesh if n > batch else None
 
 
 def frame_record(x, t: int, hop: int | None = None):
@@ -57,6 +80,19 @@ def eval_windows_denorm(gen, w, lo, hi):
     return p * (hi - lo) + lo
 
 
+def _chunk(gen, mesh, phys, t: int, hop: int, start: int, stop: int, lo, hi):
+    """Windows [start, stop) split over the mesh: this rank's block framed,
+    normalized (K4) and predicted, padded with zero windows up to the block
+    size (:func:`scgrhc_torch.parallel.mesh.row_block`), and every block
+    gathered; returns the (stop − start, t) predictions on every rank.  A
+    mesh of one runs every window."""
+    n = stop - start
+    a, b, k = row_block(mesh, n)
+    w = (_frame_norm(phys, t, hop, start + a, start + b) if b > a
+         else phys.new_zeros((0, phys.shape[0], t)))
+    return fetch_rows(mesh, n, eval_windows_denorm(gen, pad_rows(w, k), lo, hi))[0]
+
+
 def stream_infer(
     gen,
     record_scg,
@@ -65,6 +101,7 @@ def stream_infer(
     overlap: int = 0,
     rhc_minmax=None,
     calibration=None,
+    mesh=None,
 ):
     """Predict the RHC waveform for one full record on ``gen``'s device.
 
@@ -73,6 +110,9 @@ def stream_infer(
     given.  Returns a (L',) float32 numpy waveform: normalized RHC, or
     denormalized when ``rhc_minmax=(min, max)`` is given.  ``overlap`` > 0
     predicts overlapping windows and cross-fades them (:func:`_blend`).
+    ``mesh`` splits each chunk's windows over its ranks (``batch`` rounded
+    up to a multiple of its size; by default a mesh of one, this process);
+    every rank returns the whole waveform.
     """
     t = segment_samples
     if not 0 <= overlap < t:
@@ -87,7 +127,8 @@ def stream_infer(
     if n == 0:
         return np.zeros(0, dtype=np.float32)
     dev = next(gen.parameters()).device
-    batch = max(1, min(batch, n))
+    mesh = mesh or Mesh(1, 0)
+    batch = round_up(max(1, min(batch, n)), mesh.size)
 
     with torch.inference_mode():
         x = torch.from_numpy(np.ascontiguousarray(record_scg)).to(dev)
@@ -104,8 +145,7 @@ def stream_infer(
         hi = torch.tensor(hi, dtype=torch.float32, device=dev)
         preds = []
         for s in range(0, n, batch):
-            w = _frame_norm(phys, t, hop, s, s + batch)
-            preds.append(eval_windows_denorm(gen, w, lo, hi))
+            preds.append(_chunk(gen, mesh, phys, t, hop, s, min(s + batch, n), lo, hi))
         pred = torch.cat(preds).cpu().numpy()
 
     if overlap:

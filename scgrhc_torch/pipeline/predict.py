@@ -14,8 +14,15 @@ prediction to the train split's RHC range (:func:`cohort_rhc_minmax`).
 Output: ``<dir>/predictions/<record>.npy`` (float32 waveform at 500 Hz)
 plus a small JSON sidecar with provenance.
 
-Not yet ported: mesh sharding and Orbax checkpoints; each raises
-:class:`NotImplementedError`.
+``mesh`` (CLI ``--mesh``) shards the windowed path's windows over the
+ranks of the process group (:mod:`scgrhc_torch.parallel.stream`) when the
+record is past one chunk (``STREAM_BATCH`` windows); at world size 1 it is
+a mesh of one.  Every rank reads the record and computes; only rank 0
+writes the files, and the others wait for it.
+
+Not yet ported, each raising :class:`NotImplementedError`: Orbax
+checkpoints, and ``continuous`` over more than one rank (``scgrhc`` runs
+``models.cp.apply_cp`` there, the time axis).
 """
 
 from __future__ import annotations
@@ -38,7 +45,9 @@ from scgrhc_torch.io.catalog import (
 )
 from scgrhc_torch.models import cp
 from scgrhc_torch.models.convert import generator_from_state_dict
-from scgrhc_torch.parallel.stream import STREAM_BATCH, stream_infer
+from scgrhc_torch.parallel import comm
+from scgrhc_torch.parallel.mesh import make_mesh
+from scgrhc_torch.parallel.stream import STREAM_BATCH, mesh_for_request, stream_infer
 from scgrhc_torch.train import checkpoint as ckpt_io
 
 
@@ -74,10 +83,11 @@ def load_generator_params(params, ckpt_name: str, device=None):
 
 
 def predict_record(gen, params, record_name: str, overlap: int,
-                   rhc_minmax=None, batch: int = STREAM_BATCH) -> np.ndarray:
+                   rhc_minmax=None, batch: int = STREAM_BATCH, mesh=None) -> np.ndarray:
     """One record through the windowed path: the int16 ADC path with
     on-device calibration when the record has a digital representation,
-    else the float path."""
+    else the float path; its windows sharded over ``mesh`` past one chunk
+    (:func:`mesh_for_request`)."""
     t = params.segment_samples
     dig = read_record_digital(record_name, params.in_channels)
     if dig is not None:
@@ -86,11 +96,13 @@ def predict_record(gen, params, record_name: str, overlap: int,
             gen, np.ascontiguousarray(adc.T), segment_samples=t, batch=batch,
             overlap=overlap, rhc_minmax=rhc_minmax,
             calibration=(gain, base, sentinel),
+            mesh=mesh_for_request(mesh, adc.shape[0], t, overlap, batch),
         )
     scg = read_scg(params, record_name)
     return stream_infer(
         gen, scg.T.astype(np.float32), segment_samples=t, batch=batch,
         overlap=overlap, rhc_minmax=rhc_minmax,
+        mesh=mesh_for_request(mesh, scg.shape[0], t, overlap, batch),
     )
 
 
@@ -142,9 +154,11 @@ def run(
 
     ``continuous`` runs the seam-free whole-record mode; ``calibrate``
     (without an explicit ``rhc_minmax``) denormalizes to the train split's
-    RHC range."""
-    if mesh:
-        raise not_ported("mesh sharding (--mesh)")
+    RHC range; ``mesh`` shards the windows over the ranks (module doc).
+    Every rank returns the path."""
+    comm.refuse_lone_rank()
+    if continuous and comm.process_count() > 1:
+        raise not_ported("continuous prediction over more than one rank (models.cp.apply_cp)")
     start_time = time()
     ckpt_name = resolve_checkpoint(params, checkpoint)
     print(
@@ -164,16 +178,25 @@ def run(
                 start_time,
             )
         )
-    t = params.segment_samples
     overlap = int(overlap_s * SAMPLE_FREQ)
     if continuous:
         pred = predict_continuous(gen, read_scg(params, record_name), rhc_minmax)
     else:
-        pred = predict_record(gen, params, record_name, overlap, rhc_minmax)
+        pred = predict_record(gen, params, record_name, overlap, rhc_minmax,
+                              mesh=make_mesh() if mesh else None)
 
     out_dir = out_dir or os.path.join(params.dir_path, "predictions")
-    os.makedirs(out_dir, exist_ok=True)
     out_path = os.path.join(out_dir, f"{record_name}.npy")
+    comm.on_primary("predict_end", _write, pred, out_dir, out_path, record_name, ckpt_name,
+                    params, continuous, overlap, rhc_minmax, start_time)
+    return out_path
+
+
+def _write(pred, out_dir, out_path, record_name, ckpt_name, params, continuous, overlap,
+           rhc_minmax, start_time) -> None:
+    """The prediction's .npy and its JSON sidecar."""
+    t = params.segment_samples
+    os.makedirs(out_dir, exist_ok=True)
     np.save(out_path, pred.astype(np.float32))
     with open(os.path.join(out_dir, f"{record_name}.json"), "w") as f:
         json.dump(
@@ -198,4 +221,3 @@ def run(
             start_time,
         )
     )
-    return out_path

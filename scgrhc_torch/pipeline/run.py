@@ -6,6 +6,10 @@ evaluate every checkpoint on the valid split → select the best checkpoint
 → evaluate it on the test split.  Stage order, the exceptions swallowed on
 the re-runnable stages and the ``checkpoint_best.txt`` handshake are the
 reference's (waveform_pipeline.py:10-28).
+
+Under a process group every rank runs every stage: the stages split their
+device work over the ranks, and rank 0 alone writes (each stage's
+module doc); a data-stage error is printed on every rank, as on one.
 """
 
 from __future__ import annotations

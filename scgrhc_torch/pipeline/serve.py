@@ -19,7 +19,9 @@ Responses carry the mode, whether the waveform is calibrated, and
 per-request wall-clock latency.  The daemon's ``--calibrate`` reads the
 calibration range at start-up and makes it every request's default;
 without it, the first request that asks reads it.  Errors are per request:
-one bad request does not stop the daemon.  Not yet ported: ``--mesh``.
+one bad request does not stop the daemon.  Not yet ported: ``--mesh``
+and serving from more than one rank (the daemon's continuous requests run
+``models.cp.apply_cp`` there in ``scgrhc``; the next slice of the port).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import numpy as np
 
 from scgrhc_torch.core.timelog import timelog
 from scgrhc_torch.io.catalog import SAMPLE_FREQ
+from scgrhc_torch.parallel import comm
 from scgrhc_torch.parallel.stream import STREAM_BATCH, stream_infer
 from scgrhc_torch.pipeline.predict import (
     cohort_rhc_minmax,
@@ -44,6 +47,10 @@ from scgrhc_torch.pipeline.predict import (
     read_scg,
     resolve_checkpoint,
 )
+
+
+SERVE_MESH = ("mesh sharding of serve (--mesh, or more than one rank: the next slice, "
+              "with models.cp.apply_cp)")
 
 
 def _valid_record_name(name) -> bool:
@@ -165,8 +172,8 @@ def run(
     ``calibrate`` (CLI ``--calibrate``) denormalizes every request that
     does not say otherwise; ``timeout`` (CLI ``--timeout S``) bounds each
     request's wall clock."""
-    if mesh:
-        raise not_ported("mesh sharding (--mesh)")
+    if mesh or comm.process_count() > 1:
+        raise not_ported(SERVE_MESH)
     stdin = stdin or sys.stdin
     stdout = stdout or sys.stdout
     start_time = time()

@@ -13,7 +13,10 @@ them with pandas.
 ``scgrhc`` re-scores near-tied leading checkpoints serially, because its
 vmapped stacked eval re-fuses float32 sums; the port's eval has one path
 (:mod:`scgrhc_torch.eval.infer`), so select reads the CSVs as they are and
-touches no device.
+touches no device.  Under a process group rank 0 scores and writes while
+the other ranks wait (:func:`scgrhc_torch.parallel.comm.on_primary`, the
+``select_end`` barrier of ``scgrhc``); the pipeline reads
+``checkpoint_best.txt`` next, on every rank.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import numpy as np
 from scgrhc_torch.core.timelog import timelog
 from scgrhc_torch.eval import metrics
 from scgrhc_torch.eval import run as eval_run
+from scgrhc_torch.parallel import comm
 
 
 def get_float_array(s: str) -> np.ndarray:
@@ -98,6 +102,10 @@ def best_row(scores: list[dict]) -> dict:
 
 
 def run(params) -> None:
+    comm.on_primary("select_end", _select, params)
+
+
+def _select(params) -> None:
     start_time = time()
     print(timelog(f"Run waveform_checkpoint for {params.dir_path}", start_time))
     scores = get_checkpoint_scores(params, start_time)

@@ -32,8 +32,21 @@ them off:
     generator in ``scgrhc``.  The port draws from ``torch.Generator``
     under every impl: draws cannot match across frameworks anyway.
 
-``checkpoint_backend: "orbax"`` and a multi-process launch are not yet
-ported and raise.  ``plot_async`` is read for compatibility only.
+Data parallelism: under a process group of N ranks
+(:mod:`scgrhc_torch.parallel.comm`) every rank trains its block of each
+batch (:mod:`scgrhc_torch.parallel.dp`), as ``scgrhc`` does on more than
+one device with no setting at all.  In epoch mode the split is on every
+rank's card whole and each rank gathers its block of the batch's indices;
+in step mode it takes its block of the host batch.  A batch (the tail
+batch too) that does not divide N is padded with masked rows
+(:func:`scgrhc_torch.parallel.mesh.pad_idx_mask`).  The replicas start
+from rank 0's state; only rank 0 prints the progress lines and writes the
+checkpoints and ``train_losses.png``, and every rank waits for each write
+and fails with it (:func:`scgrhc_torch.parallel.comm.on_primary`).  A
+resume reads the checkpoint on every rank.
+
+``checkpoint_backend: "orbax"`` is not yet ported and raises.
+``plot_async`` is read for compatibility only.
 """
 
 from __future__ import annotations
@@ -47,8 +60,11 @@ from scgrhc_torch.core.device import resolve_device
 from scgrhc_torch.core.timelog import timelog
 from scgrhc_torch.core.trace import annotate, trace
 from scgrhc_torch.data.loaders import load_dataloader
+from scgrhc_torch.parallel import comm
+from scgrhc_torch.parallel.dp import DataParallelTrainer
+from scgrhc_torch.parallel.mesh import make_mesh
 from scgrhc_torch.train import checkpoint as ckpt_io
-from scgrhc_torch.train.wgan import TrainConfig, init_state, step_rng, train_step
+from scgrhc_torch.train.wgan import TrainConfig, init_state, step_rng
 
 
 def _plot_losses(g_losses, d_losses, epoch, total_epochs, batch, n_batches, dir_path):
@@ -80,32 +96,28 @@ def _refuse_unported(params) -> None:
         raise ValueError(f"rng_impl must be one of {RNG_IMPLS}, got {params.rng_impl!r}")
     if getattr(params, "checkpoint_backend", "reference") == "orbax":
         raise NotImplementedError("checkpoint_backend 'orbax' is not yet ported to scgrhc_torch")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "training over more than one device is not yet ported to scgrhc_torch"
-        )
 
 
-def _step_mode(state, loader, cfg, seed, epoch, device):
+def _step_mode(trainer, state, loader, cfg, seed, epoch, device):
     for i, (scg, rhc) in enumerate(loader.batches(epoch)):
         with annotate("train_step"):
-            d, g = train_step(state, torch.from_numpy(scg).to(device),
-                              torch.from_numpy(rhc).to(device),
-                              step_rng(seed, epoch, i, device), cfg)
+            d, g = trainer.step(state, torch.from_numpy(scg).to(device),
+                                torch.from_numpy(rhc).to(device),
+                                torch.arange(len(scg), device=device),
+                                step_rng(seed, epoch, i, device), cfg)
             d_list, g_loss = d.tolist(), float(g)
         yield i, d_list, g_loss
 
 
-def _epoch_mode(state, loader, cfg, seed, epoch, device):
+def _epoch_mode(trainer, state, loader, cfg, seed, epoch, device):
     scg_all, rhc_all = loader.dataset.device_arrays(device)
     order = torch.from_numpy(loader.epoch_order(epoch)).to(device)
     bs = loader.batch_size
     losses = []
     with annotate("train_epoch"):
         for i, s in enumerate(range(0, len(order), bs)):
-            idx = order[s:s + bs]
-            d, g = train_step(state, scg_all[idx], rhc_all[idx],
-                              step_rng(seed, epoch, i, device), cfg)
+            d, g = trainer.step(state, scg_all, rhc_all, order[s:s + bs],
+                                step_rng(seed, epoch, i, device), cfg)
             losses.append(torch.cat((d, g[None])))
         rows = torch.stack(losses).tolist() if losses else []
     for i, row in enumerate(rows):
@@ -117,6 +129,7 @@ def run(params, device=None, plot: bool = True) -> dict:
     last complete checkpoint to ``total_epochs``.  Returns
     ``{"epochs": [{"epoch", "steps", "seconds"}, ...]}`` for the epochs run
     (seconds on the host clock, checkpoint write included)."""
+    comm.refuse_lone_rank()
     dev = resolve_device(device)
     _refuse_unported(params)
     start_time = time()
@@ -141,20 +154,23 @@ def run(params, device=None, plot: bool = True) -> dict:
     else:
         epoch, g_losses, d_losses = 0, [], []
         state = init_state(params.seed, n_channels, cfg, dev)
+    trainer = DataParallelTrainer(make_mesh())
+    trainer.place_state(state)
+    primary = comm.is_primary()
 
     epoch_steps = _step_mode if getattr(params, "train_mode", "epoch") == "step" else _epoch_mode
     n_batches = len(loader)
     g_total, d_total = sum(g_losses), sum(d_losses)
     stats = []
-    ok = False
     try:
         with trace("train", device=dev):
             while epoch < total_epochs:
                 t0 = perf_counter()
-                for i, d_step, g_loss in epoch_steps(state, loader, cfg, params.seed, epoch, dev):
+                for i, d_step, g_loss in epoch_steps(trainer, state, loader, cfg, params.seed,
+                                                     epoch, dev):
                     d_losses.extend(d_step)
                     g_losses.append(g_loss)
-                    if i > 0 and (i % 10 == 0 or i == n_batches - 1):
+                    if primary and i > 0 and (i % 10 == 0 or i == n_batches - 1):
                         print(timelog(f"waveform_train | {params.dir_path} | epoch "
                                       f"{epoch}/{total_epochs} | batch {i}/{n_batches}",
                                       start_time))
@@ -165,18 +181,19 @@ def run(params, device=None, plot: bool = True) -> dict:
                         if plot:
                             _plot_losses(g_losses, d_losses, epoch, total_epochs, i, n_batches,
                                          params.dir_path)
-                ckpt_io.save(
+                comm.on_primary(
+                    "train_checkpoint", ckpt_io.save,
                     os.path.join(params.checkpoint_dir_path, f"{epoch:03d}.checkpoint"),
                     start_time=start_time, epoch=epoch, g_losses=g_losses, d_losses=d_losses,
                     state=state, cfg=cfg, block=not getattr(params, "checkpoint_async", False),
                 )
                 stats.append({"epoch": epoch, "steps": n_batches, "seconds": perf_counter() - t0})
                 epoch += 1
-        ok = True
+        # a dropped checkpoint fails the run, on every rank
+        comm.on_primary("train_end", ckpt_io.wait)
     finally:
         try:
             ckpt_io.wait()
         except Exception:
-            if ok:  # a dropped checkpoint fails the run; else keep the loop's error
-                raise
+            pass  # the failure path: drained, and the loop's own error is kept
     return {"epochs": stats}

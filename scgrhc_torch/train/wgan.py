@@ -26,6 +26,12 @@ index): step mode, epoch mode and a resumed run draw the same numbers.
 ``generator.dropout`` and :func:`_draw_eps` are module-level seams the
 parity tests replace, as they do in the JAX package.
 
+Data parallelism (:mod:`scgrhc_torch.parallel.dp`) runs ``train_step`` on
+one rank's block of a global batch: ``count`` makes every mean divide by
+the global batch's count, ``rng`` is a draw function that makes the global
+batch's draws, and ``reduce`` sums each update's gradients over the ranks
+before its Adam step.
+
 ``train_dtype: bfloat16`` keeps f32 master weights and Adam state, and
 casts the weights inside the losses (the generator's ``final`` stays f32,
 so predictions come back f32).  ``remat``, ``conv_backend`` and
@@ -44,6 +50,7 @@ from torch.func import functional_call
 
 from scgrhc_torch.models.critic import Critic
 from scgrhc_torch.models.generator import Generator
+from scgrhc_torch.ops.nn import rand
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 FUSE_MODES = ("off", "2b", "3b")
@@ -126,14 +133,16 @@ def _stat_dtype(x) -> torch.dtype:
     return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
-def _masked_mean(v, mask=None):
+def _masked_mean(v, mask=None, count=None):
     """Mean over (B, ...) with per-sample 0/1 weights; ``mask=None`` is the
-    plain mean."""
+    plain mean.  ``count``, the global batch's weight (data parallelism),
+    makes it this rank's share of the global mean: the rank's weighted sum
+    over ``count``, which the ranks' gradient sum adds up."""
     if mask is None:
-        return v.mean()
+        return v.mean() if count is None else v.mean() * (v.shape[0] / count)
     m = mask.to(v.dtype)
     per_sample = v.reshape(v.shape[0], -1).mean(dim=1)
-    return (per_sample * m).sum() / m.sum()
+    return (per_sample * m).sum() / (m.sum() if count is None else count)
 
 
 def _gp_norms(grads):
@@ -146,7 +155,7 @@ def _gp_norms(grads):
 def _draw_eps(rng: torch.Generator, b: int, device):
     """The GP interpolation draw (reference: waveform_train.py:260,
     ``torch.rand(batch_size, 1, 1)``), in f32."""
-    return torch.rand((b, 1, 1), generator=rng, device=device, dtype=torch.float32)
+    return rand((b, 1, 1), rng, device, torch.float32)
 
 
 def _cast(module: torch.nn.Module, dtype: torch.dtype, keep: tuple[str, ...] = ()):
@@ -194,16 +203,16 @@ def _scores_and_grad(critic_fn, x, ct_rows: slice = slice(None)):
     return critic_fn(x, ct=ct)
 
 
-def gradient_penalty_from_eps(critic_fn, scg, rhc, pred_rhc, eps, mask=None):
+def gradient_penalty_from_eps(critic_fn, scg, rhc, pred_rhc, eps, mask=None, count=None):
     """WGAN-GP: ∥∇_x D(scg‖x)∥₂ at the per-sample interpolant
     ``eps·rhc + (1−eps)·pred``, penalized towards 1."""
     interp = (eps * rhc + (1.0 - eps) * pred_rhc).detach()
     _, dx = _scores_and_grad(critic_fn, torch.cat((scg, interp), dim=1))
     grads = dx[:, scg.shape[1]:]
-    return _masked_mean(torch.square(_gp_norms(grads) - 1.0), mask)
+    return _masked_mean(torch.square(_gp_norms(grads) - 1.0), mask, count)
 
 
-def _critic_terms(critic_fn, scg, rhc, pred_rhc, eps, fuse: str, mask=None):
+def _critic_terms(critic_fn, scg, rhc, pred_rhc, eps, fuse: str, mask=None, count=None):
     """(E[D(pred)], E[D(real)], GP) with the chosen forward batching; all
     three modes compute the same per-sample scores."""
     if fuse == "3b":
@@ -214,8 +223,8 @@ def _critic_terms(critic_fn, scg, rhc, pred_rhc, eps, fuse: str, mask=None):
                                                       dim=1), slice(2 * b, None))
         vp, vr, _ = v.chunk(3, dim=0)
         grads = dx[2 * b:, scg.shape[1]:]
-        gp = _masked_mean(torch.square(_gp_norms(grads) - 1.0), mask)
-        return _masked_mean(vp, mask), _masked_mean(vr, mask), gp
+        gp = _masked_mean(torch.square(_gp_norms(grads) - 1.0), mask, count)
+        return _masked_mean(vp, mask, count), _masked_mean(vr, mask, count), gp
     if fuse == "2b":
         v = critic_fn(torch.cat((torch.cat((scg, pred_rhc), dim=1),
                                  torch.cat((scg, rhc), dim=1)), dim=0))
@@ -223,12 +232,12 @@ def _critic_terms(critic_fn, scg, rhc, pred_rhc, eps, fuse: str, mask=None):
     else:  # "off": the reference's three separate forwards
         vp = critic_fn(torch.cat((scg, pred_rhc), dim=1))
         vr = critic_fn(torch.cat((scg, rhc), dim=1))
-    gp = gradient_penalty_from_eps(critic_fn, scg, rhc, pred_rhc, eps, mask)
-    return _masked_mean(vp, mask), _masked_mean(vr, mask), gp
+    gp = gradient_penalty_from_eps(critic_fn, scg, rhc, pred_rhc, eps, mask, count)
+    return _masked_mean(vp, mask, count), _masked_mean(vr, mask, count), gp
 
 
 def critic_loss(critic: Critic, generator: Generator, scg, rhc, rng, cfg: TrainConfig,
-                mask=None, pred_rhc=None):
+                mask=None, pred_rhc=None, count=None):
     dt = DTYPES[cfg.compute_dtype]
     if pred_rhc is None:  # fresh dropout-resampled forward (reference)
         with torch.no_grad():
@@ -238,15 +247,16 @@ def critic_loss(critic: Critic, generator: Generator, scg, rhc, rng, cfg: TrainC
     # eps drawn in f32 so the stream is the same in every compute dtype
     eps = _draw_eps(rng, rhc.shape[0], rhc.device).to(rhc.dtype)
     pred_mean, real_mean, gp = _critic_terms(
-        _compute(critic, cfg), scg, rhc, pred_rhc, eps, cfg.critic_fuse, mask
+        _compute(critic, cfg), scg, rhc, pred_rhc, eps, cfg.critic_fuse, mask, count
     )
     loss = -real_mean + pred_mean + cfg.lambda_gp * gp
     return loss.to(_stat_dtype(loss))
 
 
 def generator_loss(generator: Generator, critic: Critic, scg, rhc, rng, cfg: TrainConfig,
-                   mask=None, pred_rhc=None):
-    """``pred_rhc`` (with its graph) stands in for the forward when given."""
+                   mask=None, pred_rhc=None, count=None):
+    """``pred_rhc`` (with its graph) stands in for the forward when given;
+    ``count`` as in :func:`_masked_mean`."""
     dt = DTYPES[cfg.compute_dtype]
     if pred_rhc is None:
         pred_rhc = _train_pred(generator, scg, rng, cfg)
@@ -257,42 +267,52 @@ def generator_loss(generator: Generator, critic: Critic, scg, rhc, rng, cfg: Tra
         pred_validity = _compute(critic, cfg)(torch.cat((scg, adv_input), dim=1))
     resid = pred_rhc - rhc
     sq = torch.square(resid.to(_stat_dtype(resid)))
-    if mask is None:
-        mse = sq.mean()
-    else:
-        m = mask.to(sq.dtype)
-        mse = (sq.reshape(sq.shape[0], -1).mean(dim=1) * m).sum() / m.sum()
-    loss = -_masked_mean(pred_validity, mask) + cfg.lambda_aux * mse
+    mse = _masked_mean(sq, mask, count)
+    loss = -_masked_mean(pred_validity, mask, count) + cfg.lambda_aux * mse
     return loss.to(_stat_dtype(loss))
 
 
-def _apply(opt: torch.optim.Adam, params, loss) -> None:
-    for p, g in zip(params, torch.autograd.grad(loss, params)):
+def _apply(opt: torch.optim.Adam, params, loss, reduce=None):
+    """One update from ``loss``; returns the loss, detached.  ``reduce``
+    (data parallelism) first sums the gradients and the loss over the
+    ranks: every rank then steps on the global gradient and reports the
+    global loss."""
+    grads = torch.autograd.grad(loss, params)
+    loss = loss.detach()
+    if reduce is not None:
+        *grads, loss = reduce([*grads, loss])
+    for p, g in zip(params, grads):
         p.grad = g
     opt.step()
+    return loss
 
 
-def train_step(state: TrainState, scg, rhc, rng: torch.Generator, cfg: TrainConfig,
-               mask=None):
+def train_step(state: TrainState, scg, rhc, rng, cfg: TrainConfig, mask=None, count=None,
+               reduce=None):
     """One batch: n_critic critic updates, then one generator update
     (reference: waveform_train.py:357-381), in place on ``state``.  Returns
     (d_losses (n_critic,), g_loss) as device tensors.
 
     ``reuse_pred`` scores one shared prediction in every critic iteration
     and trains the generator on the same forward (one generator forward per
-    step, as XLA's CSE gives the JAX step)."""
+    step, as XLA's CSE gives the JAX step).
+
+    ``rng`` is the step's ``torch.Generator``, or a draw function
+    (:func:`scgrhc_torch.ops.nn.rand`).  Data parallelism
+    (:class:`scgrhc_torch.parallel.dp.DataParallelTrainer`) passes this
+    rank's block of a global batch with the global batch's real row
+    ``count``, its draws, and the ``reduce`` of :func:`_apply`; the step is
+    then the global batch's, and the losses returned are the global ones."""
     g, d = state.generator, state.critic
     d_params, g_params = list(d.parameters()), list(g.parameters())
     pred = _train_pred(g, scg, rng, cfg) if cfg.reuse_pred else None
     shared = None if pred is None else pred.detach()
     d_losses = []
     for _ in range(cfg.n_critic):
-        loss = critic_loss(d, g, scg, rhc, rng, cfg, mask, shared)
-        _apply(state.d_opt, d_params, loss)
-        d_losses.append(loss.detach())
-    g_loss = generator_loss(g, d, scg, rhc, rng, cfg, mask, pred)
-    _apply(state.g_opt, g_params, g_loss)
-    return torch.stack(d_losses), g_loss.detach()
+        loss = critic_loss(d, g, scg, rhc, rng, cfg, mask, shared, count)
+        d_losses.append(_apply(state.d_opt, d_params, loss, reduce))
+    g_loss = generator_loss(g, d, scg, rhc, rng, cfg, mask, pred, count)
+    return torch.stack(d_losses), _apply(state.g_opt, g_params, g_loss, reduce)
 
 
 def launches_per_step(cfg: TrainConfig) -> dict[str, int]:

@@ -285,6 +285,9 @@ def test_data_stage_overwrite_guards(port_db, tmp_path, existing):
 
 
 def test_data_stage_refuses_unported(port_db, tmp_path, monkeypatch):
+    """A launch into a world (``WORLD_SIZE`` > 1) with no process group up
+    refuses to build alone (tests/test_torch_multiprocess.py builds in
+    one, on rank 0)."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="more than one process"):
-        data_run.save_dataloaders(Params(_exp(tmp_path, "multi")))
+    with pytest.raises(RuntimeError, match="no process group"):
+        data_run.run(Params(_exp(tmp_path, "multi")), device="cpu")

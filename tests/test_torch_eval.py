@@ -384,8 +384,10 @@ def test_pipeline_on_cpu_and_jax_reads_it_back(synth_db, tmp_path, monkeypatch, 
 def test_cli_refuses_unported_and_defaults_to_cuda(tmp_path, monkeypatch, capsys):
     """``--help`` lists every subcommand of ``python -m scgrhc``; the six
     host-side ones dispatch (their stages stubbed here; their own tests are
-    tests/test_torch_{cli_stages,sweep,summary}.py); ``--mesh`` alone is
-    refused; the device stages default to CUDA."""
+    tests/test_torch_{cli_stages,sweep,summary}.py); ``serve --mesh`` is
+    refused and ``sweep --mesh`` is an unknown flag, as in ``scgrhc``
+    (``predict --mesh`` runs: tests/test_torch_parallel.py); the device
+    stages default to CUDA."""
     from scgrhc_torch import summary
     from scgrhc_torch.pipeline import demo, plots, report, sweep
     from scgrhc_torch.train import checkpoint as ckpt_io
@@ -414,10 +416,10 @@ def test_cli_refuses_unported_and_defaults_to_cuda(tmp_path, monkeypatch, capsys
     assert calls == ["summary", ("report", d), ("demo", d, {"epochs": 1, "device": "cpu"}),
                      ("sweep", {"jobs": 1, "inproc": True, "prune": False, "device": "cpu"}),
                      ("plots", "003.checkpoint", 2), ("export", str(tmp_path / "x.torch"))]
-    for argv in (["serve", d, "--mesh"], ["predict", d, "SYN000", "--mesh"],
-                 ["sweep", d, "--mesh"]):
-        with pytest.raises(SystemExit, match="mesh sharding.*not yet ported"):
-            cli(argv)
+    with pytest.raises(SystemExit, match="mesh sharding.*not yet ported"):
+        cli(["serve", d, "--mesh"])
+    with pytest.raises(SystemExit, match="unknown sweep flag --mesh"):
+        cli(["sweep", d, "--mesh"])
     with pytest.raises(SystemExit):
         cli(["test", str(tmp_path), "valid"])
     d = str(tmp_path / "exp")

@@ -29,6 +29,11 @@ than cuDNN, so a relu mask can flip between a kernel and the plain f32
 version where c or x̂ lies within f32 rounding of 0: the backward kernels
 are held to the plain backward in float64 on the forward kernel's own
 masks, and those masks to the plain version's within MASK_FLIP_SHARE.
+
+The data axis on one card: the comm helpers on CUDA tensors over NCCL and
+over gloo in a world of one rank (a ``file://`` store), data-parallel steps
+over NCCL equal bit for bit to the steps with no process group, and two
+processes building the kernels at once into one empty build directory.
 """
 
 import numpy as np
@@ -954,3 +959,127 @@ def test_int8_generator_on_the_card(cuda):
         y = gen(x)[:, 0].double().cpu().numpy()
     assert np.isfinite(yq).all()
     assert min(np.corrcoef(a, b)[0, 1] for a, b in zip(y, yq)) > 0.9
+
+
+# ---- the data axis on one card ------------------------------------------------
+
+def _world_of_one(tmp_path, device):
+    """A process group of one rank: NCCL for ``device`` None (one card per
+    rank), gloo for ``cuda:0`` (ranks pinned to a card they may share)."""
+    from scgrhc_torch.parallel import comm
+
+    assert comm.init_distributed(f"file://{tmp_path / 'store'}", 1, 0, device=device)
+    return comm
+
+
+@pytest.mark.parametrize("device,backend", [(None, "nccl"), ("cuda:0", "gloo")])
+def test_collectives_on_cuda_tensors(cuda, tmp_path, device, backend):
+    """Every helper of ``parallel.comm`` on CUDA tensors: NCCL runs them on
+    the card, gloo stages them through the host (the list form of
+    ``all_gather``, ``broadcast_object_list``)."""
+    comm = _world_of_one(tmp_path, device)
+    try:
+        assert torch.distributed.get_backend() == backend
+        x = torch.arange(6.0, device=cuda)
+        assert torch.equal(comm.all_reduce_sum(x.clone()), x)
+        assert torch.equal(comm.all_reduce_max(x.clone()), x)
+        assert torch.equal(comm.all_reduce_mean(x.clone()), x)
+        assert torch.equal(comm.all_gather(x.clone()), x)
+        assert torch.equal(comm.broadcast(x.clone()), x)
+        assert comm.on_primary("x", lambda: 3) == 3
+        with pytest.raises(OSError, match="disk full"):
+            comm.on_primary("x", lambda: (_ for _ in ()).throw(OSError("disk full")))
+        comm.barrier("test")
+    finally:
+        comm.destroy()
+
+
+def test_dp_steps_over_nccl_equal_the_steps_with_no_group(cuda, tmp_path):
+    """Two WGAN-GP steps through ``DataParallelTrainer`` in a world of one
+    rank over NCCL (the gradient buckets all-reduced on the card) equal the
+    same steps with no process group, bit for bit."""
+    from scgrhc_torch.parallel.dp import DataParallelTrainer
+    from scgrhc_torch.parallel.mesh import make_mesh
+
+    cfg = wgan.TrainConfig(n_critic=2)
+    g = torch.Generator(cuda).manual_seed(3)
+    scg, rhc = torch.rand(4, 4, 750, device=cuda, generator=g), torch.rand(4, 1, 750,
+                                                                           device=cuda, generator=g)
+
+    def run(trainer):
+        st = wgan.init_state(0, 4, cfg, cuda)
+        if trainer is not None:
+            trainer.place_state(st)
+        out = []
+        for i in range(2):
+            rng = wgan.step_rng(0, 0, i, cuda)
+            d, gl = (wgan.train_step(st, scg, rhc, rng, cfg) if trainer is None
+                     else trainer.step(st, scg, rhc, torch.arange(4, device=cuda), rng, cfg))
+            out += [d, gl[None]]
+        return [*st.generator.parameters(), *st.critic.parameters(), *out]
+
+    plain = run(None)
+    comm = _world_of_one(tmp_path, None)
+    try:
+        dp = run(DataParallelTrainer(make_mesh()))
+    finally:
+        comm.destroy()
+    assert all(torch.equal(a, b) for a, b in zip(plain, dp))
+
+
+_BUILD_RANK = r"""
+import sys, time
+from pathlib import Path
+import torch
+from scgrhc_torch.ops.kernels import _build, conv_block
+_build.BUILD_DIR = Path(sys.argv[1])
+go = Path(sys.argv[2])
+while not go.exists():  # both processes start their builds at once
+    time.sleep(0.01)
+b = _build.build()
+g = torch.Generator("cuda").manual_seed(int(sys.argv[3]))
+x = torch.rand(2, 4, 750, device="cuda", generator=g)
+w = torch.rand(64, 4, 3, device="cuda", generator=g) - 0.5
+bias = torch.rand(64, device="cuda", generator=g)
+err = (conv_block.conv_in_relu(x, w, bias) - conv_block.conv_in_relu_plain(x, w, bias)).abs()
+torch.cuda.synchronize()
+print("BUILT", b.path.name, b.seconds > 0, conv_block.conv_in_relu.launches, float(err.max()))
+"""
+
+
+def test_two_ranks_build_the_kernels_at_once_on_one_card(cuda, tmp_path):
+    """Two processes on the card that find no built library compile it at
+    once into one build directory (``_build``: per-process temporary names,
+    then one ``os.replace`` each), as two ranks of a first run do: both
+    load a library and launch K1f, within FWD_TOL of its plain version, and
+    one library is left with no temporary file."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root))
+    procs = [subprocess.Popen([sys.executable, "-c", _BUILD_RANK, str(tmp_path / "build"),
+                               str(tmp_path / "go"), str(r)], cwd=root, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    (tmp_path / "go").touch()
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=900)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    names = set()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+        _, name, built, launches, err = next(
+            line for line in out.splitlines() if line.startswith("BUILT")).split()
+        assert built == "True" and launches == "1" and float(err) <= FWD_TOL
+        names.add(name)
+    assert len(names) == 1
+    assert sorted(p.name for p in (tmp_path / "build").iterdir()) == sorted(names)

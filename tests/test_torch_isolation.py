@@ -38,7 +38,9 @@ def test_port_imports_pull_in_no_jax():
     for name in ("scgrhc_torch.ops.kernels.dsp", "scgrhc_torch.pipeline.run",
                  "scgrhc_torch.select.run", "scgrhc_torch.summary",
                  "scgrhc_torch.pipeline.sweep", "scgrhc_torch.pipeline.report",
-                 "scgrhc_torch.pipeline.plots", "scgrhc_torch.pipeline.demo"):
+                 "scgrhc_torch.pipeline.plots", "scgrhc_torch.pipeline.demo",
+                 "scgrhc_torch.parallel.comm", "scgrhc_torch.parallel.mesh",
+                 "scgrhc_torch.parallel.dp"):
         assert name in res["imported"]
     assert res["bad"] == []
 

@@ -476,7 +476,10 @@ def test_unported_training_keys_raise(tmp_path, key, value):
 
 
 def test_multi_process_launch_raises(tmp_path, monkeypatch):
+    """A launch into a world (``WORLD_SIZE`` > 1) with no process group up
+    refuses to train alone (tests/test_torch_multiprocess.py trains in
+    one)."""
     exp = _experiment(tmp_path, "dp")
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="more than one device"):
+    with pytest.raises(RuntimeError, match="no process group"):
         train_run.run(Params(os.path.join(exp, "params.json")), device="cpu")
