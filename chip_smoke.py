@@ -1581,6 +1581,7 @@ def train_long(torch, smoke: Smoke, root: str, card: str) -> dict:
 # ---- the experiment pipeline ------------------------------------------------
 
 ALL_KERNELS = {"conv_in_relu": "conv_block", "conv_in_relu_bwd": "conv_block",
+               "conv_in_relu_part": "conv_block", "conv_in_relu_apply": "conv_block",
                "critic_layer": "critic_fused", "critic_layer_bwd_dx": "critic_fused",
                "critic_layer_bwd_dwdb": "critic_fused", "gate_and_normalize": "dsp",
                "normalize_windows": "dsp"}
@@ -1879,7 +1880,7 @@ def pipeline_end_to_end(torch, smoke: Smoke, root: str, card: str) -> dict:
 
 # The port's kernels as CUPTI names them (csrc/*.cu, conv3.cuh).
 PORT_KERNEL = re.compile(r"\b(?:conv_mma|conv_stream|dx_stream|dw_mma|dw_stream|dw_reduce|db|"
-                         r"dc_linear|row|row_part|row_apply|gate_normalize|"
+                         r"dc_linear|row|row_part|row_sum|row_apply|gate_normalize|"
                          r"normalize_windows)_kernel\b")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # The device time of a step by who launched it: the port's kernels, cuDNN's
@@ -2246,6 +2247,7 @@ def check_whole_record_k1f(torch, smoke: Smoke) -> dict:
     print(f"conv_in_relu N=1 T={t}, the 14 layers of a continuous forward: kernel "
           f"{total['ms']:.2f} ms (by the trace: conv core {split.get('conv_mma_kernel', 0.0):.2f}, "
           f"row pass {split.get('row_part_kernel', 0.0):.2f} + "
+          f"{split.get('row_sum_kernel', 0.0):.2f} + "
           f"{split.get('row_apply_kernel', 0.0):.2f} in pieces, "
           f"{split.get('row_kernel', 0.0):.2f} a warp a row, other "
           f"{split.get('other', 0.0):.2f}), plain {total['plain_ms']:.2f} ms, bound {bound:.3f} ms (f32 FMA), "
@@ -2256,6 +2258,13 @@ def check_whole_record_k1f(torch, smoke: Smoke) -> dict:
             else "bytes",
             "max_kernel_vs_f64": max(r["kernel_vs_f64"] for r in per_shape.values()),
             "per_shape": per_shape}
+
+
+# Arrays that a later phase holds its own to (never written to the JSON):
+# "continuous": (record, its float64 continuous forward, the CPU f32
+# path's max-abs distance from it); "windowed": (record, predict --mesh's
+# waveform at world size 1).
+_REFS: dict = {}
 
 
 def _f64_continuous(torch, params, name: str):
@@ -2361,6 +2370,7 @@ def continuous_end_to_end(torch, smoke: Smoke, exp: str, card: str) -> dict:
               + f" (cuda vs f64 within {ENVELOPE_FACTOR:g} x cpu vs f64); cpu f32 {cpu_s:.1f} s, "
               f"f64 on the card {f64_s:.1f} s", flush=True)
         report.update(max_abs_err=errs, cpu_s=cpu_s, f64_s=f64_s)
+        _REFS["continuous"] = (name, ref, errs["cpu_vs_f64"])
     # the CLI, in a new process
     t0 = time.perf_counter()
     proc = subprocess.run(
@@ -2763,15 +2773,16 @@ def cli_end_to_end(torch, smoke: Smoke, root: str, card: str) -> dict:
 
 # ---- the data axis: two ranks on one card, and NCCL at world size 1 ------------
 
-# One rank of a world that torchrun launched: the kernel launch counts set to
-# 0 just before each run of ``python -m scgrhc_torch <argv>`` (``reps`` runs in
-# one process group; with one run the CLI joins the group itself, from
-# torchrun's environment), the files the rank wrote under <exp> (an audit
-# hook) and each run's seconds, written as JSON to <out>.<rank>.
+# One rank of a world of two on this card (launched by torchrun, or by
+# _ranks with the environment torchrun gives): each argv of <runs> through
+# ``python -m scgrhc_torch`` (with several runs, in one process group made
+# first; with one, the CLI joins the group itself, from the environment),
+# the kernel launch counts set to 0 just before each run and read just
+# after, each run's seconds, and the files the rank wrote under <exp> (an
+# audit hook), as JSON to <out>.<rank>.
 _DIST_PROC = r"""
 import importlib, json, os, sys, time
-out, exp, kernels, reps = sys.argv[1], sys.argv[2], json.loads(sys.argv[3]), int(sys.argv[4])
-argv = sys.argv[5:]
+out, exp, kernels, runs = sys.argv[1], sys.argv[2], json.loads(sys.argv[3]), json.loads(sys.argv[4])
 writes = []
 def audit(event, args):
     if event in ("open", "os.rename", "os.replace", "os.remove"):
@@ -2785,21 +2796,21 @@ from scgrhc_torch.__main__ import main
 from scgrhc_torch.parallel import comm
 fns = {k: getattr(importlib.import_module("scgrhc_torch.ops.kernels." + m), k)
        for k, m in kernels.items()}
-if reps > 1:
-    comm.init_distributed(device=argv[argv.index("--device") + 1])
-secs, launches = [], []
-for _ in range(reps):
+if len(runs) > 1:
+    comm.init_distributed(device=runs[0][runs[0].index("--device") + 1])
+secs, launches, rcs = [], [], []
+for argv in runs:
     for fn in fns.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    rc = main(argv)
+    rcs.append(main(argv))
     torch.cuda.synchronize()
     secs.append(time.perf_counter() - t0)
     launches.append({k: fn.launches for k, fn in fns.items()})
 rank = int(os.environ["RANK"])
 comm.destroy()
 with open(f"{out}.{rank}", "w") as f:
-    json.dump({"rank": rank, "rc": rc, "secs": secs, "launches": launches, "writes": writes}, f)
+    json.dump({"rank": rank, "rcs": rcs, "secs": secs, "launches": launches, "writes": writes}, f)
 """
 # ``predict --mesh`` at world size 2 against world size 1 on the same card:
 # each rank runs blocks of 256 windows where one process runs 512, and the
@@ -2829,7 +2840,7 @@ def _torchrun(root: str, name: str, exp: str, argv: list[str], env: dict,
         f.write(_DIST_PROC)
     out = os.path.join(root, f"dist_{name}")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node=2",
-           script, out, exp, json.dumps(ALL_KERNELS), str(reps), *argv]
+           script, out, exp, json.dumps(ALL_KERNELS), json.dumps([argv] * reps)]
     env = dict(os.environ, PYTHONPATH=here, **env)
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=subprocess.PIPE,
@@ -2867,7 +2878,7 @@ def dist_pipeline(torch, smoke: Smoke, root: str, card: str, world_one: dict) ->
                                data_backend="device"))
     ranks, wall, log = _torchrun(root, "pipeline", d, [d, "--device", "cuda:0"],
                                  {"SCGRHC_DATA": os.path.join(root, "db")})
-    if not smoke.check(len(ranks) == 2 and all(r["rc"] == 0 for r in ranks),
+    if not smoke.check(len(ranks) == 2 and all(rc == 0 for r in ranks for rc in r["rcs"]),
                        f"torchrun -m scgrhc_torch <dir> at world size 2:\n{log[-3000:]}"):
         return {"wall_s": wall}
     smoke.check("2 rank(s) over gloo" in log, "the world of two ranks on one card is not gloo's")
@@ -2974,6 +2985,7 @@ def nccl_world_one(torch, smoke: Smoke, root: str, card: str) -> dict:
                        and comm.on_primary("x", lambda: 1) == 1)
         comm.barrier("nccl")
         dp, dp_losses, dp_ms, launches = steps(DataParallelTrainer(make_mesh()))
+        cp = _cp_world_one(torch, smoke, card)
     finally:
         comm.destroy()
     again, again_losses, plain_ms, _ = steps(None)
@@ -2992,14 +3004,57 @@ def nccl_world_one(torch, smoke: Smoke, root: str, card: str) -> dict:
           f"launches {launches}; NCCL at two or more cards: unverified (one card here); "
           f"on {card}", flush=True)
     return {"backend": backend, "equal": same, "ms_per_step": dp_ms,
-            "plain_ms_per_step": plain_ms, "launches": launches}
+            "plain_ms_per_step": plain_ms, "launches": launches, "apply_cp": cp}
+
+
+def _cp_world_one(torch, smoke: Smoke, card: str) -> dict:
+    """Inside a world of one rank over NCCL: ``apply_cp`` on a 600-s record
+    (300,000 steps, random weights, inputs uniform in [0, 1) like the
+    normalized record) against ``apply_continuous``, bit for bit (the
+    phases run the one-launch layer's row kernels, and one rank's sums are
+    the whole record's), 14 launches of each phase; both timed warm."""
+    from scgrhc_torch.models.cp import apply_continuous, apply_cp
+    from scgrhc_torch.models.generator import Generator
+    from scgrhc_torch.parallel.mesh import TIME_AXIS, make_mesh
+
+    gen = Generator(len(CHANNELS), torch.Generator().manual_seed(1234)).cuda().eval()
+    n = int(RECORDS[0][1] * 500)
+    x = torch.rand(len(CHANNELS), n, device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(9))
+    mesh = make_mesh(axis=TIME_AXIS)
+    fns = _kernel_counters()
+    with torch.inference_mode():
+        want = apply_continuous(gen, x[None])
+        for fn in fns.values():
+            fn.launches = 0
+        got = apply_cp(gen, x, mesh)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in fns.items() if fn.launches}
+        cp_ms = _time_ms(torch, lambda: apply_cp(gen, x, mesh), reps=2, warmup=0)
+        cont_ms = _time_ms(torch, lambda: apply_continuous(gen, x[None]), reps=2, warmup=0)
+    same = bool(torch.equal(got, want))
+    err = float((got - want).abs().max())
+    smoke.check(same, f"apply_cp over NCCL at world size 1 differs from apply_continuous: "
+                      f"max-abs {err}")
+    smoke.check(launches == {"conv_in_relu_part": 14, "conv_in_relu_apply": 14},
+                f"apply_cp at world size 1: launches {launches}")
+    print(f"nccl apply_cp: a 600-s record ({n} steps) time-sharded over a world of one rank "
+          f"(NCCL), {'equal' if same else 'NOT equal'} bit for bit to apply_continuous "
+          f"(max-abs {err:.3g}); {cp_ms:.1f} ms against {cont_ms:.1f} ms; launches {launches}; "
+          f"on {card}", flush=True)
+    return {"equal": same, "max_abs_err": err, "ms": cp_ms, "continuous_ms": cont_ms,
+            "launches": launches}
+
+
+DIST_PREDICT_RUNS = 4  # the first cold, the others warm: their spread
 
 
 def dist_predict(torch, smoke: Smoke, root: str, card: str, serve_exp: str) -> dict:
     """``predict <dir> LONG030 last --mesh`` (1800 s, 1200 windows in chunks
     of 512, 512 and 176) at world size 2 (torchrun, both ranks on this card
-    over gloo, two runs in one group) against world size 1 in this process
-    (``--mesh`` a mesh of one), both timed warm."""
+    over gloo, DIST_PREDICT_RUNS runs in one group: the warm runs' spread)
+    against world size 1 in this process (``--mesh`` a mesh of one), both
+    timed warm."""
     from scgrhc_torch.core import paths
     from scgrhc_torch.core.params import Params
     from scgrhc_torch.pipeline import predict
@@ -3019,10 +3074,11 @@ def dist_predict(torch, smoke: Smoke, root: str, card: str, serve_exp: str) -> d
         one_ms.append((time.perf_counter() - t0) * 1e3)
     one_launches = {k: fn.launches for k, fn in fns.items() if fn.launches}
     want = np.load(path)
+    _REFS["windowed"] = ("LONG030", want, one_ms[-1])
     argv = ["predict", serve_exp, "LONG030", "last", "--mesh", "--device", "cuda:0"]
     ranks, wall, log = _torchrun(root, "predict", serve_exp, argv, {"SCGRHC_DATA": data_root},
-                                 reps=2)
-    if not smoke.check(len(ranks) == 2 and all(r["rc"] == 0 for r in ranks),
+                                 reps=DIST_PREDICT_RUNS)
+    if not smoke.check(len(ranks) == 2 and all(rc == 0 for r in ranks for rc in r["rcs"]),
                        f"torchrun -m scgrhc_torch predict --mesh:\n{log[-3000:]}"):
         return {"wall_s": wall}
     got = np.load(os.path.join(serve_exp, "predictions", "LONG030.npy"))
@@ -3036,27 +3092,438 @@ def dist_predict(torch, smoke: Smoke, root: str, card: str, serve_exp: str) -> d
         smoke.check(got_l == {"conv_in_relu": 42, "normalize_windows": 3},
                     f"predict --mesh rank {r}: launches {got_l}")
     two_ms = [s * 1e3 for s in ranks[0]["secs"]]
+    warm = two_ms[1:]
     print(f"dist predict --mesh: LONG030 (1800 s, 1200 windows), world size 2 (2 ranks on one "
-          f"card over gloo) {two_ms[-1]:.1f} ms warm ({two_ms[0]:.1f} cold, the launch "
-          f"{wall:.1f} s with process start), world size 1 {one_ms[-1]:.1f} ms warm; max-abs "
-          f"{err:.3g} (tol {TOL_MESH:g}); launches a rank {ranks[0]['launches'][-1]}, world 1 "
-          f"{one_launches}; rank 1 wrote nothing; on {card}", flush=True)
+          f"card over gloo) {len(warm)} warm runs {', '.join(f'{v:.1f}' for v in warm)} ms "
+          f"(min {min(warm):.1f}, max {max(warm):.1f}, mean {sum(warm) / len(warm):.1f}; "
+          f"{two_ms[0]:.1f} cold, the launch {wall:.1f} s with process start), world size 1 "
+          f"{one_ms[-1]:.1f} ms warm; max-abs {err:.3g} (tol {TOL_MESH:g}); launches a rank "
+          f"{ranks[0]['launches'][-1]}, world 1 {one_launches}; rank 1 wrote nothing; on {card}",
+          flush=True)
     return {"world_two_ms": two_ms, "world_one_ms": one_ms, "launch_wall_s": wall,
-            "max_abs_err": err, "launches": [r["launches"][-1] for r in ranks]}
+            "warm_spread_ms": [min(warm), max(warm)], "max_abs_err": err,
+            "launches": [r["launches"][-1] for r in ranks]}
+
+
+# ---- the time, stage and model axes: two ranks on one card ------------------
+
+K_BLOCK = int(RECORDS[0][1] * 500) // 2  # a rank's block of the 600-s record at world size 2
+K_SHORT = 5_000  # a block below K1f's 8,192-step row piece
+# A continuous prediction at world size 2 against world size 1 on the card:
+# the convs give the same bits (a block's edge columns are its neighbour's,
+# and the conv core's sums do not depend on a column's tile), but every
+# instance norm adds its row sums per block and then across the ranks, in
+# another order than one rank's pieces.  The forward amplifies f32 rounding
+# on this record and seed: each f32 path, world size 1's, world size 2's and
+# the CPU's, sits 1.4e-3 to 2.4e-3 from float64 (outputs within about
+# [-4.5, 3.0]), so two of them differ by up to about their sum: held to
+# TOL_SERVE's envelope, and each to float64 within ENVELOPE_FACTOR times
+# the CPU's own distance.
+TOL_CP = TOL_SERVE
+# The 1x2 tensor-parallel forward against the replicated one: K1f's rows
+# are the same at O/2 channels, but the up-convs' and the attention psi's
+# sums are split over the two ranks and all-reduced.
+TOL_TP = 1e-4
+N_PP, MB_PP = 17, 4  # pipeline_infer's windows and microbatch
+N_TP = 64  # the tensor-parallel forward's windows
+
+
+def check_time_sharded_k1f(torch, smoke: Smoke) -> dict:
+    """K1f's two time-sharded phases (conv_in_relu_part, conv_in_relu_apply)
+    against their plain versions at the 14 layer shapes of a 600-s record's
+    block at world size 2 (N = 1, 150,000 steps and the two halo columns,
+    all of it uniform in [0, 1): non-zero halos), with the row sums doubled
+    as a second block of the same statistics would make them; then below
+    8,192 steps, a record of 2 x 5,000 steps cut in two blocks (each with
+    the other's edge column) against the whole-record layer.  Times of the
+    two phases and of their plain versions at each shape (the sums held
+    against the sum of their terms' magnitudes); bounds: the
+    convs' operations at the f32 FMA peak and at 3xTF32, and the bytes of
+    the halo'd block in and y out."""
+    from scgrhc_torch.ops.kernels import conv_block as k1f
+
+    k = K_BLOCK
+    shapes = [(cin, o) for cin, o, _ in _layer_shapes(len(CHANNELS))]
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def inputs(cin, o, steps):
+        bound = 1.0 / math.sqrt(cin * 3)
+        return (torch.rand(1, cin, steps, device="cuda", generator=gen),
+                (torch.rand(o, cin, 3, device="cuda", generator=gen) * 2 - 1) * bound,
+                (torch.rand(o, device="cuda", generator=gen) * 2 - 1) * bound)
+
+    def layer(part, apply, xh, w, b):
+        c, sums = part(xh, w, b)
+        return c, sums, apply(c, sums * 2, 2 * k, xh.dtype)
+
+    def kernel(xh, w, b):
+        return layer(k1f.conv_in_relu_part, k1f.conv_in_relu_apply, xh, w, b)
+
+    def plain(xh, w, b):
+        return layer(k1f.conv_in_relu_part_plain, k1f.conv_in_relu_apply_plain, xh, w, b)
+
+    per_shape, err, sums_err = {}, 0.0, 0.0
+    for cin, o in dict.fromkeys(shapes):
+        xh, w, b = inputs(cin, o, k + 2)
+        (_, sums, y), (pc, psums, py) = kernel(xh, w, b), plain(xh, w, b)
+        e = float((y - py).abs().max())
+        # each sum against the sum of its terms' magnitudes
+        scale = torch.stack((pc[..., 1:-1].abs().sum(-1).reshape(-1), psums[:, 1]), -1)
+        se = float(((sums - psums).abs() / scale).max())
+        del pc
+        err, sums_err = max(err, e), max(sums_err, se)
+        del y, py
+        flops, nbytes = 6.0 * cin * o * k, 4.0 * (cin * (k + 2) + o * k)
+        per_shape[f"{cin}x{o}"] = rec = {
+            "layers": shapes.count((cin, o)), "max_abs_err": e, "sums_rel_err": se,
+            "ms": _time_ms(torch, lambda: kernel(xh, w, b), reps=3, warmup=1),
+            "plain_ms": _time_ms(torch, lambda: plain(xh, w, b), reps=3, warmup=1),
+            "flop_bound_ms": flops / PEAK_F32_FLOPS * 1e3,
+            "rate_bound_ms": flops / PEAK_TF32X3_FLOPS * 1e3,
+            "byte_bound_ms": nbytes / PEAK_BYTES * 1e3}
+        print(f"conv_in_relu time-sharded N=1 C_in={cin} O={o} block {k} (+2 halo): max abs "
+              f"err kernel vs plain {e:.3g}, sums rel {se:.3g}; both phases {rec['ms']:.3f} ms, "
+              f"plain {rec['plain_ms']:.3f} ms", flush=True)
+        del xh, w, b
+    # below one row piece: two real blocks against the whole-record layer
+    x, w, b = inputs(64, 128, 2 * K_SHORT)
+    z = torch.zeros_like(x[..., :1])
+    blocks = (torch.cat((z, x[..., :K_SHORT], x[..., K_SHORT:K_SHORT + 1]), -1),
+              torch.cat((x[..., K_SHORT - 1:K_SHORT], x[..., K_SHORT:], z), -1))
+    parts = [k1f.conv_in_relu_part(xh, w, b) for xh in blocks]
+    total = parts[0][1] + parts[1][1]
+    y = torch.cat([k1f.conv_in_relu_apply(c, total, 2 * K_SHORT, x.dtype) for c, _ in parts], -1)
+    short = float((y - k1f.conv_in_relu_plain(x, w, b)).abs().max())
+    err = max(err, short)
+    smoke.check(err <= TOL_F32, f"conv_in_relu time-sharded phases: max abs err {err}")
+    smoke.check(sums_err <= TOL_F32, f"conv_in_relu_part sums: rel err {sums_err}")
+    total = {key: sum(r[key] * r["layers"] for r in per_shape.values())
+             for key in ("ms", "plain_ms", "flop_bound_ms", "rate_bound_ms", "byte_bound_ms")}
+    bound = max(total["flop_bound_ms"], total["byte_bound_ms"])
+    print(f"conv_in_relu time-sharded, the 14 layers of a rank's block ({k} steps) of a 600-s "
+          f"record at world size 2: both phases {total['ms']:.2f} ms, plain "
+          f"{total['plain_ms']:.2f} ms, bound {bound:.2f} ms (f32 FMA), "
+          f"{total['rate_bound_ms']:.2f} ms at 3xTF32; two "
+          f"blocks of {K_SHORT} against the whole-record layer: max abs err {short:.3g}",
+          flush=True)
+    return {**total, "bound_ms": bound, "max_abs_err": err, "sums_rel_err": sums_err,
+            "short_blocks_max_abs_err": short, "per_shape": per_shape,
+            "bound_by": "operations" if total["flop_bound_ms"] >= total["byte_bound_ms"]
+            else "bytes"}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _ranks(root: str, name: str, script: str, args: list[str], env: dict, stdin: str = "",
+           timeout: float = 600) -> tuple[list[dict], list[str], float]:
+    """``script`` as two ranks of a world on this card, launched here with the
+    environment torchrun would give them (``RANK``, ``WORLD_SIZE``,
+    ``MASTER_ADDR``, ``MASTER_PORT``), ``stdin`` to rank 0: each rank's JSON
+    record (``<out>.<rank>``; none for a rank that failed), each rank's
+    output, and the wall time (process start included).  Every process is
+    killed if the world runs over ``timeout``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(root, f"{name}_proc.py")
+    with open(path, "w") as f:
+        f.write(script)
+    out = os.path.join(root, f"dist_{name}")
+    base = dict(os.environ, PYTHONPATH=here, WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                MASTER_PORT=str(_free_port()), **env)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, path, out, *args], cwd=here,
+                              env=dict(base, RANK=str(r), LOCAL_RANK=str(r)),
+                              stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, start_new_session=True)
+             for r in range(2)]
+    logs = []
+    try:
+        for r, proc in enumerate(procs):
+            logs.append(proc.communicate(stdin if r == 0 else "", timeout=timeout)[0])
+    except subprocess.TimeoutExpired:
+        for proc in procs:
+            os.killpg(proc.pid, 9)
+        logs = [proc.communicate()[0] + f"\nkilled after {timeout} s" for proc in procs]
+    wall = time.perf_counter() - t0
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, f"chip_smoke_dist_{name}.log"), "w") as f:
+        f.write("\n".join(f"== rank {r}\n{log}" for r, log in enumerate(logs)))
+    recs = []
+    for r, proc in enumerate(procs):
+        if proc.returncode == 0 and os.path.exists(f"{out}.{r}"):
+            with open(f"{out}.{r}") as f:
+                recs.append(json.load(f))
+    return recs, logs, wall
+
+
+CP_RUNS = 3  # predict --continuous on the 600-s record: the first cold
+
+
+def _odd_record(torch, exp: str) -> str:
+    """A 600.002-s record (300,001 samples: an odd length) beside the
+    serving phase's records."""
+    from scgrhc_torch.core import paths
+    from scgrhc_torch.io.wfdb import rdrecord, wrrecord
+    from scgrhc_torch.utils.synth import make_synthetic_database
+
+    root = os.path.dirname(exp)
+    other = make_synthetic_database(os.path.join(root, "ODD0600"), n_records=1,
+                                    duration_s=600.002, seed=7, flatline_in_first=False)
+    rec = rdrecord(os.path.join(other, "SYN000"))
+    wrrecord(os.path.join(paths.PROCESSED_DATA_PATH, "ODD0600"), rec.fs, rec.sig_name,
+             rec.p_signal)
+    return "ODD0600"
+
+
+def dist_cp_serve(torch, smoke: Smoke, root: str, card: str, serve_exp: str) -> dict:
+    """The time axis and serving over two ranks on this card (gloo), in one
+    launch: ``predict <dir> SYN000 last --continuous`` CP_RUNS times (the
+    600-s record: time-sharded, 14 launches of each K1f phase a rank), then
+    on an odd-length record (``apply_continuous`` on each rank, 14 K1f
+    launches), then a ``serve --mesh`` daemon answering, in order, a
+    windowed request past one chunk (LONG030: its windows split over the
+    ranks), a continuous request (SYN000, time-sharded), ``ping``, a bad
+    record name (one error line; the daemon carries on) and ``quit``.
+    Against world size 1 in this process: the continuous waveforms within
+    TOL_CP (the odd record's equal bit for bit), and each held to float64
+    within ENVELOPE_FACTOR times the CPU f32 path's distance (the continuous
+    phase's reference); the windowed answer within TOL_MESH of ``predict
+    --mesh`` at world size 1.  Rank 1 writes nothing and prints no answer."""
+    from scgrhc_torch.core import paths
+    from scgrhc_torch.core.params import Params
+    from scgrhc_torch.pipeline import predict
+
+    params = Params(os.path.join(serve_exp, "params.json"))
+    paths.set_data_path(os.path.join(os.path.dirname(serve_exp), "db"))
+    odd = _odd_record(torch, serve_exp)
+    rec600 = RECORDS[0][0]
+    one, one_ms = {}, []
+    for name in (rec600, rec600, odd):
+        t0 = time.perf_counter()
+        path = predict.run(params, name, "last", continuous=True, device="cuda",
+                           out_dir=os.path.join(root, "cp_one"))
+        torch.cuda.synchronize()
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+        one[name] = np.load(path)
+    base = ["--device", "cuda:0"]
+    runs = ([["predict", serve_exp, rec600, "last", "--continuous", *base]] * CP_RUNS
+            + [["predict", serve_exp, odd, "last", "--continuous", *base],
+               ["serve", serve_exp, "last", "--mesh", *base]])
+    requests = [{"record": "LONG030"}, {"record": rec600, "continuous": True, "save": False},
+                {"cmd": "ping"}, {"record": "../etc/passwd"}, {"cmd": "quit"}]
+    recs, logs, wall = _ranks(root, "cp_serve", _DIST_PROC,
+                              [serve_exp, json.dumps(ALL_KERNELS), json.dumps(runs)],
+                              {"SCGRHC_DATA": paths.DATA_PATH},
+                              stdin="".join(json.dumps(r) + "\n" for r in requests))
+    if not smoke.check(len(recs) == 2 and all(rc == 0 for r in recs for rc in r["rcs"]),
+                       "dist cp/serve: " + "\n".join(log[-3000:] for log in logs)):
+        return {"wall_s": wall}
+    report = {"wall_s": wall, "world_one_ms": one_ms}
+    pred = os.path.join(serve_exp, "predictions")
+    for rec in recs:
+        rec["launches"] = [{k: v for k, v in run.items() if v} for run in rec["launches"]]
+    for r, rec in enumerate(recs):
+        for i in range(CP_RUNS):
+            smoke.check(rec["launches"][i] == {"conv_in_relu_part": 14, "conv_in_relu_apply": 14},
+                        f"predict --continuous at world size 2, rank {r}: launches "
+                        f"{rec['launches'][i]}")
+        smoke.check(rec["launches"][CP_RUNS] == {"conv_in_relu": 14},
+                    f"predict --continuous on {odd} at world size 2, rank {r}: launches "
+                    f"{rec['launches'][CP_RUNS]}")
+        smoke.check(rec["launches"][-1] == {"conv_in_relu": 42, "normalize_windows": 3,
+                                            "conv_in_relu_part": 14, "conv_in_relu_apply": 14},
+                    f"serve --mesh at world size 2, rank {r}: launches {rec['launches'][-1]}")
+    smoke.check(recs[1]["writes"] == [], f"dist cp/serve: rank 1 wrote {recs[1]['writes'][:5]}")
+    smoke.check({f"predictions/{n}.npy" for n in (rec600, odd, "LONG030")}
+                <= set(recs[0]["writes"]),
+                f"dist cp/serve: rank 0 wrote {recs[0]['writes']}")
+    errs = {}
+    two600 = np.load(os.path.join(pred, f"{rec600}.npy"))
+    errs["predict_continuous"] = float(np.abs(two600 - one[rec600]).max())
+    smoke.check(two600.shape == one[rec600].shape and errs["predict_continuous"] <= TOL_CP,
+                f"predict --continuous {rec600} at world size 2 against 1: "
+                f"{errs['predict_continuous']}")
+    refs = _REFS.get("continuous")
+    if smoke.check(refs is not None and refs[0] == rec600,
+                   "dist cp: no float64 reference from the continuous phase"):
+        _, ref, cpu_err = refs
+        for key, wave in (("world_two_vs_f64", two600), ("world_one_vs_f64", one[rec600])):
+            errs[key] = float(np.abs(wave - ref).max())
+            smoke.check(errs[key] <= ENVELOPE_FACTOR * cpu_err,
+                        f"continuous {rec600} {key} {errs[key]}, over {ENVELOPE_FACTOR} x the "
+                        f"cpu's f32 {cpu_err}")
+        errs["cpu_vs_f64"] = cpu_err
+    two_odd = np.load(os.path.join(pred, f"{odd}.npy"))
+    errs["odd_equal"] = bool(np.array_equal(two_odd, one[odd]))
+    smoke.check(errs["odd_equal"], f"predict --continuous on {odd}: world size 2 differs from 1")
+    answers = [json.loads(line) for line in logs[0].splitlines() if line.startswith("{")]
+    smoke.check(not any(line.startswith("{") for line in logs[1].splitlines()),
+                "serve at world size 2: rank 1 printed an answer")
+    if smoke.check(len(answers) == 4 and "error" in answers[3]
+                   and answers[2] == {"ok": True, "checkpoint": "001.checkpoint"},
+                   f"serve at world size 2: answers {[str(a)[:200] for a in answers]}"):
+        windowed = np.load(answers[0]["path"])
+        _, want_w, one_w_ms = _REFS["windowed"]
+        errs["serve_windowed"] = float(np.abs(windowed - want_w).max())
+        smoke.check(windowed.shape == want_w.shape and errs["serve_windowed"] <= TOL_MESH,
+                    f"serve LONG030 at world size 2 against predict --mesh at 1: "
+                    f"{errs['serve_windowed']}")
+        cont = np.asarray(answers[1]["waveform"], dtype=np.float32)
+        errs["serve_continuous"] = float(np.abs(cont - one[rec600]).max())
+        smoke.check(errs["serve_continuous"] <= TOL_CP,
+                    f"serve {rec600} continuous at world size 2 against 1: "
+                    f"{errs['serve_continuous']}")
+        report["serve_ms"] = {"windowed": answers[0]["ms"], "continuous": answers[1]["ms"],
+                              "world_one_windowed": one_w_ms,
+                              "world_one_continuous": one_ms[1]}
+    two_ms = [v * 1e3 for v in recs[0]["secs"][:CP_RUNS]]
+    report.update(world_two_ms=two_ms, max_abs_err=errs,
+                  launches=[r["launches"] for r in recs])
+    print(f"dist predict --continuous: {rec600} (600 s) at world size 2 (2 ranks on one card "
+          f"over gloo, apply_cp: 20 halo exchanges, 23 norm all-reduces and 1 gather a forward) "
+          f"{', '.join(f'{v:.1f}' for v in two_ms[1:])} ms warm ({two_ms[0]:.1f} cold), world "
+          f"size 1 {one_ms[1]:.1f} ms warm, max-abs {errs['predict_continuous']:.3g} (tol "
+          f"{TOL_CP:g}); {odd} (odd length, apply_continuous on each rank) "
+          f"{recs[0]['secs'][CP_RUNS] * 1e3:.1f} ms, equal to world size 1 {errs['odd_equal']}; "
+          f"launches a rank {recs[0]['launches'][CP_RUNS - 1]}; rank 1 wrote nothing; on {card}",
+          flush=True)
+    if "serve_ms" in report:
+        sm = report["serve_ms"]
+        print(f"dist serve --mesh: 2 ranks, LONG030 windowed {sm['windowed']} ms (world size 1 "
+              f"predict --mesh {sm['world_one_windowed']:.1f} ms), {rec600} continuous "
+              f"{sm['continuous']} ms (world size 1 {sm['world_one_continuous']:.1f} ms), ping, "
+              f"a bad name answered with an error, quit; max abs err " + ", ".join(
+                  f"{k} {v:.3g}" for k, v in errs.items() if isinstance(v, float))
+              + f" (tol {TOL_CP:g} continuous, {TOL_MESH:g} windowed, f64 within "
+              f"{ENVELOPE_FACTOR:g} x cpu); launch {wall:.1f} s with process start; on {card}",
+              flush=True)
+    return report
+
+
+# One rank: pipeline_infer over the stage axis (N_PP windows, microbatch
+# MB_PP) and the 1x2 tensor-parallel forward (N_TP windows), each against
+# the world-size-1 forward of the same weights in this rank, with the
+# launches of each path and warm times, as JSON to <out>.<rank>.
+_PP_TP_PROC = r"""
+import importlib, json, sys, time
+out, kernels, n_pp, mb, n_tp = sys.argv[1], json.loads(sys.argv[2]), *map(int, sys.argv[3:6])
+import torch
+from scgrhc_torch.core.device import resolve_device
+from scgrhc_torch.models.generator import Generator
+from scgrhc_torch.parallel import comm, pp, tp
+comm.init_distributed(device="cuda:0")
+dev = resolve_device("cuda:0")
+fns = {k: getattr(importlib.import_module("scgrhc_torch.ops.kernels." + m), k)
+       for k, m in kernels.items()}
+gen = Generator(4, torch.Generator().manual_seed(1234)).to(dev).eval()
+rng = torch.Generator().manual_seed(7)
+def run(fn, reps=3):
+    for f in fns.values():
+        f.launches = 0
+    y = fn()
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in fns.items() if f.launches}
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return y, launches, ms
+rec = {"rank": comm.process_index()}
+stage = pp.make_pp_mesh()
+model = tp.shard_params(gen, tp.make_dp_tp_mesh(1, 2))
+paths = {"pp": (n_pp, lambda x: pp.pipeline_infer(gen, x, stage, microbatch=mb)),
+         "tp": (n_tp, model)}
+with torch.inference_mode():
+    for name, (n, fn) in paths.items():
+        x = torch.rand(n, 4, 750, generator=rng).to(dev)
+        ref, ref_launches, ref_ms = run(lambda: gen(x))
+        y, launches, ms = run(lambda: fn(x))
+        rec[name] = {"max_abs_err": float((y - ref).abs().max()), "shape": list(y.shape),
+                     "finite": bool(torch.isfinite(y).all()), "launches": launches, "ms": ms,
+                     "world_one_launches": ref_launches, "world_one_ms": ref_ms}
+comm.destroy()
+with open(f"{out}.{rec['rank']}", "w") as f:
+    json.dump(rec, f)
+"""
+
+
+def dist_pp_tp(torch, smoke: Smoke, root: str, card: str) -> dict:
+    """``pipeline_infer`` over a 2-rank stage axis (N_PP windows at T = 750
+    in microbatches of MB_PP, one padded row) and the 1x2 tensor-parallel
+    forward (``tp.shard_params`` on ``make_dp_tp_mesh(1, 2)``, N_TP
+    windows), both ranks on this card over gloo, each against the
+    world-size-1 eval forward of the same seeded weights; K1f launches a
+    rank: 8 a microbatch on stage 0, 6 on stage 1; 14 a forward at O/2 on
+    each tensor-parallel rank."""
+    recs, logs, wall = _ranks(root, "pp_tp", _PP_TP_PROC,
+                              [json.dumps(ALL_KERNELS), str(N_PP), str(MB_PP), str(N_TP)], {})
+    if not smoke.check(len(recs) == 2, "dist pp/tp: " + "\n".join(l[-3000:] for l in logs)):
+        return {"wall_s": wall}
+    n_mb = -(-N_PP // MB_PP)
+    for r, rec in enumerate(recs):
+        for name, n, want in (("pp", N_PP, {"conv_in_relu": (8 if r == 0 else 6) * n_mb}),
+                              ("tp", N_TP, {"conv_in_relu": 14})):
+            got = rec[name]
+            tol = TOL_MESH if name == "pp" else TOL_TP
+            smoke.check(got["shape"] == [n, 1, T] and got["finite"]
+                        and got["max_abs_err"] <= tol,
+                        f"dist {name} rank {r}: shape {got['shape']}, max-abs "
+                        f"{got['max_abs_err']} (tol {tol})")
+            smoke.check(got["launches"] == want, f"dist {name} rank {r}: launches "
+                                                 f"{got['launches']}, expected {want}")
+    for name, what in (("pp", f"pipeline_infer ({N_PP} windows, microbatch {MB_PP})"),
+                       ("tp", f"1x2 tensor-parallel forward ({N_TP} windows)")):
+        a = recs[0][name]
+        print(f"dist {name}: {what} at world size 2 (one card, gloo) "
+              f"{', '.join(f'{v:.1f}' for v in a['ms'])} ms, world size 1 "
+              f"{', '.join(f'{v:.1f}' for v in a['world_one_ms'])} ms; max-abs "
+              f"{max(r[name]['max_abs_err'] for r in recs):.3g}; launches rank 0 "
+              f"{a['launches']}, rank 1 {recs[1][name]['launches']}; on {card}", flush=True)
+    return {"wall_s": wall, "pp": [r["pp"] for r in recs], "tp": [r["tp"] for r in recs]}
 
 
 def dist_end_to_end(torch, smoke: Smoke, root: str, card: str, world_one: dict,
                     serve_exp: str) -> dict:
-    """The data axis on one card (module doc): the pipeline and ``predict
-    --mesh`` at world size 2 over gloo, and DP steps over NCCL at world size
-    1."""
+    """The parallel tier on one card (module doc): the pipeline and
+    ``predict --mesh`` at world size 2 over gloo, DP steps and ``apply_cp``
+    over NCCL at world size 1; K1f's time-sharded phases against their
+    plain versions; continuous prediction and the ``serve --mesh`` daemon
+    at world size 2; ``pipeline_infer`` and the tensor-parallel forward at
+    world size 2."""
     t0 = time.perf_counter()
     out = {"pipeline": dist_pipeline(torch, smoke, root, card, world_one),
            "nccl": nccl_world_one(torch, smoke, root, card),
-           "predict": dist_predict(torch, smoke, root, card, serve_exp)}
+           "predict": dist_predict(torch, smoke, root, card, serve_exp),
+           "time_sharded_k1f": check_time_sharded_k1f(torch, smoke),
+           "cp_serve": dist_cp_serve(torch, smoke, root, card, serve_exp),
+           "pp_tp": dist_pp_tp(torch, smoke, root, card)}
     out["seconds"] = time.perf_counter() - t0
     print(f"dist phase: {out['seconds']:.1f} s", flush=True)
     return out
+
+
+def _time_sharded_entry(dist: dict) -> dict:
+    """K1f's time-sharded phases for the kernels line: the launches of a
+    rank in the time-sharded predict run (the main path of the time axis),
+    and the phases' error, times and bounds at a 600-s record's block at
+    world size 2 (check_time_sharded_k1f)."""
+    k = dist.get("time_sharded_k1f", {})
+    runs = dist.get("cp_serve", {}).get("launches", [[{}]])[0]
+    main_path = runs[CP_RUNS - 1] if len(runs) >= CP_RUNS else {}
+    return {"sources": ["scgrhc_torch/csrc/conv_in_relu.cu:scgrhc_conv_in_relu_part",
+                        "scgrhc_torch/csrc/conv_in_relu.cu:scgrhc_conv_in_relu_apply"],
+            "launches_part": main_path.get("conv_in_relu_part", 0),
+            "launches_apply": main_path.get("conv_in_relu_apply", 0),
+            **{key: k.get(key) for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                           "bound_by", "rate_bound_ms")},
+            "library_ms": None}
 
 
 def main() -> int:
@@ -3152,6 +3619,7 @@ def main() -> int:
          "bound_by": k1f["bound_by"], "library_ms": None,
          "rate_bound_ms": k1f["rate_bound_ms"],
          "continuous_launches": sum(r["k1f"] for r in whole["serve"]["requests"]),
+         "time_sharded": _time_sharded_entry(dist),
          "whole_record": {k: whole["kernel"][k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "rate_bound_ms", "max_kernel_vs_f64")}},
         {"name": "normalize_windows", "route": "cuda",

@@ -9,10 +9,11 @@ Over N cards, one process per card: ``torchrun --nproc-per-node=N -m
 scgrhc_torch <dir>`` (or any launcher that sets ``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``).  The CLI then joins
 the process group first (:func:`scgrhc_torch.parallel.comm.init_distributed`,
-whose backend follows ``--device``) and leaves it on exit.  ``serve
---mesh``, serving from more than one rank, ``predict --continuous`` over
-more than one rank and the host-side commands over more than one rank
-(``_SINGLE_RANK``) are not yet ported and are refused.
+whose backend follows ``--device``) and leaves it on exit.  Over ranks,
+``predict --continuous`` and the daemon's continuous requests run
+time-sharded, and ``serve`` answers from rank 0 with every rank computing.
+The host-side commands over more than one rank (``_SINGLE_RANK``) are not
+yet ported and are refused.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ USAGE = (
     "       python -m scgrhc_torch test <dir> <train|valid|test> <all|last|ckpt> [--device D]\n"
     "       python -m scgrhc_torch select <dir>            (host only)\n"
     "       python -m scgrhc_torch serve <dir> [ckpt|best|last] [--calibrate]\n"
-    "                                [--warm N] [--timeout S] [--device D]\n"
+    "                                [--warm N] [--timeout S] [--mesh] [--device D]\n"
     "       python -m scgrhc_torch predict <dir> <record> [ckpt|best|last]\n"
     "                                [--overlap S] [--continuous] [--calibrate]\n"
     "                                [--mesh] [--device D]\n"
@@ -114,14 +115,7 @@ def _refusal(cmd: str, rest: list[str]) -> str | None:
     """What of this command line is not yet ported, or None."""
     from scgrhc_torch.parallel import comm
 
-    world = comm.process_count()
-    if cmd == "serve" and ("--mesh" in rest or world > 1):
-        from scgrhc_torch.pipeline.serve import SERVE_MESH
-
-        return SERVE_MESH
-    if cmd == "predict" and "--continuous" in rest and world > 1:
-        return "continuous prediction over more than one rank (models.cp.apply_cp)"
-    if cmd in _SINGLE_RANK and world > 1:
+    if cmd in _SINGLE_RANK and comm.process_count() > 1:
         return f"{cmd} over more than one rank"
     return None
 
@@ -260,7 +254,7 @@ def _main(cmd: str, argv: list[str], rest: list[str]) -> int:
             params, checkpoint=which, calibrate="--calibrate" in rest,
             warm=_option(rest, "--warm", int, 0),
             timeout=_option(rest, "--timeout", float, None),
-            device=device,
+            mesh="--mesh" in rest, device=device,
         )
     else:
         from scgrhc_torch.pipeline import predict

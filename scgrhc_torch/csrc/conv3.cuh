@@ -29,7 +29,8 @@
 // with conv_stream_kernel and dx_stream_kernel for the forward and dx below
 // 16 output channels, then row_kernel for the modes that need a whole row
 // of c, which goes through an f32 scratch (the in_relu forward's rows past
-// kRowPiece steps in pieces: row_part_kernel, row_apply_kernel).  No pass
+// kRowPiece steps in pieces: row_part_kernel, row_sum_kernel,
+// row_apply_kernel).  No pass
 // holds a whole row of c, so T has no limit; the launchers walk N in chunks of 65535 samples
 // (launch_layer_fwd, launch_layer_bwd).
 // The dw pass (its own note is above dw_mma_kernel) is split over samples
@@ -1011,19 +1012,28 @@ row_kernel(float* __restrict__ c, const T* __restrict__ dy, T* __restrict__ y, i
 // the plain f32 path's on a 600-s record.  row_part_kernel: a block per
 // (row, piece of kRowPiece steps); each thread sums its 32 steps in order,
 // the block adds the threads' sums in a fixed tree, into part (s, q).
-// row_apply_kernel: a block per (row, piece) adds its row's partial sums in
-// a fixed order (a warp: lanes over the pieces, then the warp's tree), so
-// every block of a row takes the same mean and rsig, then normalizes its
-// piece.  The partial sums go to the f32 scratch past c (conv_plan's
-// row_parts).
+// row_sum_kernel: a warp per row adds its pieces in a fixed order (lanes
+// over the pieces, then the warp's tree) into one (s, q) a row.
+// row_apply_kernel: a block per (row, piece) takes its row's (s, q), so
+// every block of a row takes the same mean and rsig, and normalizes its
+// piece.  The partial and row sums go to the f32 scratch past c
+// (conv_plan's row_parts).
+//
+// The time-sharded forward (a record split along time over ranks) runs the
+// same three kernels in two phases, with a cross-rank sum of the row sums
+// between them, and normalizes over the record's length: one rank's block
+// takes the one-launch layer's kernels and bits.  c's rows are ld floats
+// apart (ld = len in the one-launch path, len + 2 for a halo'd block,
+// whose c is read from its column 1).
 constexpr int kRowPiece = 32 * kThreads;
 
 __global__ void __launch_bounds__(kThreads)
-row_part_kernel(const float* __restrict__ c, float2* __restrict__ part, int len, int parts) {
+row_part_kernel(const float* __restrict__ c, float2* __restrict__ part, int len, int ld,
+                int parts) {
   const size_t r = blockIdx.x;
   const int t0 = blockIdx.y * kRowPiece;
   const int t1 = len - t0 < kRowPiece ? len : t0 + kRowPiece;
-  const float* cr = c + r * len;
+  const float* cr = c + r * ld;
   float s = 0.f, q = 0.f;
   for (int t = t0 + threadIdx.x; t < t1; t += kThreads) {
     const float v = cr[t];
@@ -1046,35 +1056,46 @@ row_part_kernel(const float* __restrict__ c, float2* __restrict__ part, int len,
   }
 }
 
+// One warp per row: sums[r] = the row's (s, q) from its parts pieces, in
+// a fixed order.
+__global__ void __launch_bounds__(kThreads)
+row_sum_kernel(const float2* __restrict__ part, float2* __restrict__ sums, int rows, int parts) {
+  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (r >= rows) return;  // whole warps
+  const float2* p = part + (size_t)r * parts;
+  float s = 0.f, q = 0.f;
+  for (int i = lane; i < parts; i += 32) {
+    const float2 v = p[i];
+    s += v.x;
+    q += v.y;
+  }
+  s = warp_sum(s);
+  q = warp_sum(q);
+  if (lane == 0) sums[r] = make_float2(s, q);
+}
+
+// y = relu((c - mean) * rsig) for the row's piece, with mean = s / count
+// and rsig = rsqrt(max(q / count - mean^2, 0) + eps) from the row's sums.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-row_apply_kernel(const float* __restrict__ c, const float2* __restrict__ part,
-                 T* __restrict__ y, int len, int parts) {
+row_apply_kernel(const float* __restrict__ c, int ld, const float2* __restrict__ sums,
+                 T* __restrict__ y, int len, float count) {
   const size_t r = blockIdx.x;
-  __shared__ float2 stat;
-  if (threadIdx.x < 32) {
-    float s = 0.f, q = 0.f;
-    for (int i = threadIdx.x; i < parts; i += 32) {
-      const float2 p = part[r * parts + i];
-      s += p.x;
-      q += p.y;
-    }
-    s = warp_sum(s);
-    q = warp_sum(q);
-    if (threadIdx.x == 0) {
-      const float mean = s / (float)len;
-      float var = q / (float)len - mean * mean;
-      var = var < 0.f ? 0.f : var;
-      stat = make_float2(mean, rsqrtf(var + kEps));
-    }
+  __shared__ float2 norm;
+  if (threadIdx.x == 0) {
+    const float2 a = sums[r];
+    const float mean = a.x / count;
+    float var = a.y / count - mean * mean;
+    var = var < 0.f ? 0.f : var;
+    norm = make_float2(mean, rsqrtf(var + kEps));
   }
   __syncthreads();
-  const float mean = stat.x, rsig = stat.y;
+  const float mean = norm.x, rsig = norm.y;
   const int t0 = blockIdx.y * kRowPiece;
   const int t1 = len - t0 < kRowPiece ? len : t0 + kRowPiece;
-  const size_t base = r * len;
-  for (int t = t0 + threadIdx.x; t < t1; t += kThreads)
-    store(y + base + t, relu((c[base + t] - mean) * rsig));
+  const float* cr = c + r * ld;
+  T* yr = y + r * len;
+  for (int t = t0 + threadIdx.x; t < t1; t += kThreads) store(yr + t, relu((cr[t] - mean) * rsig));
 }
 
 
@@ -1192,10 +1213,11 @@ enum ConvPath { kPathNone = 0, kPathMma = 1, kPathStream = 2 };
 // launchers take the plan of each chunk of samples): the conv kernel's
 // path and grid, the row pass's blocks (row_kernel; 0: none), its pieces
 // a row where the in_relu forward's rows are longer than kRowPiece
-// (row_part_kernel and row_apply_kernel; 0: none), and whether the forward
-// writes c into the wrapper's f32 scratch (n, cout, len) first; with row
-// pieces the scratch holds their (n, cout, row_parts) float2 partial sums
-// after c, from the next even element.
+// (row_part_kernel, row_sum_kernel and row_apply_kernel; 0: none), and
+// whether the forward writes c into the wrapper's f32 scratch (n, cout,
+// len) first; with row pieces the scratch holds their (n, cout, row_parts)
+// float2 partial sums after c, from the next even element, then the
+// (n, cout) float2 row sums.
 struct ConvPlan {
   int path;
   dim3 grid;
@@ -1311,14 +1333,24 @@ cudaError_t launch_row(int blocks, float* c, const T* dy, T* y, int rows, int le
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_row_pieces(int parts, const float* c, float2* part, T* y, int rows, int len,
-                              cudaStream_t stream) {
-  const dim3 grid(rows, parts);
-  row_part_kernel<<<grid, kThreads, 0, stream>>>(c, part, len, parts);
+// The row passes in pieces over c (rows of ld floats, len steps): the
+// partial sums into part, the row sums into sums, then y normalized over
+// count steps.
+cudaError_t launch_row_sums(const float* c, int ld, float2* part, float2* sums, int rows,
+                            int len, cudaStream_t stream) {
+  const int parts = (int)cdiv(len, kRowPiece);
+  row_part_kernel<<<dim3(rows, parts), kThreads, 0, stream>>>(c, part, len, ld, parts);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  row_apply_kernel<T><<<grid, kThreads, 0, stream>>>(c, part, y, len, parts);
+  row_sum_kernel<<<cdiv(rows, kWarps), kThreads, 0, stream>>>(part, sums, rows, parts);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_row_apply(const float* c, int ld, const float2* sums, T* y, int rows, int len,
+                             int count, cudaStream_t stream) {
+  row_apply_kernel<T><<<dim3(rows, cdiv(len, kRowPiece)), kThreads, 0, stream>>>(
+      c, ld, sums, y, len, (float)count);
   return cudaGetLastError();
 }
 
@@ -1349,13 +1381,60 @@ cudaError_t launch_layer_fwd(const void* x, const void* w, const void* b, void* 
       if (err != cudaSuccess) return err;
       if (p.row_parts > 0) {
         float2* part = reinterpret_cast<float2*>(static_cast<float*>(c) +
-                                                 (((size_t)n * cout * len + 1) & ~(size_t)1)) +
-                       (size_t)n0 * cout * p.row_parts;
-        return launch_row_pieces<T>(p.row_parts, cp, part, yp, nc * cout, len, stream);
+                                                 (((size_t)n * cout * len + 1) & ~(size_t)1));
+        float2* sums = part + (size_t)n * cout * p.row_parts + (size_t)n0 * cout;
+        part += (size_t)n0 * cout * p.row_parts;
+        const cudaError_t e = launch_row_sums(cp, len, part, sums, nc * cout, len, stream);
+        if (e != cudaSuccess) return e;
+        return launch_row_apply<T>(cp, len, sums, yp, nc * cout, len, len, stream);
       }
       constexpr int kRow = MODE == kInRelu ? kRowInReluFwd : kRowReluFwd;
       return launch_row<T, kRow>(p.row_blocks, cp, nullptr, yp, nc * cout, len, stream);
     }
+  });
+}
+
+// The time-sharded in_relu forward's first phase (K1f over one block of a
+// record split along time): c = conv1d(xh, w, padding 1) + b over the
+// halo'd block xh (n, cin, len + 2) into the f32 scratch c (n, cout,
+// len + 2), whose columns 1 .. len are the block's conv with its
+// neighbours' edge columns; then each row's (s, q) over those len columns
+// into sums (n * cout float2), through part (n * cout * row_pieces(len)
+// float2): the one-launch path's row_part_kernel and row_sum_kernel, at
+// any len.
+int row_pieces(int len) { return (int)cdiv(len, kRowPiece); }
+
+template <typename T>
+cudaError_t launch_layer_part(const void* xh, const void* w, const void* b, void* c, void* part,
+                              void* sums, int n, int cin, int cout, int len,
+                              cudaStream_t stream) {
+  const int lh = len + 2, parts = row_pieces(len);
+  return over_samples(n, [&](int n0, int nc) {
+    const ConvPlan p = conv_plan(nc, cin, cout, lh, kInRelu, kPassFwd);
+    float* cp = static_cast<float*>(c) + (size_t)n0 * cout * lh;
+    const cudaError_t err = launch_layer_conv<T, float, false>(
+        p, static_cast<const T*>(xh) + (size_t)n0 * cin * lh, static_cast<const T*>(w),
+        static_cast<const T*>(b), cp, cin, cout, lh, stream);
+    if (err != cudaSuccess) return err;
+    return launch_row_sums(cp + 1, lh, static_cast<float2*>(part) + (size_t)n0 * cout * parts,
+                           static_cast<float2*>(sums) + (size_t)n0 * cout, nc * cout, len,
+                           stream);
+  });
+}
+
+// Its second phase: y (n, cout, len) in T = relu((c - mean) * rsig) over
+// c's columns 1 .. len, with each row's mean and rsig from its sums (the
+// first phase's, summed over the ranks) and the record's length count:
+// the one-launch path's row_apply_kernel.
+template <typename T>
+cudaError_t launch_layer_apply(const void* c, const void* sums, void* y, int n, int cout, int len,
+                               int count, cudaStream_t stream) {
+  const int lh = len + 2;
+  return over_samples(n, [&](int n0, int nc) {
+    return launch_row_apply<T>(static_cast<const float*>(c) + (size_t)n0 * cout * lh + 1, lh,
+                               static_cast<const float2*>(sums) + (size_t)n0 * cout,
+                               static_cast<T*>(y) + (size_t)n0 * cout * len, nc * cout, len,
+                               count, stream);
   });
 }
 

@@ -24,11 +24,30 @@
 // warp per (n, o) row, takes the instance norm's statistics over T in a
 // fixed order and writes y.  Rows past 8192 steps (the continuous mode's
 // whole record) are cut into pieces of a block each, their partial sums
-// added in a fixed order (row_part_kernel, row_apply_kernel).  The round trip of c costs bytes the
+// added in a fixed order (row_part_kernel, row_sum_kernel,
+// row_apply_kernel).  The round trip of c costs bytes the
 // operations dwarf, and no pass holds a whole row, so T has no limit.  The
 // backward recomputes c into the dc scratch and turns it into dc in place;
 // the TPU kernel's cross-sample dw sum ran down a sequential grid, here it
 // is a two-stage reduction in a fixed order.
+//
+// Time-sharded (models/cp.py's apply_cp: a record split along time over
+// ranks, which scgrhc/models/cp.py runs as an XLA conv with
+// _instance_norm_global): a row's statistics span every rank's block, so
+// the layer runs in two entry points with a cross-rank sum of the (s, q)
+// pairs between them (the wrapper's all-reduce).  scgrhc_conv_in_relu_part
+// takes the block with its neighbours' edge columns, x (n, cin, len + 2),
+// and launches the unchanged conv core over those len + 2 steps (zero
+// padding at the halo'd block's own ends, as at any layer); the row passes
+// then read c's columns 1 .. len.  The other way, teaching the core to
+// read a halo column at each end of its slab, would touch the staging of
+// every layer of both models for 2 of len + 2 columns a row (at a 600-s
+// record over two ranks, 150,002 steps: 0.001 % of the work), and the
+// wrapper's copy of the halo'd block costs bytes the operations dwarf.
+// The phases run the one-launch path's row kernels (row_part_kernel and
+// row_sum_kernel, then row_apply_kernel), so one rank's block gives the
+// whole-record layer's bits; scgrhc_conv_in_relu_apply normalizes with the
+// record's length.
 
 #include "conv3.cuh"
 
@@ -36,8 +55,8 @@ using namespace scgrhc;
 
 // x (n, cin, len), w (cout, cin, 3), b (cout,), y (n, cout, len), all
 // contiguous and of one dtype: 0 = float32, 1 = bfloat16; c an f32
-// scratch of n*cout*len, with 2*n*cout*row_parts more from the next even
-// element where the plan cuts rows into pieces (conv3.py's conv_plan,
+// scratch of n*cout*len, with 2*n*cout*(row_parts + 1) more from the next
+// even element where the plan cuts rows into pieces (conv3.py's conv_plan,
 // in_relu, pass 0; scratch_numel).  Returns
 // the launch's cudaError_t (0 on success); it does not synchronise.
 extern "C" int scgrhc_conv_in_relu(const void* x, const void* w, const void* b, void* y,
@@ -70,5 +89,33 @@ extern "C" int scgrhc_conv_in_relu_bwd(const void* x, const void* w, const void*
   if (dtype == 1)
     return (int)launch_layer_bwd<__nv_bfloat16, kInRelu>(x, w, b, dy, dx, dw, db, dc, part, n,
                                                          cin, cout, len, nsplit, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The time-sharded forward's first phase: x (n, cin, len + 2) the block
+// with its halo columns, c an f32 scratch of n*cout*(len + 2), part one of
+// n*cout*ceil(len / 8192) float2, sums (n*cout) float2 out: each row's
+// (sum, sum of squares) of c over the block's len steps.
+extern "C" int scgrhc_conv_in_relu_part(const void* x, const void* w, const void* b, void* c,
+                                        void* part, void* sums, int n, int cin, int cout,
+                                        int len, int dtype, void* stream) {
+  if (!shape_ok(n, cin, cout, len + 2, false) || len < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch_layer_part<float>(x, w, b, c, part, sums, n, cin, cout, len, s);
+  if (dtype == 1)
+    return (int)launch_layer_part<__nv_bfloat16>(x, w, b, c, part, sums, n, cin, cout, len, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Its second phase: y (n, cout, len) in the dtype from c and the sums
+// (summed over the ranks), normalized over count steps (the record's
+// length, count >= len).
+extern "C" int scgrhc_conv_in_relu_apply(const void* c, const void* sums, void* y, int n,
+                                         int cout, int len, int count, int dtype,
+                                         void* stream) {
+  if (n < 1 || cout < 1 || len < 1 || count < len) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch_layer_apply<float>(c, sums, y, n, cout, len, count, s);
+  if (dtype == 1) return (int)launch_layer_apply<__nv_bfloat16>(c, sums, y, n, cout, len, count, s);
   return (int)cudaErrorInvalidValue;
 }

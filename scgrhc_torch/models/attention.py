@@ -37,10 +37,11 @@ class AttentionGate(nn.Module):
         self.W_g = nn.Sequential(Conv(f_int, f_g, 1, generator, dtype=dtype))
         self.psi = nn.Sequential(Conv(1, f_int, 1, generator, dtype=dtype))
 
-    def forward(self, g, x):
-        """g: gating signal (decoder), x: skip activation (encoder)."""
+    def forward(self, g, x, norm=instance_norm, psi=conv1d):
+        """g: gating signal (decoder), x: skip activation (encoder); ``norm``
+        the instance norm (the continuous modes pass theirs) and ``psi(h, w,
+        b)`` the ψ conv (the tensor-parallel forward passes its own)."""
         wg, wx, wp = self.W_g[0], self.W_x[0], self.psi[0]
-        g1 = instance_norm(conv1d(g, wg.weight, wg.bias))
-        x1 = instance_norm(conv1d(x, wx.weight, wx.bias))
-        psi = sigmoid(instance_norm(conv1d(relu(g1 + x1), wp.weight, wp.bias)))
-        return x * psi
+        g1 = norm(conv1d(g, wg.weight, wg.bias))
+        x1 = norm(conv1d(x, wx.weight, wx.bias))
+        return x * sigmoid(norm(psi(relu(g1 + x1), wp.weight, wp.bias)))

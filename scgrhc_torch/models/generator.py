@@ -32,7 +32,8 @@ from torch import nn
 
 from scgrhc_torch.models.attention import AttentionGate, Conv
 from scgrhc_torch.ops.kernels.conv_block import ConvInReLU, conv_in_relu_plain
-from scgrhc_torch.ops.nn import conv1d, conv_transpose1d, dropout, max_pool1d_k3s1
+from scgrhc_torch.ops.nn import (conv1d, conv_transpose1d, dropout, instance_norm,
+                                 max_pool1d_k3s1)
 
 DROPOUT_RATE = 0.3  # reference: waveform_train.py:117
 
@@ -77,6 +78,10 @@ def plain_block(blk: DoubleConv, x):
     for conv in blk.convs:
         x = conv_in_relu_plain(x, conv.weight, conv.bias)
     return x
+
+
+def _identity(a):
+    return a
 
 
 def _pad_size(a, b):
@@ -136,27 +141,33 @@ class Generator(nn.Module):
                 child.to(dtype)
         return self
 
-    def encode(self, x, block=fused_block, drop=lambda a: a):
+    def encode(self, x, block=fused_block, drop=_identity, pool=max_pool1d_k3s1):
         """Encoder half: enc1..enc3 + bottleneck (reference:
-        waveform_train.py:175-181).  Returns the skips and the bottleneck."""
+        waveform_train.py:175-181).  Returns the skips and the bottleneck.
+        ``block(blk, x)`` and ``pool(x)`` are the layers' ops (the
+        continuous and parallel forwards pass theirs)."""
         e1 = block(self.enc1, x)
-        e2 = block(self.enc2, drop(max_pool1d_k3s1(e1)))
-        e3 = block(self.enc3, drop(max_pool1d_k3s1(e2)))
-        b = block(self.bottleneck, drop(max_pool1d_k3s1(e3)))
+        e2 = block(self.enc2, drop(pool(e1)))
+        e3 = block(self.enc3, drop(pool(e2)))
+        b = block(self.bottleneck, drop(pool(e3)))
         return e1, e2, e3, b
 
-    def decode(self, x, e1, e2, e3, b, block=fused_block, drop=lambda a: a):
+    def decode(self, x, e1, e2, e3, b, block=fused_block, drop=_identity,
+               up=conv_transpose1d, norm=instance_norm, psi=conv1d):
         """Decoder half: up/attention/dec ×3 + final 1×1 conv (reference:
         waveform_train.py:183-195).  ``x`` is only consulted for the
-        output length reconciliation quirk (``_pad_size(f, x)``)."""
+        output length reconciliation quirk (``_pad_size(f, x)``).
+        ``block``, ``up(d, w, b)`` and the attention gates' ``norm`` and
+        ``psi`` are the layers' ops (the continuous and parallel forwards
+        pass theirs)."""
         d = b
-        for up, att, dec, skip in (
+        for upc, att, dec, skip in (
             (self.up3, self.att3, self.dec3, e3),
             (self.up2, self.att2, self.dec2, e2),
             (self.up1, self.att1, self.dec1, e1),
         ):
-            d = _pad_size(drop(conv_transpose1d(d, up.weight, up.bias)), skip)
-            a = att(d, skip)
+            d = _pad_size(drop(up(d, upc.weight, upc.bias)), skip)
+            a = att(d, skip, norm=norm, psi=psi)
             d = block(dec, torch.cat((d, a), dim=1))
         # output epilogue in the final weights' own dtype (f32 under a
         # bf16 cast: full-precision predictions)

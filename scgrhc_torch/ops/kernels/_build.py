@@ -32,6 +32,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # x, w, b, y, c, n, cin, cout, len, dtype, stream
     "scgrhc_conv_in_relu": (_P,) * 5 + (_I,) * 5 + (_P,),
+    # x, w, b, c, part, sums, n, cin, cout, len, dtype, stream
+    "scgrhc_conv_in_relu_part": (_P,) * 6 + (_I,) * 5 + (_P,),
+    # c, sums, y, n, cout, len, count, dtype, stream
+    "scgrhc_conv_in_relu_apply": (_P,) * 3 + (_I,) * 5 + (_P,),
     # x, w, b, dy, dx, dw, db, dc, part, n, cin, cout, len, nsplit, dtype, stream
     "scgrhc_conv_in_relu_bwd": (_P,) * 9 + (_I,) * 6 + (_P,),
     # x, w, b, y, c, n, cin, cout, len, mode, dtype, stream

@@ -71,7 +71,8 @@ ROW_WARPS = 8
 # The in_relu forward's rows longer than ROW_PIECE steps (the continuous
 # mode's whole record) take the row pass in pieces of ROW_PIECE steps, a
 # block each, whose (sum, sum of squares) go to the scratch after c and
-# are added in a fixed order: row_parts pieces a row.
+# are added in a fixed order into one pair a row, after them: row_parts
+# pieces a row.
 ROW_PIECE = 8192
 PASSES = ("fwd", "dc", "dx")
 PATHS = ("none", "mma", "stream")
@@ -122,10 +123,10 @@ def conv_plan(n: int, cin: int, cout: int, t: int, mode: str, pass_: str = "fwd"
 def scratch_numel(plan: ConvPlan) -> int:
     """The f32 elements of the forward's scratch: c, then, where the row
     pass runs in pieces, two partial sums a piece from the next even
-    element (csrc/conv3.cuh: launch_layer_fwd)."""
+    element and two row sums a row (csrc/conv3.cuh: launch_layer_fwd)."""
     n, cout, t = plan.scratch
     c = n * cout * t
-    return c + c % 2 + 2 * n * cout * plan.row_parts if plan.row_parts else c
+    return c + c % 2 + 2 * n * cout * (plan.row_parts + 1) if plan.row_parts else c
 
 
 def c_plan(n: int, cin: int, cout: int, t: int, mode: str, pass_: str = "fwd") -> ConvPlan:

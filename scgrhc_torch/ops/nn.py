@@ -61,6 +61,26 @@ def instance_norm(x, eps: float = IN_EPS):
     return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
+def instance_norm_global(x, reduce=None, eps: float = IN_EPS):
+    """:func:`instance_norm` over the whole record when x is this rank's
+    block of a record split along time
+    (``scgrhc.models.cp._instance_norm_global``): each rank's one-pass sums
+    and step count in one buffer, ``reduce(buf)`` its sum over the ranks,
+    mean = s / n and the variance E[x²] − mean² clamped at 0.  ``reduce``
+    None: x is the whole record, and nothing is reduced (the same
+    arithmetic)."""
+    x32 = x.to(stats_dtype(x.dtype))
+    s = x32.sum(dim=-1)
+    buf = torch.cat((s.reshape(-1), (x32 * x32).sum(dim=-1).reshape(-1),
+                     s.new_full((1,), x.shape[-1])))
+    if reduce is not None:
+        buf = reduce(buf)
+    s, ss, n = buf[:s.numel()], buf[s.numel():-1], buf[-1]
+    mean = (s / n).reshape(*x.shape[:-1], 1)
+    var = torch.clamp_min((ss / n).reshape(mean.shape) - mean * mean, 0.0)
+    return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
 def max_pool1d_k3s1(x):
     """kernel 3, stride 1; ceil_mode is a no-op at stride 1 → L-2."""
     return F.max_pool1d(x, kernel_size=3, stride=1)

@@ -5,9 +5,12 @@ The port runs one process per card, launched as PyTorch users launch one
 (``torchrun --nproc-per-node=N -m scgrhc_torch <dir>``, or any launcher
 that sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
 ``MASTER_PORT``): ``scgrhc``'s multi-controller mode with one controller
-per card.  The world of ranks is the ``data`` mesh
-(:mod:`scgrhc_torch.parallel.mesh`).  Without those variables nothing is
-initialized and every helper here is the identity of one process.  Under
+per card.  The world of ranks carries the meshes of
+:mod:`scgrhc_torch.parallel.mesh`: a 1-D mesh (the ``data``, ``time`` or
+``stage`` axis) spans it, and a 2-D (``data``, ``model``) mesh gives each
+axis a process group of its own (:func:`new_group`).  Without those
+variables nothing is initialized and every helper here is the identity of
+one process.  Under
 a group every helper runs its collective, at world size 1 too (where it is
 the identity on the values, and exercises the backend).
 
@@ -180,18 +183,53 @@ def on_primary(name: str, fn, *args, **kwargs):
     return out
 
 
-# -- collectives over the data axis: in place on x, which is returned --------
+def new_group(ranks):
+    """A process group of ``ranks`` (world ranks) on the world's backend.
+    Every rank of the world calls it, for every group, in the same order."""
+    return dist.new_group(ranks=list(ranks), timeout=datetime.timedelta(seconds=TIMEOUT_S))
 
-def broadcast(x, src: int = 0):
-    """Rank ``src``'s x on every rank."""
+
+def broadcast_object(obj, src: int = 0):
+    """Rank ``src``'s picklable obj on every rank, over the stage group: the
+    wait may be as long as ``STAGE_TIMEOUT_S`` (a daemon's followers wait
+    here for rank 0's next request)."""
+    if not dist.is_initialized():
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=src, group=_stage_group)
+    return box[0]
+
+
+def gather_objects(obj) -> list:
+    """Every rank's picklable obj, in rank order, on every rank (over the
+    stage group)."""
+    if not dist.is_initialized():
+        return [obj]
+    out = [None] * process_count()
+    dist.all_gather_object(out, obj, group=_stage_group)
+    return out
+
+
+# -- collectives: over the world by default, or over one axis of a mesh -----
+# (``group``, :attr:`scgrhc_torch.parallel.mesh.Mesh.group`); in place on x,
+# which is returned.  Without a process group each is the identity.
+
+def shard_index(group=None) -> int:
+    """This rank's index along the axis whose group is ``group`` (``scgrhc``'s
+    ``lax.axis_index``); 0 without a process group."""
+    return dist.get_rank(group) if dist.is_initialized() else 0
+
+
+def broadcast(x, src: int = 0, group=None):
+    """Rank ``src``'s x (``src`` indexes the group's ranks) on every rank."""
     if dist.is_initialized():
-        dist.broadcast(x, src=src)
+        dist.broadcast(x, src=_global(src, group), group=group)
     return x
 
 
-def all_reduce_sum(x):
+def all_reduce_sum(x, group=None):
     if dist.is_initialized():
-        dist.all_reduce(x)
+        dist.all_reduce(x, group=group)
     return x
 
 
@@ -209,12 +247,73 @@ def all_reduce_max(x):
     return x
 
 
-def all_gather(x):
-    """Every rank's x, concatenated along dim 0 in rank order (``scgrhc``'s
-    ``all_gather(..., tiled=True)``); every rank's x has the same shape.  The
+def all_gather_list(x, group=None) -> list:
+    """Every rank's x in rank order; every rank's x has the same shape.  The
     list form, which gloo takes for CUDA tensors too."""
     if not dist.is_initialized():
+        return [x]
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return parts
+
+
+def all_gather(x, group=None, dim: int = 0):
+    """Every rank's x, concatenated along ``dim`` in rank order (``scgrhc``'s
+    ``all_gather(..., tiled=True)``)."""
+    if not dist.is_initialized():
         return x
-    parts = [torch.empty_like(x) for _ in range(process_count())]
-    dist.all_gather(parts, x.contiguous())
-    return torch.cat(parts)
+    return torch.cat(all_gather_list(x, group), dim=dim)
+
+
+def neighbour_edges(first, last, group=None):
+    """The halo exchange along an axis (``scgrhc.models.cp``'s
+    ``_edge_from_left`` / ``_edge_from_right``): (the left neighbour's
+    ``last``, the right neighbour's ``first``), None at the axis's two ends.
+
+    One all-gather of every rank's (first, last) pair, a few KB: it runs
+    under gloo, whose send/recv take CPU tensors only, and under NCCL alike,
+    and it is one collective per exchange where a pair of sends would be
+    two.  Every rank calls it in the same order."""
+    if not dist.is_initialized():
+        return None, None
+    pairs = all_gather_list(torch.stack((first, last)), group)
+    r = dist.get_rank(group)
+    return (pairs[r - 1][1] if r > 0 else None,
+            pairs[r + 1][0] if r + 1 < len(pairs) else None)
+
+
+def send(x, dst: int, group=None):
+    """Start sending x to rank ``dst`` of the group; returns a callable that
+    waits until x may be reused.  Gloo's send takes CPU tensors only, so a
+    CUDA tensor goes through pinned host memory there; that copy waits for
+    the work that made x, and the send then runs beside the next work."""
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        x = torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(x)
+    req = dist.isend(x.contiguous(), _global(dst, group), group=group)
+
+    def wait():
+        req.wait()
+        return x
+
+    return wait
+
+
+def recv(x, src: int, group=None):
+    """Start receiving into x from rank ``src`` of the group; returns a
+    callable that waits and gives the received tensor (x itself, or a copy
+    of the host buffer on x's device under gloo)."""
+    buf = x
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    req = dist.irecv(buf, _global(src, group), group=group)
+
+    def wait():
+        req.wait()
+        return x.copy_(buf) if buf is not x else x
+
+    return wait
+
+
+def _global(rank: int, group) -> int:
+    """The world rank of rank ``rank`` of ``group``."""
+    return rank if group is None else dist.get_global_rank(group, rank)

@@ -1,34 +1,49 @@
-"""The data mesh and its row sharding, the PyTorch counterpart of
-``scgrhc.parallel.mesh``.
+"""Meshes of ranks and the data axis's row sharding, the PyTorch
+counterpart of ``scgrhc.parallel.mesh``.
 
-The mesh is the world of ranks (:mod:`scgrhc_torch.parallel.comm`), one
-card each, on the ``data`` axis: the batch, segment and window dimension.
-Sharding follows ``P(axis)``: rank r holds the r-th contiguous block of
-dim 0.  A training batch that does not divide the mesh is padded with
-masked rows (:func:`pad_idx_mask`), as ``scgrhc``'s training pads it; the
-chunks of evaluation and streaming are split with :func:`row_block`,
-padded with :func:`pad_rows` and gathered back with :func:`fetch_rows`.
-A mesh of one (``Mesh(1, 0)``, or :func:`make_mesh` without a group) is
-one process's path: its block is every row, nothing is padded and
-nothing is gathered.
+A mesh axis is a group of ranks (:mod:`scgrhc_torch.parallel.comm`), one
+card each, with a name:
+
+  * ``data`` — the batch, segment and window dimension;
+  * ``time`` — the time steps of one long record (``models.cp.apply_cp``);
+  * ``stage`` and ``model`` — ``parallel.pp`` and ``parallel.tp``.
+
+A 1-D mesh (:func:`make_mesh`) spans the world; a 2-D mesh
+(:func:`make_grid`) lays the world out row-major over its axes, as
+``np.asarray(devices).reshape(shape)`` does, and gives each axis its
+process group.  On the data axis, sharding follows ``P(axis)``: rank r
+holds the r-th contiguous block of dim 0.  A training batch that does not
+divide the mesh is padded with masked rows (:func:`pad_idx_mask`), as
+``scgrhc``'s training pads it; the chunks of evaluation and streaming are
+split with :func:`row_block`, padded with :func:`pad_rows` and gathered
+back with :func:`fetch_rows`.  A mesh of one (``Mesh(1, 0)``, or
+:func:`make_mesh` without a group) is one process's path: its block is
+every row, nothing is padded and nothing is gathered.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
 from scgrhc_torch.parallel import comm
 
+DATA_AXIS = "data"
+TIME_AXIS = "time"
+
 
 @dataclass(frozen=True)
 class Mesh:
-    """``size`` ranks; this process is rank ``rank``."""
+    """One mesh axis: ``size`` ranks, of which this process is rank
+    ``rank``; ``group`` is the axis's process group (None: the world)."""
 
     size: int
     rank: int
+    axis: str = DATA_AXIS
+    group: object = field(default=None, compare=False, repr=False)
 
     def block(self, rows: int) -> slice:
         """This rank's block of ``rows`` rows (a multiple of the size)."""
@@ -37,9 +52,35 @@ class Mesh:
         return slice(self.rank * k, (self.rank + 1) * k)
 
 
-def make_mesh() -> Mesh:
-    """The 1-D mesh over every rank of the world."""
-    return Mesh(comm.process_count(), comm.process_index())
+def make_mesh(n: int | None = None, axis: str = DATA_AXIS) -> Mesh:
+    """The 1-D mesh over every rank of the world, on ``axis``; ``n``, where
+    given, must be the world's size (a mesh spans every rank)."""
+    size = comm.process_count()
+    if n is not None and n != size:
+        raise ValueError(f"a {n}-rank {axis!r} mesh needs a world of {n} ranks, have {size}")
+    return Mesh(size, comm.process_index(), axis)
+
+
+def make_grid(shape: tuple[int, ...], axes: tuple[str, ...]) -> dict[str, Mesh]:
+    """A mesh of ``shape`` over the world's ranks laid out row-major, one
+    :class:`Mesh` per axis name, each with its process group (the ranks
+    that differ from this one only along that axis).  A collective: every
+    rank calls it, with the same arguments."""
+    size = math.prod(shape)
+    if size != comm.process_count():
+        raise ValueError(f"a {'x'.join(map(str, shape))} mesh needs {size} ranks, have "
+                         f"{comm.process_count()}")
+    ranks = np.arange(size).reshape(shape)
+    grid = {}
+    for d, axis in enumerate(axes):
+        lines = np.moveaxis(ranks, d, -1).reshape(-1, shape[d])
+        group = None
+        for line in lines:  # every group, on every rank, in one order
+            g = comm.new_group(line.tolist()) if comm.is_initialized() else None
+            if comm.process_index() in line:
+                group = g
+        grid[axis] = Mesh(shape[d], comm.shard_index(group), axis, group)
+    return grid
 
 
 def round_up(n: int, size: int) -> int:
@@ -71,7 +112,7 @@ def fetch_global(x, mesh: Mesh):
     A collective: every rank calls it in the same order."""
     if mesh.size == 1:
         return x
-    return comm.all_gather(x)
+    return comm.all_gather(x, mesh.group)
 
 
 def row_block(mesh: Mesh, n: int) -> tuple[int, int, int]:

@@ -8,7 +8,8 @@ the whole record on the device: windowed
 normalization as in training, optional overlap-and-blend) or, with
 ``continuous``, seam-free (:func:`predict_continuous`: one normalization
 over the record and one U-Net pass over the whole sequence,
-:mod:`scgrhc_torch.models.cp`).  ``calibrate`` denormalizes the
+:mod:`scgrhc_torch.models.cp`, time-sharded over the ranks when there are
+several and the record's length divides their count).  ``calibrate`` denormalizes the
 prediction to the train split's RHC range (:func:`cohort_rhc_minmax`).
 
 Output: ``<dir>/predictions/<record>.npy`` (float32 waveform at 500 Hz)
@@ -20,9 +21,7 @@ record is past one chunk (``STREAM_BATCH`` windows); at world size 1 it is
 a mesh of one.  Every rank reads the record and computes; only rank 0
 writes the files, and the others wait for it.
 
-Not yet ported, each raising :class:`NotImplementedError`: Orbax
-checkpoints, and ``continuous`` over more than one rank (``scgrhc`` runs
-``models.cp.apply_cp`` there, the time axis).
+Not yet ported, raising :class:`NotImplementedError`: Orbax checkpoints.
 """
 
 from __future__ import annotations
@@ -46,7 +45,7 @@ from scgrhc_torch.io.catalog import (
 from scgrhc_torch.models import cp
 from scgrhc_torch.models.convert import generator_from_state_dict
 from scgrhc_torch.parallel import comm
-from scgrhc_torch.parallel.mesh import make_mesh
+from scgrhc_torch.parallel.mesh import TIME_AXIS, make_mesh
 from scgrhc_torch.parallel.stream import STREAM_BATCH, mesh_for_request, stream_infer
 from scgrhc_torch.train import checkpoint as ckpt_io
 
@@ -82,41 +81,60 @@ def load_generator_params(params, ckpt_name: str, device=None):
     return generator_from_state_dict(ckpt["g_state_dict"], dev).eval()
 
 
-def predict_record(gen, params, record_name: str, overlap: int,
-                   rhc_minmax=None, batch: int = STREAM_BATCH, mesh=None) -> np.ndarray:
-    """One record through the windowed path: the int16 ADC path with
-    on-device calibration when the record has a digital representation,
-    else the float path; its windows sharded over ``mesh`` past one chunk
-    (:func:`mesh_for_request`)."""
-    t = params.segment_samples
+def read_windowed(params, record_name: str):
+    """What the windowed path reads of a record: ``(adc, (gain, base,
+    sentinel))``, int16 ADC (L, C) with its calibration, when the record
+    has a digital representation, else ``(scg, None)``, physical (L, C)."""
     dig = read_record_digital(record_name, params.in_channels)
     if dig is not None:
         adc, gain, base, sentinel = dig
-        return stream_infer(
-            gen, np.ascontiguousarray(adc.T), segment_samples=t, batch=batch,
-            overlap=overlap, rhc_minmax=rhc_minmax,
-            calibration=(gain, base, sentinel),
-            mesh=mesh_for_request(mesh, adc.shape[0], t, overlap, batch),
-        )
-    scg = read_scg(params, record_name)
+        return adc, (gain, base, sentinel)
+    return read_scg(params, record_name), None
+
+
+def predict_windows(gen, params, rec, overlap: int, rhc_minmax=None,
+                    batch: int = STREAM_BATCH, mesh=None) -> np.ndarray:
+    """A record read by :func:`read_windowed` through the windowed path: the
+    int16 ADC path with on-device calibration, or the float path; its
+    windows sharded over ``mesh`` past one chunk (:func:`mesh_for_request`)."""
+    t = params.segment_samples
+    data, calibration = rec
+    if calibration is None:
+        data = data.astype(np.float32)
     return stream_infer(
-        gen, scg.T.astype(np.float32), segment_samples=t, batch=batch,
-        overlap=overlap, rhc_minmax=rhc_minmax,
-        mesh=mesh_for_request(mesh, scg.shape[0], t, overlap, batch),
+        gen, np.ascontiguousarray(data.T), segment_samples=t, batch=batch,
+        overlap=overlap, rhc_minmax=rhc_minmax, calibration=calibration,
+        mesh=mesh_for_request(mesh, data.shape[0], t, overlap, batch),
     )
+
+
+def predict_record(gen, params, record_name: str, overlap: int,
+                   rhc_minmax=None, batch: int = STREAM_BATCH, mesh=None) -> np.ndarray:
+    """One record through the windowed path (:func:`predict_windows`)."""
+    return predict_windows(gen, params, read_windowed(params, record_name), overlap,
+                           rhc_minmax, batch, mesh)
 
 
 def predict_continuous(gen, scg: np.ndarray, rhc_minmax=None) -> np.ndarray:
     """One whole-record pass on ``gen``'s device: scg (L, C) → (L,) float32.
     The record's joint (C, L) min-max normalization (``+1e-4`` in the
-    span), then :func:`scgrhc_torch.models.cp.apply_continuous` at
-    (1, C, L), then the optional denormalization to ``rhc_minmax``."""
+    span), on every rank before the split, then
+    :func:`scgrhc_torch.models.cp.apply_cp` over the world's ``time`` axis
+    when it has more than one rank and L divides by their count, else
+    :func:`scgrhc_torch.models.cp.apply_continuous` at (1, C, L) (the rule
+    of ``scgrhc.pipeline.predict._predict_continuous``), then the optional
+    denormalization to ``rhc_minmax``.  A collective over the ranks."""
     dev = next(gen.parameters()).device
+    mesh = make_mesh(axis=TIME_AXIS)
     with torch.inference_mode():
         x = torch.from_numpy(np.ascontiguousarray(scg.T, dtype=np.float32)).to(dev)
         lo, hi = x.min(), x.max()
         x = (x - lo) / (hi - lo + 1e-4)
-        out = cp.apply_continuous(gen, x[None])[0, 0].float().cpu().numpy()
+        if mesh.size > 1 and x.shape[1] % mesh.size == 0:
+            y = cp.apply_cp(gen, x, mesh)
+        else:
+            y = cp.apply_continuous(gen, x[None])
+        out = y[0, 0].float().cpu().numpy()
     if rhc_minmax is not None:
         rlo, rhi = rhc_minmax
         out = out * (rhi - rlo) + rlo
@@ -157,8 +175,6 @@ def run(
     RHC range; ``mesh`` shards the windows over the ranks (module doc).
     Every rank returns the path."""
     comm.refuse_lone_rank()
-    if continuous and comm.process_count() > 1:
-        raise not_ported("continuous prediction over more than one rank (models.cp.apply_cp)")
     start_time = time()
     ckpt_name = resolve_checkpoint(params, checkpoint)
     print(

@@ -416,8 +416,6 @@ def test_cli_refuses_unported_and_defaults_to_cuda(tmp_path, monkeypatch, capsys
     assert calls == ["summary", ("report", d), ("demo", d, {"epochs": 1, "device": "cpu"}),
                      ("sweep", {"jobs": 1, "inproc": True, "prune": False, "device": "cpu"}),
                      ("plots", "003.checkpoint", 2), ("export", str(tmp_path / "x.torch"))]
-    with pytest.raises(SystemExit, match="mesh sharding.*not yet ported"):
-        cli(["serve", d, "--mesh"])
     with pytest.raises(SystemExit, match="unknown sweep flag --mesh"):
         cli(["sweep", d, "--mesh"])
     with pytest.raises(SystemExit):

@@ -30,6 +30,12 @@ version where c or x̂ lies within f32 rounding of 0: the backward kernels
 are held to the plain backward in float64 on the forward kernel's own
 masks, and those masks to the plain version's within MASK_FLIP_SHARE.
 
+The time axis on one card: K1f's two time-sharded phases against their
+plain versions, over a record cut in two blocks with each other's edge
+columns, and against the whole-record layer; one block's phases equal the
+one-launch layer bit for bit, and ``apply_cp`` over NCCL at world size 1
+equals ``apply_continuous`` bit for bit.
+
 The data axis on one card: the comm helpers on CUDA tensors over NCCL and
 over gloo in a world of one rank (a ``file://`` store), data-parallel steps
 over NCCL equal bit for bit to the steps with no process group, and two
@@ -94,9 +100,12 @@ def _windows(n, c, t, nan_window, seed=0):
 
 @pytest.mark.parametrize(
     "ci,o,t", [(4, 64, 750), (2, 64, 96), (64, 128, 748), (512, 512, 744),
-               (256, 128, 747), (100, 24, 1024), (7, 5, 1)]
+               (256, 128, 747), (100, 24, 1024), (7, 5, 1), (4, 8, 750)]
 )
 def test_conv_in_relu_kernel_f32(cuda, ci, o, t):
+    """K1f against its plain version; O = 8 is enc1's shard at tensor
+    parallelism 8 (``parallel.tp``), below the conv core's 16 rows: the
+    streaming conv then the row pass."""
     x, w, b = (torch.from_numpy(a).to(cuda) for a in _conv_inputs(3, ci, o, t))
     before = k1f.conv_in_relu.launches
     got = k1f.conv_in_relu(x, w, b)
@@ -1083,3 +1092,110 @@ def test_two_ranks_build_the_kernels_at_once_on_one_card(cuda, tmp_path):
         names.add(name)
     assert len(names) == 1
     assert sorted(p.name for p in (tmp_path / "build").iterdir()) == sorted(names)
+
+
+# ---- the time axis on one card ------------------------------------------------
+
+def _two_blocks(x):
+    """The record x (N, C, 2k) as two ranks hold it: each block of k steps
+    with its neighbour's edge column and a zero column at the record's end."""
+    k = x.shape[-1] // 2
+    z = torch.zeros_like(x[..., :1])
+    return (torch.cat((z, x[..., :k], x[..., k:k + 1]), -1),
+            torch.cat((x[..., k - 1:k], x[..., k:], z), -1))
+
+
+@pytest.mark.parametrize("n,ci,o,k", [(1, 256, 512, 150_000), (1, 64, 128, 5_000),
+                                      (2, 4, 64, 750), (3, 64, 8, 300), (1, 7, 5, 1)])
+def test_conv_in_relu_time_sharded_phases(cuda, n, ci, o, k):
+    """K1f's two phases over a record of 2k steps cut in two blocks (each
+    with the other's edge column: non-zero halos), their sums added as the
+    all-reduce adds them: each phase against its plain version, and the two
+    blocks together against the whole-record layer, f32 within FWD_TOL; at
+    150,000 steps a block (a 600-s record over two ranks) and below 8,192,
+    at O = 8 (the streaming conv) and at one step a block; bf16 within
+    BF16_TOL."""
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    bound = 1.0 / np.sqrt(ci * 3)
+    x = torch.rand(n, ci, 2 * k, device=cuda, generator=gen)
+    w = (torch.rand(o, ci, 3, device=cuda, generator=gen) * 2 - 1) * bound
+    b = (torch.rand(o, device=cuda, generator=gen) * 2 - 1) * bound
+    for dtype, tol in ((torch.float32, FWD_TOL), (torch.bfloat16, BF16_TOL)):
+        xd, wd, bd = (a.to(dtype) for a in (x, w, b))
+        before = (k1f.conv_in_relu_part.launches, k1f.conv_in_relu_apply.launches)
+        parts = [k1f.conv_in_relu_part(xh, wd, bd) for xh in _two_blocks(xd)]
+        plains = [k1f.conv_in_relu_part_plain(xh.float(), wd.float(), bd.float())
+                  for xh in _two_blocks(xd)]
+        for (c, sums), (pc, psums) in zip(parts, plains):
+            assert c.dtype == sums.dtype == torch.float32 and c.shape == (n, o, k + 2)
+            torch.testing.assert_close(c[..., 1:-1], pc[..., 1:-1], atol=tol, rtol=1e-2)
+            scale = pc[..., 1:-1].abs().sum(-1).reshape(-1)
+            assert float(((sums[:, 0] - psums[:, 0]).abs() / scale).max()) <= tol
+        total = parts[0][1] + parts[1][1]
+        got = torch.cat([k1f.conv_in_relu_apply(c, total, 2 * k, dtype) for c, _ in parts], -1)
+        torch.cuda.synchronize()
+        assert (k1f.conv_in_relu_part.launches, k1f.conv_in_relu_apply.launches) == (
+            before[0] + 2, before[1] + 2)
+        assert got.dtype == dtype and got.shape == (n, o, 2 * k)
+        ptotal = plains[0][1] + plains[1][1]
+        plain = torch.cat([k1f.conv_in_relu_apply_plain(pc, ptotal, 2 * k, torch.float32)
+                           for pc, _ in plains], -1)
+        whole = k1f.conv_in_relu_plain(xd.float(), wd.float(), bd.float())
+        torch.testing.assert_close(plain, whole, atol=FWD_TOL, rtol=0)
+        torch.testing.assert_close(got.float(), plain, atol=tol, rtol=1e-2 if tol > FWD_TOL
+                                   else 0)
+
+
+def test_conv_in_relu_time_sharded_phases_propagate_nan(cuda):
+    """A NaN in one block makes its sample's rows NaN on both blocks (the
+    summed statistics), and leaves the other sample finite."""
+    x, w, b = (torch.from_numpy(a).to(cuda) for a in _conv_inputs(2, 4, 64, 1000))
+    x[1, 2, 100] = float("nan")
+    parts = [k1f.conv_in_relu_part(xh, w, b) for xh in _two_blocks(x)]
+    total = parts[0][1] + parts[1][1]
+    got = [k1f.conv_in_relu_apply(c, total, 1000, x.dtype) for c, _ in parts]
+    for y in got:
+        assert torch.isnan(y[1]).all() and not torch.isnan(y[0]).any()
+
+
+def test_one_block_of_the_phases_equals_the_one_launch_layer(cuda):
+    """At one block (zero halos, count = its length), the two phases are the
+    one-launch layer's row pieces: equal bit for bit past 8,192 steps."""
+    x, w, b = (torch.from_numpy(a).to(cuda) for a in _conv_inputs(1, 64, 128, 20_000))
+    c, sums = k1f.conv_in_relu_part(torch.nn.functional.pad(x, (1, 1)), w, b)
+    assert torch.equal(k1f.conv_in_relu_apply(c, sums, 20_000, x.dtype),
+                       k1f.conv_in_relu(x, w, b))
+
+
+def test_conv_in_relu_time_sharded_phases_reject(cuda):
+    x, w, b = (torch.from_numpy(a).to(cuda) for a in _conv_inputs(1, 4, 64, 100))
+    with pytest.raises(ValueError, match="block"):
+        k1f.conv_in_relu_part(x[..., :2].contiguous(), w, b)
+    c, sums = k1f.conv_in_relu_part(x, w, b)
+    with pytest.raises(ValueError, match="count"):
+        k1f.conv_in_relu_apply(c, sums, 97, x.dtype)
+    with pytest.raises(ValueError):
+        k1f.conv_in_relu_apply(c, sums[:10].contiguous(), 98, x.dtype)
+
+
+def test_apply_cp_over_nccl_world_one_equals_apply_continuous(cuda, tmp_path):
+    """``models.cp.apply_cp`` in a world of one rank over NCCL (its 43
+    all-reduces and gathers on the card) equals ``apply_continuous`` on a
+    30,000-step record bit for bit, with 14 launches of each K1f phase."""
+    from scgrhc_torch.models.cp import apply_continuous, apply_cp
+    from scgrhc_torch.parallel.mesh import TIME_AXIS, make_mesh
+
+    gen = Generator(4, torch.Generator().manual_seed(0)).to(cuda).eval()
+    x = torch.rand(4, 30_000, device=cuda, generator=torch.Generator(cuda).manual_seed(3))
+    comm = _world_of_one(tmp_path, None)
+    try:
+        before = (k1f.conv_in_relu_part.launches, k1f.conv_in_relu_apply.launches)
+        with torch.inference_mode():
+            got = apply_cp(gen, x, make_mesh(axis=TIME_AXIS))
+            want = apply_continuous(gen, x[None])
+        torch.cuda.synchronize()
+        assert (k1f.conv_in_relu_part.launches, k1f.conv_in_relu_apply.launches) == (
+            before[0] + 14, before[1] + 14)
+    finally:
+        comm.destroy()
+    assert got.shape == (1, 1, 30_000) and torch.equal(got, want)

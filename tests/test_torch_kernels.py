@@ -329,18 +329,18 @@ def test_gate_stage_max_len_mirrors_the_source():
 def test_conv_plan_cuts_long_in_relu_rows_into_pieces(t):
     """Past ROW_PIECE steps (the continuous mode's whole record) the
     in_relu forward's row pass runs in pieces, a block each, and the
-    scratch holds their partial sums after c; the backward's dc pass and
-    the other modes keep a warp a row."""
+    scratch holds their partial sums after c, then one pair a row; the
+    backward's dc pass and the other modes keep a warp a row."""
     n, cin, cout = 1, 512, 512
     fwd = conv3.conv_plan(n, cin, cout, t, "in_relu")
     parts = -(-t // conv3.ROW_PIECE) if t > conv3.ROW_PIECE else 0
     assert fwd.row_parts == parts and fwd.scratch == (n, cout, t)
     assert fwd.row_blocks == (0 if parts else n * cout // conv3.ROW_WARPS)
     c = n * cout * t
-    assert conv3.scratch_numel(fwd) == (c + c % 2 + 2 * n * cout * parts if parts else c)
+    assert conv3.scratch_numel(fwd) == (c + c % 2 + 2 * n * cout * (parts + 1) if parts else c)
     dc = conv3.conv_plan(n, cin, cout, t, "in_relu", "dc")
     assert dc.row_parts == 0 and dc.row_blocks == n * cout // conv3.ROW_WARPS
     assert conv3.conv_plan(n, cin, 5, t, "relu").row_parts == 0
     # an odd element count of c: the partial sums start at the next even element
     odd = conv3.conv_plan(1, 3, 17, 8193, "in_relu")
-    assert odd.row_parts == 2 and conv3.scratch_numel(odd) == 17 * 8193 + 1 + 2 * 17 * 2
+    assert odd.row_parts == 2 and conv3.scratch_numel(odd) == 17 * 8193 + 1 + 2 * 17 * 3

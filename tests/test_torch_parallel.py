@@ -520,11 +520,10 @@ def test_a_mesh_of_one_splits_pads_and_gathers_nothing():
     assert padded.tolist() == [0, 1, 2, 3, 4, 0] and mask.tolist() == [1, 1, 1, 1, 1, 0]
 
 
-@pytest.mark.parametrize("argv", [["demo", "w"], ["sweep", "."], ["summary"], ["report", "."],
-                                  ["serve", "d"]])
+@pytest.mark.parametrize("argv", [["demo", "w"], ["sweep", "."], ["summary"], ["report", "."]])
 def test_single_rank_commands_refuse_a_world(argv, monkeypatch):
-    """Commands that run in one process (the daemon, and the host-side ones,
-    whose every rank would write the same files) refuse a world of two."""
+    """The host-side commands, whose every rank would write the same files,
+    refuse a world of two."""
     from scgrhc_torch.__main__ import main
 
     monkeypatch.setattr(comm, "process_count", lambda: 2)

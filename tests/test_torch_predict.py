@@ -5,10 +5,10 @@ conftest's ``make_synthetic_database``, with a checkpoint written by
 ``scgrhc.train.checkpoint.save`` and the splits written as loader files.
 The length is odd on purpose: on more than one device scgrhc runs a
 record whose length divides the device count through its time-sharded
-``apply_cp`` (the tests have 8 virtual devices), which the port does not
-port; at 12,001 samples it takes ``apply_continuous``, the port's
-reference, and the short records keep the CPU's whole-record passes to
-about a second.
+``apply_cp`` (the tests have 8 virtual devices; tests/
+test_torch_time_axis.py holds the port's ``apply_cp`` to it); at 12,001
+samples it takes ``apply_continuous``, the port's one-rank path, and the
+short records keep the CPU's whole-record passes to about a second.
 
   * ``predict.run(continuous=True)``: the same sidecar keys and values, the
     ``.npy`` within CONT_ATOL of scgrhc's: each instance norm runs over the

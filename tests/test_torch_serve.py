@@ -123,39 +123,6 @@ def test_serve_defaults_to_cuda_and_refuses_without_it(exp_dir, monkeypatch):
         _serve(tserve, TParams(str(exp_dir / "params.json")), [{"cmd": "ping"}])
 
 
-@pytest.mark.parametrize("kw", [{"mesh": True}])
-def test_serve_flags_not_yet_ported(exp_dir, kw):
-    from scgrhc_torch.pipeline import serve as tserve
-
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        _serve(tserve, TParams(str(exp_dir / "params.json")), [], device="cpu", **kw)
-
-
-@pytest.mark.parametrize("kw", [{"continuous": True, "mesh": True}])
-def test_predict_flags_not_yet_ported(exp_dir, kw, monkeypatch):
-    """``--mesh`` runs (tests/test_torch_parallel.py); continuous prediction
-    over more than one rank (``scgrhc``'s ``apply_cp``) is refused."""
-    from scgrhc_torch.parallel import comm
-    from scgrhc_torch.pipeline import predict
-
-    monkeypatch.setattr(comm, "process_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="apply_cp.*not yet ported"):
-        predict.run(TParams(str(exp_dir / "params.json")), "SYN000", "last",
-                    device="cpu", **kw)
-
-
-@pytest.mark.parametrize("argv", [["serve", "{d}", "last", "--mesh"],
-                                  ["predict", "{d}", "SYN000", "--continuous"]])
-def test_cli_flags_not_yet_ported(exp_dir, argv, monkeypatch):
-    """``serve --mesh``, and ``predict --continuous`` over two ranks."""
-    from scgrhc_torch.__main__ import main
-    from scgrhc_torch.parallel import comm
-
-    monkeypatch.setattr(comm, "process_count", lambda: 2)
-    with pytest.raises(SystemExit, match="not yet ported"):
-        main([a.format(d=exp_dir) for a in argv])
-
-
 def test_cli_serve_on_cpu(exp_dir, monkeypatch, capsys):
     from scgrhc_torch.__main__ import main
 
