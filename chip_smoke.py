@@ -43,6 +43,14 @@ model's full width, counting kernel launches from 0 just before each:
 
 Then more phases:
 
+  * the record read (the ``record_read`` phase): the C WFDB decoder
+    (``scgrhc_torch/native``, built with the host compiler) that
+    ``io/wfdb.rdrecord`` takes, against the NumPy decode it replaced, on a
+    4-h 500-Hz record of 5 channels in formats 16 and 212 with sentinel
+    samples (equal bit for bit; each path's median ms of 3 reads and
+    ``tracemalloc``'s peak bytes), and the 1800-s continuous request's
+    read against that request's ``ms``;
+
   * the loader artifacts: the pipeline experiment's data stage again with
     ``loader_backend: "torch"`` (pickled torch DataLoaders), read back by
     the port to the native files' arrays exactly, and one epoch trained
@@ -100,9 +108,10 @@ that the tensor-core core replaced.
 Any failure exits non-zero before the result lines; without a CUDA device,
 or without the package beside it, it exits non-zero at once.
 
-The last three lines of standard output are the card (``nvidia-smi``'s
-name and power limit), one ``{"kernels": [...]}`` JSON object, and
-``{"ok": true, "device": {...}}``.  A kernel's ``ms`` is the time of
+The last four lines of standard output are the record read's figures
+(``{"record_read": {...}}``), the card (``nvidia-smi``'s name and power
+limit), one ``{"kernels": [...]}`` JSON object, and ``{"ok": true,
+"device": {...}}``.  A kernel's ``ms`` is the time of
 back-to-back calls of its wrapper; K3 and K4, whose wrappers cost more
 on the host than their kernels on the card, also carry ``graph_ms``, the
 same calls replayed from a CUDA graph.  Details go to
@@ -118,10 +127,12 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import tracemalloc
 
 import numpy as np
 
@@ -2395,6 +2406,106 @@ def continuous_end_to_end(torch, smoke: Smoke, exp: str, card: str) -> dict:
     return report
 
 
+# ---- the record read: the C WFDB decoder against its NumPy decode -----------
+
+READ_SECONDS = 4 * 3600.0  # a 4-h record at 500 Hz: 7,200,000 samples a channel
+READ_FMTS = ("16", "212")  # the dataset's format, and the packed 12-bit one
+READ_REPS = 3
+READ_SENTINELS = 8  # sentinel samples put into each record's .dat
+
+
+def _read_timed(fn, path) -> tuple[float, int, object]:
+    """Median ms of READ_REPS calls, then one more call's peak bytes as
+    ``tracemalloc`` sees them (NumPy reports its arrays to it), and that
+    call's result."""
+    times = []
+    for _ in range(READ_REPS):
+        t0 = time.perf_counter()
+        fn(path)
+        times.append((time.perf_counter() - t0) * 1e3)
+    tracemalloc.start()
+    try:
+        out = fn(path)
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    return statistics.median(times), peak, out
+
+
+def record_read(smoke: Smoke, root: str, card: str, exp: str, continuous: dict) -> dict:
+    """The port's record read, ``io/wfdb.rdrecord`` (the C decoder of
+    ``scgrhc_torch/native``), against the NumPy decode it replaced
+    (``rdrecord_numpy``) on a 4-h 500-Hz record of the 5 synthetic
+    channels, in formats 16 and 212 with sentinel samples: equal bit for
+    bit with the NaNs in the same places, the median ms of READ_REPS reads
+    and the peak bytes of each path.  Then the continuous phase's 1800-s
+    request: its record read (``read_scg``, as ``serve._prepare`` calls
+    it) on both paths against the request's ``ms``."""
+    from scgrhc_torch.core import paths
+    from scgrhc_torch.core.params import Params
+    from scgrhc_torch.io import wfdb
+    from scgrhc_torch.io.catalog import get_channels
+    from scgrhc_torch.pipeline.predict import read_scg
+    from scgrhc_torch.utils.synth import ALL_CHANNELS
+
+    os.makedirs(root)
+    n = int(READ_SECONDS * 500)
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    adc = rng.integers(-2000, 2000, size=(n, len(ALL_CHANNELS)), endpoint=True,
+                       dtype=np.int32)
+    at = rng.choice(adc.size, READ_SENTINELS, replace=False)
+    report = {"samples": n, "channels": len(ALL_CHANNELS), "formats": {}}
+    for fmt in READ_FMTS:
+        path = os.path.join(root, f"REC{fmt}")
+        wfdb.wrrecord(path, 500, ALL_CHANNELS, adc / 200.0, gain=200.0, fmt=fmt)
+        flat = adc.reshape(-1).copy()
+        flat[at] = wfdb.SENTINELS[fmt]
+        wfdb._encode_stream(flat, fmt, path + ".dat")
+        del flat
+        dat_mb = os.path.getsize(path + ".dat") / 1e6
+        c_ms, c_peak, got = _read_timed(wfdb.rdrecord, path)
+        np_ms, np_peak, ref = _read_timed(wfdb.rdrecord_numpy, path)
+        same = (got.p_signal.shape == (n, len(ALL_CHANNELS))
+                and np.array_equal(got.p_signal.view(np.uint64), ref.p_signal.view(np.uint64)))
+        nans = int(np.isnan(got.p_signal).sum())
+        smoke.check(same and nans == READ_SENTINELS
+                    and bool(np.isnan(got.p_signal.reshape(-1)[at]).all()),
+                    f"record read, format {fmt}: C against NumPy equal bit for bit {same}, "
+                    f"{nans} NaN for {READ_SENTINELS} sentinels")
+        del got, ref
+        rec = {"dat_mb": dat_mb, "c_ms": c_ms, "numpy_ms": np_ms, "c_peak_bytes": c_peak,
+               "numpy_peak_bytes": np_peak, "speedup": np_ms / c_ms,
+               "peak_ratio": np_peak / c_peak, "equal_bits": same}
+        report["formats"][fmt] = rec
+        print(f"record read, format {fmt}: {n} samples x {len(ALL_CHANNELS)} channels "
+              f"({dat_mb:.1f} MB .dat), C {c_ms:.1f} ms, NumPy {np_ms:.1f} ms (median of "
+              f"{READ_REPS}; {rec['speedup']:.2f}x), peak {c_peak / 1e6:.1f} MB against "
+              f"{np_peak / 1e6:.1f} MB ({rec['peak_ratio']:.2f}x), equal bit for bit {same}, "
+              f"on the host of {card}", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+
+    # the continuous phase's 1800-s request: its read against its ms
+    name = RECORDS[1][0]
+    req = next((r for r in continuous.get("requests", []) if r["record"] == name), None)
+    if smoke.check(req is not None, f"record read: no continuous {name} request to hold to"):
+        params = Params(os.path.join(exp, "params.json"))
+        rec_path = os.path.join(paths.PROCESSED_DATA_PATH, name)
+        c_ms = _read_timed(lambda _: read_scg(params, name), None)[0]
+        np_ms = _read_timed(lambda p: get_channels(
+            wfdb.rdrecord_numpy(p), params.in_channels, 0, int(RECORDS[1][1] * 500)),
+            rec_path)[0]
+        report["continuous"] = {"record": name, "request_ms": req["ms"], "read_ms": c_ms,
+                                "numpy_read_ms": np_ms, "share": c_ms / req["ms"],
+                                "numpy_share": np_ms / req["ms"]}
+        print(f"record read in the continuous {name} request ({req['ms']} ms): read_scg "
+              f"{c_ms:.1f} ms through C ({c_ms / req['ms']:.1%} of the request), "
+              f"{np_ms:.1f} ms through NumPy ({np_ms / req['ms']:.1%})", flush=True)
+    report["phase_s"] = time.perf_counter() - t0
+    print(f"record read phase: {report['phase_s']:.1f} s", flush=True)
+    return report
+
+
 def calibrate_end_to_end(torch, smoke: Smoke, root: str, card: str) -> dict:
     """On the pipeline phase's experiment (it has a train split): the daemon
     started with ``--calibrate`` answers a windowed request with
@@ -3538,6 +3649,7 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})", file=sys.stderr)
         return 3
+    from scgrhc_torch import native
     from scgrhc_torch.core.device import resolve_device
     from scgrhc_torch.ops.kernels import _build
 
@@ -3577,6 +3689,10 @@ def main() -> int:
     smoke.check(not build.log or any(k.startswith("conv_mma_kernel") and
                                      k.endswith("(conv_in_relu)") for k in core),
                 "ptxas: no conv_mma_kernel instance from conv_in_relu.cu")
+    t0 = time.perf_counter()
+    wfdb_build = native.build()
+    print(f"build: {wfdb_build.path.name} (the C WFDB decoder, host compiler) in "
+          f"{wfdb_build.seconds:.2f} s ({time.perf_counter() - t0:.2f} s with load)", flush=True)
     sass, sass_text = sass_hmma(smoke, build.path)
     fma_core_left(smoke, build.log, sass_text)
     k1f = check_conv_in_relu(torch, smoke)
@@ -3590,6 +3706,9 @@ def main() -> int:
         serve = serve_end_to_end(torch, smoke, os.path.join(root, "serve"), card)
         whole = {"kernel": check_whole_record_k1f(torch, smoke),
                  "serve": continuous_end_to_end(torch, smoke, serve["exp"], card)}
+        read = {"build_s": wfdb_build.seconds,
+                **record_read(smoke, os.path.join(root, "read"), card, serve["exp"],
+                              whole["serve"])}
         train = train_end_to_end(torch, smoke, os.path.join(root, "train"), card)
         pipeline = pipeline_end_to_end(torch, smoke, os.path.join(root, "pipeline"), card)
         artifacts = loader_artifacts(torch, smoke, os.path.join(root, "pipeline"), card)
@@ -3675,13 +3794,14 @@ def main() -> int:
                    "serve": serve, "continuous": whole, "calibrate": calibrated, "int8": int8,
                    "train": train, "pipeline": pipeline, "long_windows": long,
                    "loader_artifacts": artifacts, "trace": traced, "bench": bench,
-                   "cli": cli_phase, "dist": dist,
+                   "cli": cli_phase, "dist": dist, "record_read": read,
                    "errors": smoke.errors}, f, indent=1)
     if smoke.errors:
         print(f"chip_smoke: {len(smoke.errors)} check(s) failed", file=sys.stderr)
         for e in smoke.errors:
             print(f"  {e}", file=sys.stderr)
         return 1
+    print(json.dumps({"record_read": read}, allow_nan=False))
     print(card)
     print(json.dumps({"kernels": kernels}, allow_nan=False))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,12 +1,15 @@
 """Minimal, self-contained WFDB record reader/writer (the port's copy of
-the NumPy paths of ``scgrhc.io.wfdb``).
+``scgrhc.io.wfdb``).
 
 The reference relies on the ``wfdb`` PyPI package only for
 ``wfdb.rdrecord(...).p_signal`` / ``.sig_name`` (reference:
 recordutil.py:113-119,137).  This module provides that surface from scratch:
 a pure-NumPy parser for WFDB ``.hea`` headers and ``.dat`` signal files, plus
-a writer used by the synthetic-record fixtures.  The optional C decoder of
-the JAX package is not ported; the NumPy path gives the same values.
+a writer used by the synthetic-record fixtures.  :func:`rdrecord` decodes
+and calibrates single-frame groups in formats 16/24/32/61/80/160/212 in one
+C pass (:mod:`scgrhc_torch.native`, built at first use; no fallback), where
+``scgrhc`` takes its C decoder; :func:`decode_group_numpy` is the NumPy
+decode it is held to bit for bit, and reads the other formats.
 
 Supported signal storage formats: 16 (little-endian int16 — the common case
 for this dataset), 61 (big-endian int16), 32 (little-endian int32), 24
@@ -34,6 +37,8 @@ import os
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from scgrhc_torch import native
 
 DEFAULT_GAIN = 200.0
 
@@ -221,12 +226,67 @@ def _decode_stream(raw: np.ndarray, fmt: str, path: str) -> np.ndarray:
     )
 
 
-def rdrecord(record_path: str) -> Record:
-    """Read a WFDB record (path without extension) → :class:`Record`.
+def decode_group_numpy(path: str, fmt: str, specs: list[SignalSpec], idxs: list[int],
+                       sig_len: int, p_signal: np.ndarray) -> None:
+    """The NumPy decode and calibration of one signal group (the signals
+    ``idxs`` of ``specs``, interleaved in the ``.dat`` at ``path``) into
+    those columns of ``p_signal``: formats 8, 310, 311 and multi-frame
+    groups in :func:`rdrecord`, and the reference that the C decoder
+    (:mod:`scgrhc_torch.native`) is held to bit for bit."""
+    frame_samps = [specs[i].samps_per_frame for i in idxs]
+    frame_size = sum(frame_samps)
+    raw = np.fromfile(path, dtype=np.uint8)
+    adc = _decode_stream(raw, fmt, path)
+    total = frame_size * sig_len
+    if adc.size < total:
+        raise ValueError(
+            f"{path}: .dat holds {adc.size} samples but header promises "
+            f"{total} ({frame_size} samples/frame x {sig_len} frames)"
+        )
+    frames = adc[:total].reshape(sig_len, frame_size)
+    sentinel = SENTINELS.get(fmt)
+    col = 0
+    for sig_idx, spf in zip(idxs, frame_samps):
+        spec = specs[sig_idx]
+        block = frames[:, col : col + spf]
+        col += spf
+        if fmt == "8":
+            # first differences: samples = init_value + cumsum(diffs)
+            block = spec.init_value + np.cumsum(block[:, 0])[:, None]
+            invalid = None
+        else:
+            invalid = block == sentinel
+        phys = (block.astype(np.float64) - spec.baseline) / spec.gain
+        if invalid is not None and invalid.any():
+            phys[invalid] = np.nan
+        # multi-frame smoothing = frame mean (wfdb smooth_frames=True);
+        # a frame with any invalid sample smooths to NaN
+        p_signal[:, sig_idx] = phys[:, 0] if spf == 1 else phys.mean(axis=1)
 
-    Drop-in for the subset of ``wfdb.rdrecord`` the pipeline needs
-    (reference: recordutil.py:137).
-    """
+
+NATIVE_FMTS = ("16", "24", "32", "61", "80", "160", "212")
+
+
+def _decode_group(path: str, fmt: str, specs: list[SignalSpec], idxs: list[int],
+                  sig_len: int, p_signal: np.ndarray) -> None:
+    """A single-frame group in a format of ``NATIVE_FMTS`` through the C
+    decoder, straight into its ``p_signal`` columns; any other through
+    :func:`decode_group_numpy` (``scgrhc.io.wfdb.rdrecord``'s routing)."""
+    if fmt not in NATIVE_FMTS or any(specs[i].samps_per_frame != 1 for i in idxs):
+        decode_group_numpy(path, fmt, specs, idxs, sig_len, p_signal)
+        return
+    try:
+        native.decode_calibrate_into(
+            np.fromfile(path, dtype=np.uint8), int(fmt), sig_len,
+            [float(specs[i].baseline) for i in idxs], [specs[i].gain for i in idxs],
+            p_signal, idxs)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
+
+
+def _read(record_path: str, decode_group) -> Record:
+    """The header, then each ``.dat`` file's signal group through
+    ``decode_group`` into one ``p_signal``."""
     hea_path = record_path + ".hea"
     record_name, fs, sig_len, specs = read_header(hea_path)
     dirname = os.path.dirname(record_path)
@@ -243,41 +303,11 @@ def rdrecord(record_path: str) -> Record:
             raise ValueError(f"Mixed formats in {file_name}: {fmts}")
         fmt = fmts.pop()
         path = os.path.join(dirname, file_name)
-        frame_samps = [specs[i].samps_per_frame for i in idxs]
-        single_frame = all(s == 1 for s in frame_samps)
-        if fmt == "8" and not single_frame:
+        if fmt == "8" and any(specs[i].samps_per_frame != 1 for i in idxs):
             raise ValueError(
                 f"{path}: format 8 with samps_per_frame > 1 is not supported"
             )
-
-        frame_size = sum(frame_samps)
-        raw = np.fromfile(path, dtype=np.uint8)
-        adc = _decode_stream(raw, fmt, path)
-        total = frame_size * sig_len
-        if adc.size < total:
-            raise ValueError(
-                f"{path}: .dat holds {adc.size} samples but header promises "
-                f"{total} ({frame_size} samples/frame x {sig_len} frames)"
-            )
-        frames = adc[:total].reshape(sig_len, frame_size)
-        sentinel = SENTINELS.get(fmt)
-        col = 0
-        for sig_idx, spf in zip(idxs, frame_samps):
-            spec = specs[sig_idx]
-            block = frames[:, col : col + spf]
-            col += spf
-            if fmt == "8":
-                # first differences: samples = init_value + cumsum(diffs)
-                block = spec.init_value + np.cumsum(block[:, 0])[:, None]
-                invalid = None
-            else:
-                invalid = block == sentinel
-            phys = (block.astype(np.float64) - spec.baseline) / spec.gain
-            if invalid is not None and invalid.any():
-                phys[invalid] = np.nan
-            # multi-frame smoothing = frame mean (wfdb smooth_frames=True);
-            # a frame with any invalid sample smooths to NaN
-            p_signal[:, sig_idx] = phys[:, 0] if spf == 1 else phys.mean(axis=1)
+        decode_group(path, fmt, specs, idxs, sig_len, p_signal)
     return Record(
         record_name=record_name,
         fs=fs,
@@ -286,6 +316,23 @@ def rdrecord(record_path: str) -> Record:
         p_signal=p_signal,
         specs=specs,
     )
+
+
+def rdrecord(record_path: str) -> Record:
+    """Read a WFDB record (path without extension) → :class:`Record`.
+
+    Drop-in for the subset of ``wfdb.rdrecord`` the pipeline needs
+    (reference: recordutil.py:137).  Single-frame groups in formats
+    16/24/32/61/80/160/212 go through the C decoder, which is built at
+    first use (:mod:`scgrhc_torch.native`).
+    """
+    return _read(record_path, _decode_group)
+
+
+def rdrecord_numpy(record_path: str) -> Record:
+    """:func:`rdrecord` with every group through :func:`decode_group_numpy`:
+    the reference for the C decoder, which no path of the port calls."""
+    return _read(record_path, decode_group_numpy)
 
 
 DIGITAL_FMTS = ("16", "61", "80", "160", "212", "310", "311")
