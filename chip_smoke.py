@@ -91,6 +91,16 @@ Then more phases:
     in a world of one rank, equal bit for bit to the steps with no process
     group; ``predict <dir> LONG030 last --mesh`` (1200 windows) at world
     size 2 over gloo against world size 1, both timed;
+  * Orbax checkpoints (the ``orbax`` phase): ``python -m scgrhc_torch
+    <dir>`` with ``checkpoint_backend: "orbax"`` on the pipeline phase's
+    configuration, held to that phase's pickle-backend run (each epoch's
+    weights and Adam moments bit for bit, the CSVs and
+    ``checkpoint_best.txt`` byte for byte), one more epoch resumed from the
+    last ``.orbax`` dir against the same resume from the pickle,
+    ``predict`` (max-abs 0.0, 14 K1f and 1 K4 a chunk) and ``export`` from
+    the best ``.orbax``, and one full checkpoint saved (blocking and in the
+    background) and loaded by each backend, timed, with its bytes on disk;
+    its figures on a ``{"orbax": ...}`` line before the record read's;
   * the port's bench: each mode of ``python -m scgrhc_torch.bench`` as a
     process of its own (and ``--dtype int8`` in the inference and eval
     modes, ``--continuous`` in the stream mode), its one JSON line held
@@ -108,8 +118,8 @@ that the tensor-core core replaced.
 Any failure exits non-zero before the result lines; without a CUDA device,
 or without the package beside it, it exits non-zero at once.
 
-The last four lines of standard output are the record read's figures
-(``{"record_read": {...}}``), the card (``nvidia-smi``'s name and power
+The last five lines of standard output are the Orbax phase's figures
+(``{"orbax": {...}}``), the record read's (``{"record_read": {...}}``), the card (``nvidia-smi``'s name and power
 limit), one ``{"kernels": [...]}`` JSON object, and ``{"ok": true,
 "device": {...}}``.  A kernel's ``ms`` is the time of
 back-to-back calls of its wrapper; K3 and K4, whose wrappers cost more
@@ -1750,7 +1760,7 @@ def pipeline_end_to_end(torch, smoke: Smoke, root: str, card: str) -> dict:
         return Params(_write_params(d, total_epochs=2, eval_stack=8, eval_batch=N_EVAL,
                                     seed=0, **extra))
 
-    report = {"db_s": db_s, "data_stage": {}}
+    report = {"db_s": db_s, "data_root": data_root, "data_stage": {}}
     for backend in ("host", "device"):
         params = exp(f"data_{backend}", data_backend=backend)
         for fn in fns.values():
@@ -3637,6 +3647,267 @@ def _time_sharded_entry(dist: dict) -> dict:
             "library_ms": None}
 
 
+# ---- Orbax checkpoints ------------------------------------------------------------
+
+def _ckpt_arrays(ckpt: dict) -> dict:
+    """Every array of a checkpoint dict (weights and Adam moments), by name."""
+    out = {f"{k}/{p}": v for k in ("g_state_dict", "d_state_dict") for p, v in ckpt[k].items()}
+    for k in ("g_optimizer_state_dict", "d_optimizer_state_dict"):
+        for i, s in ckpt[k]["state"].items():
+            out.update({f"{k}/{i}/{m}": s[m] for m in ("exp_avg", "exp_avg_sq")})
+            out[f"{k}/{i}/step"] = np.asarray(s["step"])
+    return out
+
+
+def _ckpt_diff(a: dict, b: dict) -> float:
+    """0.0 when two checkpoints hold the same losses and the same arrays bit
+    for bit, else their largest difference (inf for another layout)."""
+    x, y = _ckpt_arrays(a), _ckpt_arrays(b)
+    if x.keys() != y.keys() or (a["g_losses"], a["d_losses"]) != (b["g_losses"], b["d_losses"]):
+        return math.inf
+    if all(np.asarray(v).tobytes() == np.asarray(y[k]).tobytes() for k, v in x.items()):
+        return 0.0
+    return max(float(np.abs(np.asarray(v, np.float64) - np.asarray(y[k], np.float64)).max())
+               for k, v in x.items())
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def _export_dict_equal(torch, a: dict, b: dict) -> bool:
+    if list(a) != list(b):
+        return False
+    for k, v in a.items():
+        w = b[k]
+        if isinstance(v, dict):
+            if not _export_dict_equal(torch, v, w):
+                return False
+        elif isinstance(v, torch.Tensor):
+            if not (isinstance(w, torch.Tensor) and v.dtype == w.dtype and torch.equal(v, w)):
+                return False
+        elif v != w:
+            return False
+    return True
+
+
+def orbax_end_to_end(torch, smoke: Smoke, root: str, card: str, pipeline: dict) -> dict:
+    """``checkpoint_backend: "orbax"`` on the pipeline phase's experiment
+    (same data, seed and depth): ``python -m scgrhc_torch <dir>`` in a new
+    process, held to the pipeline phase's pickle-backend run (each epoch's
+    weights and Adam moments bit for bit, the score and comparison CSVs and
+    ``checkpoint_best.txt`` byte for byte); one more epoch resumed from the
+    last ``.orbax`` dir against the same resume from the pickle;
+    ``predict`` and ``export`` from the best ``.orbax`` against the
+    pickle's (the export's dicts equal but for ``start_time``, each run's
+    wall-clock start); then one full checkpoint saved and loaded by each backend,
+    timed on the host clock, with its bytes on disk."""
+    from scgrhc_torch.__main__ import main as cli
+    from scgrhc_torch.core.device import resolve_device
+    from scgrhc_torch.core.params import Params
+    from scgrhc_torch.native import zstd
+    from scgrhc_torch.train import checkpoint as ckpt_io
+    from scgrhc_torch.train import orbax_io
+    from scgrhc_torch.train import run as train_run
+    from scgrhc_torch.train.wgan import TrainConfig
+
+    t_phase = time.perf_counter()
+    report = {"card": card, "zstd": f"{zstd.LIBRARY} {zstd.version()} (host library, ctypes)"}
+    ref_dir = os.path.join(root, "pipeline")
+    if not smoke.check("launches" in pipeline, "orbax: the pipeline phase did not run"):
+        return report
+    ref = Params(os.path.join(ref_dir, "params.json"))
+    fns = _kernel_counters()
+
+    def run_pipeline(name, **extra):
+        d = os.path.join(root, name)
+        os.makedirs(d)
+        params = Params(_write_params(d, total_epochs=2, eval_stack=8, eval_batch=N_EVAL,
+                                      seed=0, data_backend="device", **extra))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", _PIPELINE_PROC, d, json.dumps(ALL_KERNELS)],
+            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+            timeout=900, env=dict(os.environ, SCGRHC_DATA=pipeline["data_root"]))
+        wall = time.perf_counter() - t0
+        with open(os.path.join(OUT_DIR, f"chip_smoke_{name}.log"), "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        if not smoke.check(proc.returncode == 0, f"{name}: python -m scgrhc_torch <dir>: rc "
+                                                 f"{proc.returncode}\n{proc.stderr[-3000:]}"):
+            return params, None, wall
+        return params, json.loads(proc.stdout.strip().splitlines()[-1]), wall
+
+    def artifacts(params) -> dict:
+        best = open(os.path.join(params.dir_path, "checkpoint_best.txt")).read().split()[1]
+        rels = ["checkpoint_scores.csv", "checkpoint_best.txt",
+                f"comparisons/test/{best.split('.')[0]}.csv"]
+        rels += [f"comparisons/valid/{n}" for n in sorted(os.listdir(os.path.join(
+            params.comparison_dir_path, "valid")))]
+        out = {}
+        for rel in rels:
+            with open(os.path.join(params.dir_path, rel), "rb") as f:
+                out[rel] = f.read()
+        return out
+
+    def epochs(params, suffix="") -> list:
+        return [ckpt_io.load(os.path.join(params.checkpoint_dir_path,
+                                          f"{e:03d}.checkpoint{suffix}")) for e in (0, 1)]
+
+    # 1. the pipeline with the Orbax backend, in a new process
+    orb, launches, wall = run_pipeline("orbax", checkpoint_backend="orbax")
+    if launches is None:
+        return report
+    report.update(wall_s=wall, pipeline_wall_s=pipeline["wall_s"], launches=launches)
+    names = ckpt_io.list_checkpoints(orb.checkpoint_dir_path)
+    smoke.check(names == ["000.checkpoint.orbax", "001.checkpoint.orbax"],
+                f"orbax pipeline: checkpoints {names}")
+    smoke.check(launches == pipeline["launches"],
+                f"orbax pipeline: launches {launches}, the pickle backend's {pipeline['launches']}")
+    # 2. against the pickle backend's run
+    diffs = [_ckpt_diff(a, b) for a, b in zip(epochs(orb, ".orbax"), epochs(ref))]
+    files = artifacts(orb)
+    ref_files = artifacts(ref)
+    differ = sorted(k for k in files.keys() | ref_files.keys()
+                    if files.get(k) != ref_files.get(k))
+    report.update(epoch_diffs=diffs, files_compared=sorted(files), files_differ=differ)
+    if max(diffs) != 0.0 or differ:  # hold to the pickle backend's own run-to-run difference
+        again, _, _ = run_pipeline("pipeline_again")
+        noise = [_ckpt_diff(a, b) for a, b in zip(epochs(again), epochs(ref))]
+        noise_files = artifacts(again)
+        noise_differ = sorted(k for k in noise_files if noise_files[k] != ref_files.get(k))
+        report.update(run_to_run_diffs=noise, run_to_run_files_differ=noise_differ)
+        smoke.check(all(d <= n for d, n in zip(diffs, noise)) and set(differ) <= set(noise_differ),
+                    f"orbax pipeline: epochs differ by {diffs} and files {differ} from the pickle "
+                    f"backend's, whose own runs differ by {noise} and {noise_differ}")
+    print(f"orbax: python -m scgrhc_torch <dir> with checkpoint_backend orbax in {wall:.1f} s "
+          f"(pickle backend {pipeline['wall_s']:.1f} s, process start included); epochs against "
+          f"the pickle backend's {diffs} (0.0: bit for bit); files differing {differ} of "
+          f"{len(files)}; launches equal {launches == pipeline['launches']} on {card}", flush=True)
+
+    # 3. one more epoch from the last .orbax dir, and from the pickle (on a copy)
+    resumed = os.path.join(root, "pipeline_resumed")
+    shutil.copytree(ref_dir, resumed, ignore=shutil.ignore_patterns("comparisons", "pred*"))
+    ref_resumed = Params(_write_params(resumed, total_epochs=3, eval_stack=8, eval_batch=N_EVAL,
+                                       seed=0, data_backend="device"))
+    orb3 = Params(_write_params(orb.dir_path, total_epochs=3, eval_stack=8, eval_batch=N_EVAL,
+                                seed=0, data_backend="device", checkpoint_backend="orbax"))
+    secs = {}
+    for what, params in (("orbax", orb3), ("pickle", ref_resumed)):
+        for fn in fns.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = train_run.run(params, plot=False)
+        torch.cuda.synchronize()
+        secs[what] = time.perf_counter() - t0
+        smoke.check([e["epoch"] for e in out["epochs"]] == [2],
+                    f"orbax resume ({what}): epochs {out['epochs']}")
+        smoke.check(fns["conv_in_relu_bwd"].launches > 0, f"orbax resume ({what}): no K1b launch")
+    last = orbax_io.ORBAX_SUFFIX
+    resume_diff = _ckpt_diff(
+        ckpt_io.load(os.path.join(orb3.checkpoint_dir_path, f"002.checkpoint{last}")),
+        ckpt_io.load(os.path.join(ref_resumed.checkpoint_dir_path, "002.checkpoint")))
+    smoke.check(resume_diff == 0.0, f"orbax resume: epoch 2 differs by {resume_diff}")
+    report["resume"] = {"diff": resume_diff, "s": secs}
+    print(f"orbax: one more epoch resumed from 001.checkpoint.orbax in {secs['orbax']:.2f} s, "
+          f"from the pickle in {secs['pickle']:.2f} s; epoch 2 differs by {resume_diff} on "
+          f"{card}", flush=True)
+
+    # 4. predict and export from the best .orbax, against the pickle's
+    best = open(os.path.join(orb.dir_path, "checkpoint_best.txt")).read().split()[1]
+    record = "SYN000"
+    preds, got = {}, {}
+    for what, d in (("orbax", orb.dir_path), ("pickle", ref_dir)):
+        for fn in fns.values():
+            fn.launches = 0
+        smoke.check(cli(["predict", d, record, best]) == 0, f"predict from {what}")
+        got[what] = {k: fn.launches for k, fn in fns.items()}
+        preds[what] = np.load(os.path.join(d, "predictions", f"{record}.npy"))
+        smoke.check(cli(["export", d, best]) == 0, f"export from {what}")
+    n = math.ceil(preds["pickle"].size / T)  # the windows of the record's chamber interval
+    chunks = math.ceil(n / N_CHUNK)
+    want = {k: 0 for k in ALL_KERNELS}
+    want.update(conv_in_relu=14 * chunks, normalize_windows=chunks)
+    smoke.check(got["orbax"] == want, f"predict from .orbax: launches {got['orbax']}, "
+                                      f"expected {want}")
+    pred_err = (float(np.abs(preds["orbax"].astype(np.float64) - preds["pickle"]).max())
+                if preds["orbax"].shape == preds["pickle"].shape else math.inf)
+    smoke.check(preds["orbax"].shape == preds["pickle"].shape and pred_err == 0.0,
+                f"predict from .orbax: {preds['orbax'].shape}, max-abs {pred_err} from the pickle")
+    exported = [torch.load(os.path.join(d, best + ".torch"), weights_only=False)
+                for d in (orb.dir_path, ref_dir)]
+    for e in exported:  # each run's own wall-clock start, the one key that may differ
+        smoke.check(isinstance(e.pop("start_time", None), float), "export: no start_time")
+    export_equal = _export_dict_equal(torch, *exported)
+    smoke.check(export_equal, "export from .orbax: the dict differs from the pickle's export")
+    report["predict"] = {"record": record, "windows": n, "chunks": chunks, "launches": got,
+                         "max_abs_err": pred_err, "export_equal": export_equal}
+    print(f"orbax: predict {record} from {best}.orbax ({n} windows, {chunks} chunks): max-abs "
+          f"{pred_err} from the pickle's prediction, launches {got['orbax']}; export equal "
+          f"{export_equal} on {card}", flush=True)
+
+    # 5. one full checkpoint (the resumed state, on the card): save and load, each backend
+    cfg = TrainConfig.from_params(orb3)
+    dev = resolve_device("cuda")
+    _, state = orbax_io.load(os.path.join(orb3.checkpoint_dir_path, f"002.checkpoint{last}"), cfg,
+                             len(CHANNELS), dev)
+    io_dir = os.path.join(root, "checkpoint_io")
+    os.makedirs(io_dir)
+    pkl, orx = os.path.join(io_dir, "pickle.checkpoint"), os.path.join(io_dir, "orbax.checkpoint")
+    meta = dict(start_time=0.0, epoch=2, g_losses=[1.0] * 204, d_losses=[1.0] * 1020)
+
+    def median_ms(fn, reps=3):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def async_ms(save):
+        call, total = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            save()
+            call.append((time.perf_counter() - t0) * 1e3)
+            ckpt_io.wait()
+            total.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(call), statistics.median(total)
+
+    save = {
+        "pickle": lambda block=True: ckpt_io.save(pkl, state=state, cfg=cfg, block=block, **meta),
+        "orbax": lambda block=True: orbax_io.save(orx, state=state, block=block, **meta),
+    }
+    io = {}
+    for what in ("pickle", "orbax", "orbax", "pickle"):  # in turns
+        rec = io.setdefault(what, {"save_ms": [], "async_call_ms": [], "async_total_ms": []})
+        rec["save_ms"].append(median_ms(save[what]))
+        call, total = async_ms(lambda: save[what](block=False))
+        rec["async_call_ms"].append(call)
+        rec["async_total_ms"].append(total)
+    io["pickle"]["load_ms"] = median_ms(lambda: ckpt_io.restore(ckpt_io.load(pkl), cfg,
+                                                                len(CHANNELS), dev))
+    io["orbax"]["load_ms"] = median_ms(lambda: orbax_io.load(orx, cfg, len(CHANNELS), dev))
+    io["pickle"]["bytes"] = os.path.getsize(pkl)
+    io["orbax"]["bytes"] = _dir_bytes(orx + last)
+    raw = sum(v.numel() * v.element_size() for m in (state.generator, state.critic)
+              for v in m.state_dict().values()) * 3
+    loaded = orbax_io.read(orx + last)
+    smoke.check(_ckpt_diff(loaded, ckpt_io.load(pkl)) == 0.0,
+                "checkpoint I/O: the two backends' files hold different arrays")
+    report["checkpoint_io"] = {"raw_bytes": raw, **io}
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"orbax: one full checkpoint ({raw / 1e6:.1f} MB of weights and moments): save "
+          f"{io['orbax']['save_ms']} ms (block=False: {io['orbax']['async_call_ms']} ms blocking, "
+          f"{io['orbax']['async_total_ms']} ms to durable), load {io['orbax']['load_ms']:.1f} ms, "
+          f"{io['orbax']['bytes']} bytes; pickle save {io['pickle']['save_ms']} ms (block=False: "
+          f"{io['pickle']['async_call_ms']} ms blocking, {io['pickle']['async_total_ms']} ms), "
+          f"load {io['pickle']['load_ms']:.1f} ms, {io['pickle']['bytes']} bytes; "
+          f"{report['zstd']}; host times on {card}; the phase {report['seconds']:.1f} s",
+          flush=True)
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -3724,6 +3995,7 @@ def main() -> int:
         cli_phase = cli_end_to_end(torch, smoke, os.path.join(root, "cli"), card)
         dist = dist_end_to_end(torch, smoke, os.path.join(root, "pipeline"), card, pipeline,
                                serve["exp"])
+        orbax = orbax_end_to_end(torch, smoke, os.path.join(root, "pipeline"), card, pipeline)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     bench = bench_modes(smoke, card, kind)
@@ -3794,13 +4066,14 @@ def main() -> int:
                    "serve": serve, "continuous": whole, "calibrate": calibrated, "int8": int8,
                    "train": train, "pipeline": pipeline, "long_windows": long,
                    "loader_artifacts": artifacts, "trace": traced, "bench": bench,
-                   "cli": cli_phase, "dist": dist, "record_read": read,
+                   "cli": cli_phase, "dist": dist, "record_read": read, "orbax": orbax,
                    "errors": smoke.errors}, f, indent=1)
     if smoke.errors:
         print(f"chip_smoke: {len(smoke.errors)} check(s) failed", file=sys.stderr)
         for e in smoke.errors:
             print(f"  {e}", file=sys.stderr)
         return 1
+    print(json.dumps({"orbax": orbax}, allow_nan=False))
     print(json.dumps({"record_read": read}, allow_nan=False))
     print(card)
     print(json.dumps({"kernels": kernels}, allow_nan=False))

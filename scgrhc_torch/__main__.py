@@ -234,12 +234,23 @@ def _main(cmd: str, argv: list[str], rest: list[str]) -> int:
         # reverse-lex resume sort (scgrhc/pipeline/run.py:142-169)
         from scgrhc_torch.pipeline.predict import resolve_checkpoint
         from scgrhc_torch.train import checkpoint as ckpt_io
+        from scgrhc_torch.train import orbax_io
+        from scgrhc_torch.train.wgan import TrainConfig
 
         name = resolve_checkpoint(params, argv[2])
         src = os.path.join(params.checkpoint_dir_path, name)
         out = rest[0] if rest and not rest[0].startswith("--") else os.path.join(
-            params.dir_path, name + ".torch")
-        ckpt_io.export_torch(src, out)
+            params.dir_path, name.replace(orbax_io.ORBAX_SUFFIX, "") + ".torch")
+        if orbax_io.is_orbax_checkpoint(src):  # through the reference pickle
+            ref = src[: -len(orbax_io.ORBAX_SUFFIX)] + ".tmp"
+            orbax_io.to_reference(src, ref, TrainConfig.from_params(params),
+                                  len(params.in_channels))
+            try:
+                ckpt_io.export_torch(ref, out)
+            finally:
+                os.remove(ref)
+        else:
+            ckpt_io.export_torch(src, out)
         print(f"Exported {src} -> {out}")
     elif cmd == "plots":
         from scgrhc_torch.pipeline import plots

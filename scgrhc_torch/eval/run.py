@@ -23,7 +23,8 @@ the same per-checkpoint forwards in a loop, the serial path's bits.
 ``channel_bucket`` and ``shape_bucket`` are read and ignored, as in
 training (:mod:`scgrhc_torch.train.run`): they pad to fixed shapes so that
 XLA's programs are shared, and the port's kernels need no fixed shapes.
-Not yet ported, and refused: Orbax checkpoints.
+Checkpoints of either backend are scored, once per epoch in a directory
+that holds both (:func:`scgrhc_torch.train.checkpoint.list_checkpoints`).
 
 Under a process group of N > 1 ranks each chunk is split over the ranks
 (:func:`scgrhc_torch.eval.infer.predict_split` with the data mesh), as
@@ -108,8 +109,8 @@ def _write_comparison_csv(store, real, pred, scores, comp_dir_path, ckpt_name) -
 
 
 def _load_generator(params, ckpt_name):
-    """A checkpoint's generator on the CPU (the load-ahead thread's part);
-    an Orbax checkpoint raises."""
+    """A checkpoint's generator on the CPU (the load-ahead thread's part),
+    from a pickle or an Orbax directory."""
     full = os.path.join(params.checkpoint_dir_path, resolve_checkpoint(params, ckpt_name))
     return generator_from_state_dict(ckpt_io.load(full)["g_state_dict"])
 

@@ -108,7 +108,8 @@ def critic_from_jax_params(params: dict, device=None) -> Critic:
     return critic_from_state_dict(critic_state_dict_from_jax_params(params), device)
 
 
-_KINDS = {
+# kind → (JAX pytree → state dict, state dict → JAX pytree)
+KINDS = {
     "generator": (state_dict_from_jax_params, jax_params_from_state_dict),
     "critic": (critic_state_dict_from_jax_params, critic_jax_params_from_state_dict),
 }
@@ -132,7 +133,7 @@ def adam_state_from_jax(count: int, mu: dict, nu: dict, kind: str) -> dict:
     """optax Adam ``(count, mu, nu)`` of the ``kind`` pytree → the
     ``"state"`` of a torch Adam state dict, keyed by registration order,
     numpy moments."""
-    to_sd, _ = _KINDS[kind]
+    to_sd, _ = KINDS[kind]
     mu_sd, nu_sd = to_sd(mu), to_sd(nu)
     return {
         i: {"step": int(count), "exp_avg": mu_sd[key], "exp_avg_sq": nu_sd[key]}
@@ -143,7 +144,7 @@ def adam_state_from_jax(count: int, mu: dict, nu: dict, kind: str) -> dict:
 def adam_state_to_jax(state: dict, kind: str) -> tuple[int, dict, dict]:
     """The ``"state"`` of a torch-layout Adam state dict → optax's
     ``(count, mu, nu)`` with numpy pytrees."""
-    _, from_sd = _KINDS[kind]
+    _, from_sd = KINDS[kind]
     keys = param_keys(kind)
     mu = {key: np.asarray(state[i]["exp_avg"]) for i, key in enumerate(keys)}
     nu = {key: np.asarray(state[i]["exp_avg_sq"]) for i, key in enumerate(keys)}

@@ -21,7 +21,9 @@ record is past one chunk (``STREAM_BATCH`` windows); at world size 1 it is
 a mesh of one.  Every rank reads the record and computes; only rank 0
 writes the files, and the others wait for it.
 
-Not yet ported, raising :class:`NotImplementedError`: Orbax checkpoints.
+Checkpoints are read whichever backend wrote them: a name that is an
+Orbax directory on disk (``NNN.checkpoint.orbax``) resolves to it
+(:mod:`scgrhc_torch.train.orbax_io`).
 """
 
 from __future__ import annotations
@@ -50,12 +52,10 @@ from scgrhc_torch.parallel.stream import STREAM_BATCH, mesh_for_request, stream_
 from scgrhc_torch.train import checkpoint as ckpt_io
 
 
-def not_ported(feature: str) -> NotImplementedError:
-    return NotImplementedError(f"{feature} is not yet ported to scgrhc_torch")
-
-
 def resolve_checkpoint(params, which: str) -> str:
-    """'best' (checkpoint_best.txt handshake), 'last', or explicit name."""
+    """'best' (checkpoint_best.txt handshake), 'last', or explicit name; a
+    bare ``NNN.checkpoint`` that lives on disk as an Orbax directory
+    resolves to ``NNN.checkpoint.orbax``."""
     if which == "best":
         with open(os.path.join(params.dir_path, "checkpoint_best.txt")) as f:
             which = f.read().splitlines()[0].split()[1]
@@ -66,16 +66,15 @@ def resolve_checkpoint(params, which: str) -> str:
                 f"no complete checkpoint in {params.checkpoint_dir_path}"
             )
     full = os.path.join(params.checkpoint_dir_path, which)
-    if which.endswith(ckpt_io.ORBAX_SUFFIX) or (
-        not os.path.exists(full) and os.path.isdir(full + ckpt_io.ORBAX_SUFFIX)
-    ):
-        raise not_ported("reading Orbax checkpoints")
+    if not os.path.exists(full) and os.path.isdir(full + ckpt_io.ORBAX_SUFFIX):
+        which += ckpt_io.ORBAX_SUFFIX
     return which
 
 
 def load_generator_params(params, ckpt_name: str, device=None):
-    """A checkpoint's generator, moved to the device once per process (every
-    request then runs against resident weights), in eval mode."""
+    """A checkpoint's generator (pickle or Orbax directory), moved to the
+    device once per process (every request then runs against resident
+    weights), in eval mode."""
     dev = resolve_device(device)
     ckpt = ckpt_io.load(os.path.join(params.checkpoint_dir_path, ckpt_name))
     return generator_from_state_dict(ckpt["g_state_dict"], dev).eval()

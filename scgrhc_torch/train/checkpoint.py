@@ -7,7 +7,8 @@ optimizer in ``torch.optim.Adam.state_dict()`` layout, parameters keyed by
 registration order, ``step`` an int.  :func:`save` writes the JAX
 package's native pickle (``format`` ``scgrhc-checkpoint.v1``), so
 ``scgrhc.train.checkpoint.load`` + ``restore_state`` read it; :func:`load`
-reads those pickles and the reference's ``torch.save`` zip files.
+reads those pickles, the reference's ``torch.save`` zip files and Orbax
+checkpoint directories (:mod:`scgrhc_torch.train.orbax_io`).
 """
 
 from __future__ import annotations
@@ -22,7 +23,11 @@ import torch
 from scgrhc_torch.models.convert import critic_from_state_dict, generator_from_state_dict
 
 NATIVE_TAG = "scgrhc-checkpoint.v1"
-ORBAX_SUFFIX = ".orbax"  # an Orbax checkpoint directory (not yet ported)
+ORBAX_SUFFIX = ".orbax"  # an Orbax checkpoint directory (train/orbax_io.py)
+
+
+def is_orbax_checkpoint(path: str) -> bool:
+    return os.path.isdir(path) and path.endswith(ORBAX_SUFFIX)
 
 
 def is_complete_checkpoint(dirpath: str, name: str) -> bool:
@@ -74,8 +79,12 @@ def list_checkpoints(dirpath: str) -> list[str]:
 
 
 def load(path: str) -> dict:
-    """Read a checkpoint — native pickle or reference torch.save zip.
-    State dicts come back as numpy arrays in either case."""
+    """Read a checkpoint — native pickle, reference torch.save zip, or Orbax
+    directory.  State dicts come back as numpy arrays in every case."""
+    if is_orbax_checkpoint(path):
+        from scgrhc_torch.train import orbax_io
+
+        return orbax_io.read(path)
     with open(path, "rb") as f:
         magic = f.read(4)
     if magic[:2] == b"PK":  # torch.save zipfile container
@@ -91,27 +100,30 @@ def load(path: str) -> dict:
         return pickle.load(f)
 
 
-def _adam_layout(state: dict, n_params: int, cfg) -> dict:
-    """Adam state (``Optimizer.state_dict()["state"]``) in the checkpoint
-    layout: numpy moments, int step, and the reference's full param_group
-    (``scgrhc/train/checkpoint.py:144-181``)."""
-    group = {
+def param_group(n_params: int, cfg) -> dict:
+    """The reference's full Adam param_group (``scgrhc/train/checkpoint.py:144-181``)."""
+    return {
         "lr": float(cfg.alpha), "betas": (float(cfg.beta1), float(cfg.beta2)),
         "eps": 1e-8, "weight_decay": 0, "amsgrad": False, "maximize": False,
         "foreach": None, "capturable": False, "differentiable": False, "fused": None,
         "params": list(range(n_params)),
     }
-    return {
-        "state": {
-            i: {"step": int(s["step"]), "exp_avg": s["exp_avg"].cpu().numpy(),
+
+
+def adam_state(state: dict) -> dict:
+    """Adam state (``Optimizer.state_dict()["state"]``) in the checkpoint
+    layout: numpy moments, int step."""
+    return {i: {"step": int(s["step"]), "exp_avg": s["exp_avg"].cpu().numpy(),
                 "exp_avg_sq": s["exp_avg_sq"].cpu().numpy()}
-            for i, s in state.items()
-        },
-        "param_groups": [group],
-    }
+            for i, s in state.items()}
 
 
-def _snapshot(state) -> dict:
+def _adam_layout(state: dict, n_params: int, cfg) -> dict:
+    """:func:`adam_state` with the param_group."""
+    return {"state": adam_state(state), "param_groups": [param_group(n_params, cfg)]}
+
+
+def snapshot(state) -> dict:
     """Device copies of everything a checkpoint holds, taken now, so a
     background write never reads tensors the next step updates in place."""
     def opt_copy(opt):
@@ -132,8 +144,9 @@ _async_error: list = []
 
 
 def wait() -> None:
-    """Block until an in-flight :func:`save` (``block=False``) is on disk;
-    re-raise the error it hit."""
+    """Block until an in-flight write (:func:`save` or
+    ``orbax_io.save`` with ``block=False``) is on disk; re-raise the error
+    it hit."""
     global _async_thread
     if _async_thread is not None:
         _async_thread.join()
@@ -153,7 +166,7 @@ def save(path: str, *, start_time: float, epoch: int, g_losses: list, d_losses: 
     :func:`wait` before relying on the file.  The bytes are the same either
     way."""
     g_losses, d_losses = list(g_losses), list(d_losses)
-    snap = _snapshot(state)
+    snap = snapshot(state)
 
     def write():
         ckpt = {
@@ -167,12 +180,25 @@ def save(path: str, *, start_time: float, epoch: int, g_losses: list, d_losses: 
             "g_optimizer_state_dict": _adam_layout(*snap["g_opt"], cfg),
             "d_optimizer_state_dict": _adam_layout(*snap["d_opt"], cfg),
         }
-        tmp = path + ".tmp"
-        with open(tmp, "wb") as f:
-            pickle.dump(ckpt, f)
-        os.replace(tmp, path)
+        write_pickle(path, ckpt)
 
-    wait()  # one write at a time, in order; surfaces the previous error
+    submit(write, block)
+
+
+def write_pickle(path: str, ckpt: dict) -> None:
+    """Pickle ``ckpt`` to ``path`` atomically (``.tmp`` then rename;
+    :func:`is_complete_checkpoint` skips temps)."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(ckpt, f)
+    os.replace(tmp, path)
+
+
+def submit(write, block: bool) -> None:
+    """Run a checkpoint's ``write()`` now, or with ``block=False`` on a
+    background thread, after the write in flight (at most one, in order;
+    the previous one's error surfaces here).  :func:`wait` joins it."""
+    wait()
     if block:
         write()
         return

@@ -45,8 +45,11 @@ checkpoints and ``train_losses.png``, and every rank waits for each write
 and fails with it (:func:`scgrhc_torch.parallel.comm.on_primary`).  A
 resume reads the checkpoint on every rank.
 
-``checkpoint_backend: "orbax"`` is not yet ported and raises.
-``plot_async`` is read for compatibility only.
+``checkpoint_backend: "orbax"`` writes each epoch as an Orbax directory
+``{epoch:03d}.checkpoint.orbax`` (:mod:`scgrhc_torch.train.orbax_io`),
+in the background as ``scgrhc`` does, and a resume reads the latest
+checkpoint of either backend.  ``plot_async`` is read for compatibility
+only.
 """
 
 from __future__ import annotations
@@ -64,6 +67,7 @@ from scgrhc_torch.parallel import comm
 from scgrhc_torch.parallel.dp import DataParallelTrainer
 from scgrhc_torch.parallel.mesh import make_mesh
 from scgrhc_torch.train import checkpoint as ckpt_io
+from scgrhc_torch.train import orbax_io
 from scgrhc_torch.train.wgan import TrainConfig, init_state, step_rng
 
 
@@ -91,11 +95,9 @@ def _plot_losses(g_losses, d_losses, epoch, total_epochs, batch, n_batches, dir_
 RNG_IMPLS = ("threefry", "rbg", "unsafe_rbg")
 
 
-def _refuse_unported(params) -> None:
+def _check_rng_impl(params) -> None:
     if getattr(params, "rng_impl", "threefry") not in RNG_IMPLS:
         raise ValueError(f"rng_impl must be one of {RNG_IMPLS}, got {params.rng_impl!r}")
-    if getattr(params, "checkpoint_backend", "reference") == "orbax":
-        raise NotImplementedError("checkpoint_backend 'orbax' is not yet ported to scgrhc_torch")
 
 
 def _step_mode(trainer, state, loader, cfg, seed, epoch, device):
@@ -131,7 +133,7 @@ def run(params, device=None, plot: bool = True) -> dict:
     (seconds on the host clock, checkpoint write included)."""
     comm.refuse_lone_rank()
     dev = resolve_device(device)
-    _refuse_unported(params)
+    _check_rng_impl(params)
     start_time = time()
     print(timelog(f"Run waveform_train for {params.dir_path}", start_time))
     cfg = TrainConfig.from_params(params)
@@ -143,9 +145,7 @@ def run(params, device=None, plot: bool = True) -> dict:
     last = ckpt_io.get_last_checkpoint_path(params.checkpoint_dir_path)
     if last is not None:
         path = os.path.join(params.checkpoint_dir_path, last)
-        if os.path.isdir(path):
-            raise NotImplementedError(f"{last}: Orbax checkpoints are not yet ported")
-        ckpt = ckpt_io.load(path)
+        ckpt = ckpt_io.load(path)  # a pickle or an .orbax dir
         state = ckpt_io.restore(ckpt, cfg, n_channels, dev)
         start_time = ckpt["start_time"]
         epoch = ckpt["epoch"] + 1
@@ -157,6 +157,7 @@ def run(params, device=None, plot: bool = True) -> dict:
     trainer = DataParallelTrainer(make_mesh())
     trainer.place_state(state)
     primary = comm.is_primary()
+    orbax = getattr(params, "checkpoint_backend", "reference") == "orbax"
 
     epoch_steps = _step_mode if getattr(params, "train_mode", "epoch") == "step" else _epoch_mode
     n_batches = len(loader)
@@ -181,12 +182,16 @@ def run(params, device=None, plot: bool = True) -> dict:
                         if plot:
                             _plot_losses(g_losses, d_losses, epoch, total_epochs, i, n_batches,
                                          params.dir_path)
-                comm.on_primary(
-                    "train_checkpoint", ckpt_io.save,
-                    os.path.join(params.checkpoint_dir_path, f"{epoch:03d}.checkpoint"),
-                    start_time=start_time, epoch=epoch, g_losses=g_losses, d_losses=d_losses,
-                    state=state, cfg=cfg, block=not getattr(params, "checkpoint_async", False),
-                )
+                path = os.path.join(params.checkpoint_dir_path, f"{epoch:03d}.checkpoint")
+                if orbax:  # the write overlaps the next epoch, as in scgrhc
+                    comm.on_primary("train_checkpoint", orbax_io.save, path,
+                                    start_time=start_time, epoch=epoch, g_losses=g_losses,
+                                    d_losses=d_losses, state=state, block=False)
+                else:
+                    comm.on_primary("train_checkpoint", ckpt_io.save, path,
+                                    start_time=start_time, epoch=epoch, g_losses=g_losses,
+                                    d_losses=d_losses, state=state, cfg=cfg,
+                                    block=not getattr(params, "checkpoint_async", False))
                 stats.append({"epoch": epoch, "steps": n_batches, "seconds": perf_counter() - t0})
                 epoch += 1
         # a dropped checkpoint fails the run, on every rank

@@ -4,7 +4,8 @@ matrix, ``export``, ``report``, ``plots`` and ``demo``.
   * ``utils.experiments``: the 32 ``params.json`` files byte-equal to
     ``scgrhc``'s, with and without overrides.
   * ``export``: ``train.checkpoint.export_torch`` against ``scgrhc``'s on the
-    same checkpoint: ``torch.load`` dicts with equal keys, dtypes and values.
+    same checkpoint: ``torch.load`` dicts with equal keys, dtypes and values;
+    from an Orbax directory, the same dict as from the pickle of its state.
   * ``report``: ``sweep_report.csv`` and the printed table byte-equal to
     ``scgrhc.pipeline.report.run`` (the table's first line, a timestamped
     banner, aside); ``utils.pandas_text`` against pandas on random input.
@@ -40,7 +41,7 @@ from scgrhc_torch.core.params import Params
 from scgrhc_torch.eval.run import CSV_COLUMNS, write_csv
 from scgrhc_torch.pipeline import demo, plots, report
 from scgrhc_torch.train import checkpoint as ckpt_io
-from scgrhc_torch.train import wgan
+from scgrhc_torch.train import orbax_io, wgan
 from scgrhc_torch.utils import experiments
 from scgrhc_torch.utils.pandas_text import frame_text, read_float
 
@@ -69,14 +70,20 @@ def test_write_experiments_is_scgrhc_bytes(tmp_path, monkeypatch, root, override
 
 # ---- export ----------------------------------------------------------------------
 
-def _port_checkpoint(path: str) -> None:
-    """A native checkpoint with Adam moments, written by the port."""
-    cfg = wgan.TrainConfig(n_critic=1)
+def _port_state(cfg=None):
+    """A port training state with Adam moments (one step taken)."""
+    cfg = cfg or wgan.TrainConfig(n_critic=1)
     st = wgan.init_state(3, 2, cfg, "cpu")
     g = torch.Generator().manual_seed(0)
     wgan.train_step(st, torch.rand(2, 2, 16, generator=g), torch.rand(2, 1, 16, generator=g),
                     torch.Generator().manual_seed(1), cfg)
-    ckpt_io.save(path, start_time=1.5, epoch=4, g_losses=[1.0], d_losses=[2.0], state=st,
+    return st, cfg
+
+
+def _port_checkpoint(path: str, epoch: int = 4) -> None:
+    """A native checkpoint with Adam moments, written by the port."""
+    st, cfg = _port_state()
+    ckpt_io.save(path, start_time=1.5, epoch=epoch, g_losses=[1.0], d_losses=[2.0], state=st,
                  cfg=cfg)
 
 
@@ -126,7 +133,7 @@ def _experiment(d: str, **extra) -> str:
     return d
 
 
-def test_export_cli_paths_and_orbax_refusal(tmp_path, capsys):
+def test_export_cli_paths_and_orbax_source(tmp_path, capsys):
     d = _experiment(str(tmp_path / "exp"))
     for e in (3, 4):
         _port_checkpoint(os.path.join(d, "checkpoints", f"{e:03d}.checkpoint"))
@@ -140,9 +147,21 @@ def test_export_cli_paths_and_orbax_refusal(tmp_path, capsys):
     assert cli(["export", d, "last", str(tmp_path / "x.torch")]) == 0
     assert torch.load(str(tmp_path / "x.torch"), weights_only=False)["epoch"] == 4
     assert ckpt_io.get_last_checkpoint_path(os.path.join(d, "checkpoints")) == "004.checkpoint"
-    os.makedirs(os.path.join(d, "checkpoints", "005.checkpoint.orbax"))
-    with pytest.raises(NotImplementedError, match="Orbax"):
-        cli(["export", d, "005.checkpoint"])
+    # an Orbax source exports the dict its state's pickle exports, beside checkpoints/
+    st, cfg = _port_state(wgan.TrainConfig.from_params(Params(os.path.join(d, "params.json"))))
+    orbax_io.save(os.path.join(d, "checkpoints", "005.checkpoint"), start_time=1.5, epoch=5,
+                  g_losses=[1.0], d_losses=[2.0], state=st)
+    ckpt_io.save(str(tmp_path / "005.checkpoint"), start_time=1.5, epoch=5, g_losses=[1.0],
+                 d_losses=[2.0], state=st, cfg=cfg)
+    ckpt_io.export_torch(str(tmp_path / "005.checkpoint"), str(tmp_path / "want.torch"))
+    capsys.readouterr()
+    assert cli(["export", d, "005.checkpoint"]) == 0
+    out = os.path.join(d, "005.checkpoint.torch")
+    assert f"-> {out}" in capsys.readouterr().out
+    _assert_same(torch.load(out, weights_only=False),
+                 torch.load(str(tmp_path / "want.torch"), weights_only=False))
+    assert sorted(os.listdir(os.path.join(d, "checkpoints"))) == [
+        "003.checkpoint", "004.checkpoint", "005.checkpoint.orbax"]
 
 
 # ---- report ----------------------------------------------------------------------

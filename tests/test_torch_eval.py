@@ -327,16 +327,6 @@ def test_predict_split_on_an_empty_store():
     assert real.shape == pred.shape == (0, T) and scores == {}
 
 
-@pytest.mark.parametrize("extra,what", [({}, "Orbax")])
-def test_eval_refuses_unported(jax_experiment, tmp_path, extra, what):
-    d = str(tmp_path / "x")
-    p = Params(_copy(jax_experiment, d, **extra))
-    if not extra:
-        os.makedirs(os.path.join(p.checkpoint_dir_path, "007.checkpoint.orbax"))
-    with pytest.raises(NotImplementedError, match=f"{what}.*not yet ported"):
-        eval_run.run(p, "valid", "007.checkpoint", device="cpu")
-
-
 # ---- the pipeline ------------------------------------------------------------------
 
 def test_pipeline_on_cpu_and_jax_reads_it_back(synth_db, tmp_path, monkeypatch, capsys):

@@ -1199,3 +1199,33 @@ def test_apply_cp_over_nccl_world_one_equals_apply_continuous(cuda, tmp_path):
     finally:
         comm.destroy()
     assert got.shape == (1, 1, 30_000) and torch.equal(got, want)
+
+
+def test_orbax_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """A state on the card with Adam moments, saved as an Orbax directory
+    (in the background, then waited for) and loaded back onto the card:
+    every weight and moment equal bit for bit."""
+    from scgrhc_torch.train import orbax_io
+
+    cfg = wgan.TrainConfig(n_critic=1)
+    st = wgan.init_state(5, 4, cfg, cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    wgan.train_step(st, torch.rand(2, 4, 750, generator=g, device=cuda),
+                    torch.rand(2, 1, 750, generator=g, device=cuda),
+                    torch.Generator(device=cuda).manual_seed(1), cfg)
+    path = str(tmp_path / "000.checkpoint")
+    orbax_io.save(path, start_time=1.0, epoch=0, g_losses=[0.5], d_losses=[0.25], state=st,
+                  block=False)
+    orbax_io.wait()
+    ckpt, back = orbax_io.load(path + orbax_io.ORBAX_SUFFIX, cfg, 4, cuda)
+    assert ckpt["epoch"] == 0 and ckpt["g_losses"] == [0.5]
+    for a, b in ((st.generator, back.generator), (st.critic, back.critic)):
+        for (k, v), w in zip(a.state_dict().items(), b.state_dict().values()):
+            assert w.device.type == "cuda" and torch.equal(v, w), k
+    for a, b in ((st.g_opt, back.g_opt), (st.d_opt, back.d_opt)):
+        sa, sb = a.state_dict()["state"], b.state_dict()["state"]
+        assert sa.keys() == sb.keys()
+        for i in sa:
+            assert float(sa[i]["step"]) == float(sb[i]["step"]) == 1.0
+            for k in ("exp_avg", "exp_avg_sq"):
+                assert sb[i][k].device.type == "cuda" and torch.equal(sa[i][k], sb[i][k])

@@ -1,7 +1,8 @@
 """The port stands alone: no scgrhc_torch module and not chip_smoke.py
-imports JAX or the JAX package, at run time or in its source, and none
-imports pandas, sklearn or matplotlib at module level (the card's machine
-has none of them)."""
+imports JAX or the JAX package, or Orbax and the libraries under it
+(tensorstore, zstandard, numcodecs), at run time or in its source, and
+none imports pandas, sklearn or matplotlib at module level (the card's
+machine has none of them)."""
 
 import json
 import os
@@ -22,7 +23,8 @@ for name in names:
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "scgrhc", "pandas", "sklearn", "matplotlib"))
+             if m.split(".")[0] in ("jax", "jaxlib", "scgrhc", "pandas", "sklearn", "matplotlib",
+                                    "orbax", "tensorstore", "zstandard", "numcodecs"))
 print(json.dumps({"imported": names, "bad": bad}))
 """
 
@@ -35,6 +37,7 @@ def test_port_imports_pull_in_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "scgrhc_torch.pipeline.serve" in res["imported"]
     assert "scgrhc_torch.ops.kernels.conv_block" in res["imported"]
+    assert "scgrhc_torch.train.orbax_io" in res["imported"]
     for name in ("scgrhc_torch.ops.kernels.dsp", "scgrhc_torch.pipeline.run",
                  "scgrhc_torch.select.run", "scgrhc_torch.summary",
                  "scgrhc_torch.pipeline.sweep", "scgrhc_torch.pipeline.report",
@@ -46,8 +49,9 @@ def test_port_imports_pull_in_no_jax():
 
 
 _IMPORT = re.compile(
-    r"^\s*(?:from|import)\s+(?:jax|jaxlib|scgrhc(?!_torch))\b"
-    r"|import_module\(\s*['\"](?:jax|scgrhc(?!_torch))",
+    r"^\s*(?:from|import)\s+(?:jax|jaxlib|scgrhc(?!_torch)|orbax|tensorstore|zstandard"
+    r"|numcodecs)\b"
+    r"|import_module\(\s*['\"](?:jax|scgrhc(?!_torch)|orbax|tensorstore|zstandard|numcodecs)",
     re.MULTILINE,
 )
 
@@ -63,9 +67,12 @@ def test_port_sources_import_no_jax_or_scgrhc():
 
 def test_scan_pattern_catches_what_it_must():
     bad = ["import jax", "from scgrhc.io import wfdb", "    import scgrhc",
-           "importlib.import_module('scgrhc.core')"]
+           "importlib.import_module('scgrhc.core')", "import orbax.checkpoint as ocp",
+           "    import tensorstore as ts", "from zstandard import ZstdDecompressor",
+           "import numcodecs", "importlib.import_module('tensorstore')"]
     good = ["from scgrhc_torch.io import wfdb", "import scgrhc_torch",
-            "# see scgrhc/ops/pallas/dsp.py"]
+            "# see scgrhc/ops/pallas/dsp.py", "from scgrhc_torch.train import orbax_io",
+            "from scgrhc_torch.native import zstd"]
     assert all(_IMPORT.search(s) for s in bad)
     assert not any(_IMPORT.search(s) for s in good)
 

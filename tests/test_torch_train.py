@@ -468,13 +468,6 @@ def test_jax_checkpoint_resumes_training_in_port(tmp_path):
     assert ck["g_optimizer_state_dict"]["state"][0]["step"] == 3 + 3
 
 
-@pytest.mark.parametrize("key,value", [("checkpoint_backend", "orbax")])
-def test_unported_training_keys_raise(tmp_path, key, value):
-    exp = _experiment(tmp_path, "refused", **{key: value})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        train_run.run(Params(os.path.join(exp, "params.json")), device="cpu")
-
-
 def test_multi_process_launch_raises(tmp_path, monkeypatch):
     """A launch into a world (``WORLD_SIZE`` > 1) with no process group up
     refuses to train alone (tests/test_torch_multiprocess.py trains in
