@@ -96,11 +96,14 @@ Then more phases:
     configuration, held to that phase's pickle-backend run (each epoch's
     weights and Adam moments bit for bit, the CSVs and
     ``checkpoint_best.txt`` byte for byte), one more epoch resumed from the
-    last ``.orbax`` dir against the same resume from the pickle,
-    ``predict`` (max-abs 0.0, 14 K1f and 1 K4 a chunk) and ``export`` from
-    the best ``.orbax``, and one full checkpoint saved (blocking and in the
-    background) and loaded by each backend, timed, with its bytes on disk;
-    its figures on a ``{"orbax": ...}`` line before the record read's;
+    last ``.orbax`` dir against the same resume from the pickle, a copy of
+    that dir split into the chunk grids Orbax writes on 4 devices (loaded
+    onto the card bit for bit against the one-chunk dir, both loads timed,
+    and the same epoch resumed from it), ``predict`` (max-abs 0.0, 14 K1f
+    and 1 K4 a chunk) and ``export`` from the best ``.orbax``, and one full
+    checkpoint saved (blocking and in the background) and loaded by each
+    backend, timed, with its bytes on disk; its figures on a
+    ``{"orbax": ...}`` line before the record read's;
   * the port's bench: each mode of ``python -m scgrhc_torch.bench`` as a
     process of its own (and ``--dtype int8`` in the inference and eval
     modes, ``--continuous`` in the stream mode), its one JSON line held
@@ -3671,6 +3674,52 @@ def _ckpt_diff(a: dict, b: dict) -> float:
                for k, v in x.items())
 
 
+SPLIT_REPLICAS = 4  # the devices of the Orbax save the orbax phase's split copy stands for
+
+
+def _orbax_split_copy(src: str, dst: str, replicas: int) -> int:
+    """Copy the Orbax directory ``src`` to ``dst`` with each array split
+    into the zarr v2 chunk grid that Orbax's save of a state replicated over
+    ``replicas`` devices writes (``zarr2.replica_chunks``); returns how many
+    arrays are split."""
+    from scgrhc_torch.train import ocdbt, zarr2
+
+    shutil.copytree(src, dst, ignore=shutil.ignore_patterns("d", "manifest.ocdbt"))
+    store = ocdbt.read(src)
+    items, chunks, n_split = {}, {}, 0
+    for key in store:
+        if key.endswith(b"/.zarray"):
+            name = key[:-len(b"/.zarray")].decode()
+            a = zarr2.decode(name, store)
+            chunks[name] = zarr2.replica_chunks(a.shape, replicas)
+            n_split += chunks[name] != list(a.shape)
+            items.update(zarr2.encode(name, a, chunks[name]))
+    ocdbt.write(dst, items)
+    rel = os.path.join(dst, "array_metadatas", "process_0")
+    with open(rel) as f:
+        doc = json.load(f)
+    for e in doc["array_metadatas"]:
+        m = e["array_metadata"]
+        m["write_shape"] = m["chunk_shape"] = chunks[m["param_name"]]
+    with open(rel, "w") as f:
+        json.dump(doc, f)
+    return n_split
+
+
+def _state_equal(torch, a, b) -> bool:
+    """Two ``wgan.TrainState``s hold the same weights and Adam state bit for bit."""
+    def tensors(st):
+        out = [*st.generator.state_dict().values(), *st.critic.state_dict().values()]
+        for opt in (st.g_opt, st.d_opt):
+            for s in opt.state_dict()["state"].values():
+                out += [torch.as_tensor(v) for v in s.values()]
+        return out
+
+    x, y = tensors(a), tensors(b)
+    return len(x) == len(y) and all(u.dtype == v.dtype and u.shape == v.shape and
+                                    torch.equal(u, v) for u, v in zip(x, y))
+
+
 def _dir_bytes(path: str) -> int:
     return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
 
@@ -3697,7 +3746,9 @@ def orbax_end_to_end(torch, smoke: Smoke, root: str, card: str, pipeline: dict) 
     process, held to the pipeline phase's pickle-backend run (each epoch's
     weights and Adam moments bit for bit, the score and comparison CSVs and
     ``checkpoint_best.txt`` byte for byte); one more epoch resumed from the
-    last ``.orbax`` dir against the same resume from the pickle;
+    last ``.orbax`` dir against the same resume from the pickle and from a
+    copy of that dir split as Orbax's save on 4 devices splits it (loaded
+    onto the card bit for bit against the one-chunk dir, both loads timed);
     ``predict`` and ``export`` from the best ``.orbax`` against the
     pickle's (the export's dicts equal but for ``start_time``, each run's
     wall-clock start); then one full checkpoint saved and loaded by each backend,
@@ -3784,15 +3835,53 @@ def orbax_end_to_end(torch, smoke: Smoke, root: str, card: str, pipeline: dict) 
           f"the pickle backend's {diffs} (0.0: bit for bit); files differing {differ} of "
           f"{len(files)}; launches equal {launches == pipeline['launches']} on {card}", flush=True)
 
-    # 3. one more epoch from the last .orbax dir, and from the pickle (on a copy)
+    # 3. the last .orbax dir as Orbax writes it on 4 devices (chunk grids), on a copy:
+    # loaded onto the card against the one-chunk dir, both loads timed in turns
+    last = orbax_io.ORBAX_SUFFIX
+    cfg = TrainConfig.from_params(orb)
+    dev = resolve_device("cuda")
+
+    def median_ms(fn, reps=3):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    split_dir = os.path.join(root, "orbax_split")
+    shutil.copytree(orb.dir_path, split_dir, ignore=shutil.ignore_patterns("comparisons", "pred*"))
+    one = os.path.join(orb.checkpoint_dir_path, f"001.checkpoint{last}")
+    grid = os.path.join(split_dir, "checkpoints", f"001.checkpoint{last}")
+    shutil.rmtree(grid)
+    t0 = time.perf_counter()
+    n_split = _orbax_split_copy(one, grid, SPLIT_REPLICAS)
+    copy_s = time.perf_counter() - t0
+    smoke.check(n_split >= 150, f"orbax split copy: {n_split} arrays split, at least 150 expected")
+    states = {what: orbax_io.load(p, cfg, len(CHANNELS), dev)[1]
+              for what, p in (("one_chunk", one), ("split", grid))}
+    split_equal = _state_equal(torch, states["one_chunk"], states["split"])
+    smoke.check(split_equal, "orbax split copy: its state on the card differs from the one-chunk "
+                             "dir's")
+    del states
+    load_ms = {"one_chunk": [], "split": []}
+    for what, p in (("one_chunk", one), ("split", grid), ("split", grid), ("one_chunk", one)):
+        load_ms[what].append(median_ms(lambda p=p: orbax_io.load(p, cfg, len(CHANNELS), dev)))
+    report["split"] = {"replicas": SPLIT_REPLICAS, "arrays_split": n_split,
+                       "copy_s": copy_s, "equal": split_equal, "load_ms": load_ms}
+
+    # 4. one more epoch from the last .orbax dir, from its split copy, and from the pickle
     resumed = os.path.join(root, "pipeline_resumed")
     shutil.copytree(ref_dir, resumed, ignore=shutil.ignore_patterns("comparisons", "pred*"))
     ref_resumed = Params(_write_params(resumed, total_epochs=3, eval_stack=8, eval_batch=N_EVAL,
                                        seed=0, data_backend="device"))
     orb3 = Params(_write_params(orb.dir_path, total_epochs=3, eval_stack=8, eval_batch=N_EVAL,
                                 seed=0, data_backend="device", checkpoint_backend="orbax"))
+    split3 = Params(_write_params(split_dir, total_epochs=3, eval_stack=8, eval_batch=N_EVAL,
+                                  seed=0, data_backend="device", checkpoint_backend="orbax"))
     secs = {}
-    for what, params in (("orbax", orb3), ("pickle", ref_resumed)):
+    for what, params in (("orbax", orb3), ("pickle", ref_resumed), ("orbax_split", split3)):
         for fn in fns.values():
             fn.launches = 0
         t0 = time.perf_counter()
@@ -3802,17 +3891,25 @@ def orbax_end_to_end(torch, smoke: Smoke, root: str, card: str, pipeline: dict) 
         smoke.check([e["epoch"] for e in out["epochs"]] == [2],
                     f"orbax resume ({what}): epochs {out['epochs']}")
         smoke.check(fns["conv_in_relu_bwd"].launches > 0, f"orbax resume ({what}): no K1b launch")
-    last = orbax_io.ORBAX_SUFFIX
-    resume_diff = _ckpt_diff(
-        ckpt_io.load(os.path.join(orb3.checkpoint_dir_path, f"002.checkpoint{last}")),
-        ckpt_io.load(os.path.join(ref_resumed.checkpoint_dir_path, "002.checkpoint")))
+    epoch2 = ckpt_io.load(os.path.join(orb3.checkpoint_dir_path, f"002.checkpoint{last}"))
+    resume_diff = _ckpt_diff(epoch2, ckpt_io.load(os.path.join(ref_resumed.checkpoint_dir_path,
+                                                               "002.checkpoint")))
+    split_diff = _ckpt_diff(ckpt_io.load(os.path.join(split3.checkpoint_dir_path,
+                                                      f"002.checkpoint{last}")), epoch2)
     smoke.check(resume_diff == 0.0, f"orbax resume: epoch 2 differs by {resume_diff}")
-    report["resume"] = {"diff": resume_diff, "s": secs}
+    smoke.check(split_diff == 0.0, f"orbax resume from the split copy: epoch 2 differs by "
+                                   f"{split_diff} from the one-chunk resume's")
+    report["resume"] = {"diff": resume_diff, "split_diff": split_diff, "s": secs}
     print(f"orbax: one more epoch resumed from 001.checkpoint.orbax in {secs['orbax']:.2f} s, "
-          f"from the pickle in {secs['pickle']:.2f} s; epoch 2 differs by {resume_diff} on "
-          f"{card}", flush=True)
+          f"from the pickle in {secs['pickle']:.2f} s, from the {SPLIT_REPLICAS}-way split copy "
+          f"in {secs['orbax_split']:.2f} s; epoch 2 differs by {resume_diff} (pickle) and "
+          f"{split_diff} (split copy) on {card}", flush=True)
+    print(f"orbax: 001.checkpoint.orbax split as on {SPLIT_REPLICAS} devices ({n_split} of its "
+          f"arrays in chunk grids, written in {copy_s:.2f} s): on the card equal bit for bit "
+          f"{split_equal}; load {load_ms['split']} ms against the one-chunk dir's "
+          f"{load_ms['one_chunk']} ms (medians of 3, in turns; host times on {card})", flush=True)
 
-    # 4. predict and export from the best .orbax, against the pickle's
+    # 5. predict and export from the best .orbax, against the pickle's
     best = open(os.path.join(orb.dir_path, "checkpoint_best.txt")).read().split()[1]
     record = "SYN000"
     preds, got = {}, {}
@@ -3845,24 +3942,13 @@ def orbax_end_to_end(torch, smoke: Smoke, root: str, card: str, pipeline: dict) 
           f"{pred_err} from the pickle's prediction, launches {got['orbax']}; export equal "
           f"{export_equal} on {card}", flush=True)
 
-    # 5. one full checkpoint (the resumed state, on the card): save and load, each backend
-    cfg = TrainConfig.from_params(orb3)
-    dev = resolve_device("cuda")
+    # 6. one full checkpoint (the resumed state, on the card): save and load, each backend
     _, state = orbax_io.load(os.path.join(orb3.checkpoint_dir_path, f"002.checkpoint{last}"), cfg,
                              len(CHANNELS), dev)
     io_dir = os.path.join(root, "checkpoint_io")
     os.makedirs(io_dir)
     pkl, orx = os.path.join(io_dir, "pickle.checkpoint"), os.path.join(io_dir, "orbax.checkpoint")
     meta = dict(start_time=0.0, epoch=2, g_losses=[1.0] * 204, d_losses=[1.0] * 1020)
-
-    def median_ms(fn, reps=3):
-        times = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(times)
 
     def async_ms(save):
         call, total = [], []

@@ -9,9 +9,12 @@ libraries they stand in for.
     with inline and out-of-line values (tensorstore's stores with interior
     nodes, the port's with one leaf); a flipped byte raises on its CRC-32C.
   * Whole checkpoints at full width (4 SCG channels, ``TrainConfig()``):
-    one written by ``scgrhc`` loads into the port bit for bit, and one
-    written by the port restores in Orbax bit for bit, with the same
-    ``_METADATA`` and ``.zarray`` files.
+    one written by ``scgrhc`` in one process from an unreplicated state
+    (Orbax's ``ocdbt.process_0/`` store, one chunk an array) loads into the
+    port bit for bit, and one written by the port restores in Orbax bit
+    for bit, with the same ``_METADATA`` and ``.zarray`` files.  States
+    replicated over several devices, whose arrays Orbax splits into chunk
+    grids, are tests/test_torch_orbax_dp.py's.
   * A counterpart of each of tests/test_orbax.py's cases, and
     ``python -m scgrhc_torch <dir> --device cpu`` with
     ``checkpoint_backend: "orbax"`` against the same run with the pickle
@@ -295,8 +298,8 @@ def _state_dict(st) -> dict:
 
 
 def test_jax_written_checkpoint_loads_in_port_bit_for_bit(jax_written):
-    """(a) ``scgrhc``'s Orbax checkpoint (multi-process OCDBT layout) → the
-    port: every leaf as ``models/convert`` carries it across, and meta.json."""
+    """(a) ``scgrhc``'s Orbax checkpoint (one process, one chunk an array) →
+    the port: every leaf as ``models/convert`` carries it across, and meta.json."""
     st, path = jax_written
     assert os.path.isdir(os.path.join(path, "ocdbt.process_0"))
     ckpt, port = orbax_io.load(path, wgan.TrainConfig(), C, "cpu")
