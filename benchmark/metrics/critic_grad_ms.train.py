@@ -1,0 +1,24 @@
+"""Device milliseconds per traced training step of the critic's parameter
+gradient: the program's ``critic_grad`` spans, ``torch.autograd.grad`` of
+each critic loss (K2dx, K2dw and every ``gp_second_order``), timed by the
+CUDA events that each span records on the card's stream at its enter and
+exit (``scgrhc_torch.core.trace.phase_totals``), over the steps traced.
+Only the traced window's profiler records spans, so the totals are those
+steps'.  None off the card, and for a program without the phase counters."""
+
+LAYER = "train step"
+SOURCE = "device_trace"
+MOVES = "train_windows_per_s"
+SPAN = "critic_grad"
+
+
+def read(run):
+    if not run.on_card or not run.traced.get("steps"):
+        return None
+    from scgrhc_torch.core import trace
+
+    totals = getattr(trace, "phase_totals", None)
+    if totals is None:
+        return None
+    ms = totals().get(SPAN, {}).get("device_ms")
+    return None if ms is None else ms / run.traced["steps"]

@@ -70,7 +70,7 @@ Then more phases:
     span and the port's kernels, and the step's device time split from it
     (busy share, the ten costliest device operations, the time in no
     kernel of the port, and that time by the autograd node that launched
-    it);
+    it), and by phase span from ``phases.json``;
   * the host-side CLI (the ``cli`` phase): ``demo`` on 2 synthetic 60-s
     records in process (the five training kernels counted from 0; without
     matplotlib its figures are skipped with a line that says so),
@@ -2006,7 +2006,8 @@ def trace_training(torch, smoke: Smoke, root: str, card: str, loader: str,
     launches = {k: fn.launches for k, fn in fns.items()}
     want = {k: v * n_steps for k, v in launches_per_step(TrainConfig.from_params(params)).items()}
     smoke.check(launches == want, f"traced epoch: launches {launches}, expected {want}")
-    files = sorted(os.listdir(os.path.join(out, "train"))) if os.path.isdir(
+    files = sorted(f for f in os.listdir(os.path.join(out, "train"))
+                   if f != trace_mod.PHASES_FILE) if os.path.isdir(
         os.path.join(out, "train")) else []
     if not smoke.check(len(files) == 1 and files[0].endswith(".json"),
                        f"traced epoch: trace files under train/: {files}"):
@@ -2055,6 +2056,17 @@ def trace_training(torch, smoke: Smoke, root: str, card: str, loader: str,
         "not_port_by_node_ms_per_step": per_node,
         "launches": launches,
     }
+    phases_path = os.path.join(out, "train", trace_mod.PHASES_FILE)
+    if smoke.check(os.path.isfile(phases_path), "traced epoch: no phases.json beside the trace"):
+        with open(phases_path) as f:
+            phases = json.load(f)
+        smoke.check(phases.get("train_step", {}).get("calls") == n_steps,
+                    f"traced epoch: phases.json counts {phases.get('train_step')} train_step "
+                    f"spans for {n_steps} steps")
+        report["phase_ms_per_step"] = {k: v.get("device_ms", 0.0) / n_steps
+                                       for k, v in phases.items()}
+        print("trace: device ms per step by phase span: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in report["phase_ms_per_step"].items()), flush=True)
     print(f"trace: one epoch ({n_steps} steps, B={N_TRAIN}) traced in {wall:.1f} s, "
           f"{report['trace_bytes'] / 1e6:.1f} MB of trace; inside train_epoch "
           f"{step_ms:.2f} ms per step (profiler on), device busy {100 * busy_ms / step_ms:.1f} %, "

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from scgrhc_torch.core.trace import annotate
 from scgrhc_torch.ops.kernels import conv3
 
 MODES = conv3.MODES
@@ -97,10 +98,11 @@ critic_layer_bwd_dwdb.launches = 0
 
 def _plain_vjp(ctx, plain, cts):
     """Gradients of ``plain(x, w, b, dy, mode)`` for the inputs that need
-    one, at the output cotangents ``cts``."""
+    one, at the output cotangents ``cts``: the GP's second order, under the
+    span ``gp_second_order``."""
     saved = ctx.saved_tensors
     need = ctx.needs_input_grad[:4]
-    with torch.enable_grad():
+    with annotate("gp_second_order"), torch.enable_grad():
         ins = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
         out = plain(*ins, ctx.mode)
         out = out if isinstance(out, tuple) else (out,)

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from scgrhc_torch.core.trace import annotate
 from scgrhc_torch.parallel import comm
 from scgrhc_torch.parallel.mesh import Mesh, make_mesh, pad_idx_mask, place_global
 from scgrhc_torch.train.wgan import train_step
@@ -63,12 +64,13 @@ def all_reduce_bucket(tensors):
     first one's dtype; without a group, the tensors themselves."""
     if not comm.is_initialized():
         return list(tensors)
-    dtype = tensors[0].dtype
-    flat = comm.all_reduce_sum(torch.cat([t.reshape(-1).to(dtype) for t in tensors]))
-    out, i = [], 0
-    for t in tensors:
-        out.append(flat[i:i + t.numel()].view_as(t).to(t.dtype))
-        i += t.numel()
+    with annotate("grad_reduce"):
+        dtype = tensors[0].dtype
+        flat = comm.all_reduce_sum(torch.cat([t.reshape(-1).to(dtype) for t in tensors]))
+        out, i = [], 0
+        for t in tensors:
+            out.append(flat[i:i + t.numel()].view_as(t).to(t.dtype))
+            i += t.numel()
     return out
 
 
@@ -108,12 +110,13 @@ class DataParallelTrainer:
         batch's B row indices, a tensor on scg's device): this rank's block
         of the padded index gathered onto the state's device and run
         through ``train_step``.  Returns the global losses, as
-        ``train_step`` does."""
-        dev = next(state.generator.parameters()).device
-        padded, mask = pad_idx_mask(idx, self.n)
-        rows = place_global(padded, self.mesh)
-        if mask is not None:
-            mask = place_global(mask, self.mesh).to(dev)
-        draws = BlockDraws(rng, self.mesh, len(idx), len(padded))
-        return train_step(state, scg[rows].to(dev), rhc[rows].to(dev), draws, cfg, mask,
-                          count=len(idx), reduce=all_reduce_bucket)
+        ``train_step`` does.  The span ``train_step`` holds it all."""
+        with annotate("train_step"):
+            dev = next(state.generator.parameters()).device
+            padded, mask = pad_idx_mask(idx, self.n)
+            rows = place_global(padded, self.mesh)
+            if mask is not None:
+                mask = place_global(mask, self.mesh).to(dev)
+            draws = BlockDraws(rng, self.mesh, len(idx), len(padded))
+            return train_step(state, scg[rows].to(dev), rhc[rows].to(dev), draws, cfg, mask,
+                              count=len(idx), reduce=all_reduce_bucket)

@@ -102,11 +102,11 @@ def _check_rng_impl(params) -> None:
 
 def _step_mode(trainer, state, loader, cfg, seed, epoch, device):
     for i, (scg, rhc) in enumerate(loader.batches(epoch)):
-        with annotate("train_step"):
-            d, g = trainer.step(state, torch.from_numpy(scg).to(device),
-                                torch.from_numpy(rhc).to(device),
-                                torch.arange(len(scg), device=device),
-                                step_rng(seed, epoch, i, device), cfg)
+        d, g = trainer.step(state, torch.from_numpy(scg).to(device),
+                            torch.from_numpy(rhc).to(device),
+                            torch.arange(len(scg), device=device),
+                            step_rng(seed, epoch, i, device), cfg)
+        with annotate("losses_read_back"):
             d_list, g_loss = d.tolist(), float(g)
         yield i, d_list, g_loss
 
@@ -121,7 +121,8 @@ def _epoch_mode(trainer, state, loader, cfg, seed, epoch, device):
             d, g = trainer.step(state, scg_all, rhc_all, order[s:s + bs],
                                 step_rng(seed, epoch, i, device), cfg)
             losses.append(torch.cat((d, g[None])))
-        rows = torch.stack(losses).tolist() if losses else []
+        with annotate("losses_read_back"):
+            rows = torch.stack(losses).tolist() if losses else []
     for i, row in enumerate(rows):
         yield i, row[:-1], row[-1]
 
@@ -183,15 +184,16 @@ def run(params, device=None, plot: bool = True) -> dict:
                             _plot_losses(g_losses, d_losses, epoch, total_epochs, i, n_batches,
                                          params.dir_path)
                 path = os.path.join(params.checkpoint_dir_path, f"{epoch:03d}.checkpoint")
-                if orbax:  # the write overlaps the next epoch, as in scgrhc
-                    comm.on_primary("train_checkpoint", orbax_io.save, path,
-                                    start_time=start_time, epoch=epoch, g_losses=g_losses,
-                                    d_losses=d_losses, state=state, block=False)
-                else:
-                    comm.on_primary("train_checkpoint", ckpt_io.save, path,
-                                    start_time=start_time, epoch=epoch, g_losses=g_losses,
-                                    d_losses=d_losses, state=state, cfg=cfg,
-                                    block=not getattr(params, "checkpoint_async", False))
+                with annotate("checkpoint_save"):
+                    if orbax:  # the write overlaps the next epoch, as in scgrhc
+                        comm.on_primary("train_checkpoint", orbax_io.save, path,
+                                        start_time=start_time, epoch=epoch, g_losses=g_losses,
+                                        d_losses=d_losses, state=state, block=False)
+                    else:
+                        comm.on_primary("train_checkpoint", ckpt_io.save, path,
+                                        start_time=start_time, epoch=epoch, g_losses=g_losses,
+                                        d_losses=d_losses, state=state, cfg=cfg,
+                                        block=not getattr(params, "checkpoint_async", False))
                 stats.append({"epoch": epoch, "steps": n_batches, "seconds": perf_counter() - t0})
                 epoch += 1
         # a dropped checkpoint fails the run, on every rank

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from scgrhc_torch.core.trace import annotate
 from scgrhc_torch.models.critic import Critic
 from scgrhc_torch.models.generator import Generator
 from scgrhc_torch.ops.nn import rand
@@ -238,52 +239,59 @@ def _critic_terms(critic_fn, scg, rhc, pred_rhc, eps, fuse: str, mask=None, coun
 
 def critic_loss(critic: Critic, generator: Generator, scg, rhc, rng, cfg: TrainConfig,
                 mask=None, pred_rhc=None, count=None):
-    dt = DTYPES[cfg.compute_dtype]
-    if pred_rhc is None:  # fresh dropout-resampled forward (reference)
-        with torch.no_grad():
-            pred_rhc = _train_pred(generator, scg, rng, cfg)
-    if dt != torch.float32:
-        scg, rhc, pred_rhc = scg.to(dt), rhc.to(dt), pred_rhc.to(dt)
-    # eps drawn in f32 so the stream is the same in every compute dtype
-    eps = _draw_eps(rng, rhc.shape[0], rhc.device).to(rhc.dtype)
-    pred_mean, real_mean, gp = _critic_terms(
-        _compute(critic, cfg), scg, rhc, pred_rhc, eps, cfg.critic_fuse, mask, count
-    )
-    loss = -real_mean + pred_mean + cfg.lambda_gp * gp
-    return loss.to(_stat_dtype(loss))
+    """Under the span ``critic_loss``: the generator's no-grad forward,
+    the critic's forwards and the GP's input gradient."""
+    with annotate("critic_loss"):
+        dt = DTYPES[cfg.compute_dtype]
+        if pred_rhc is None:  # fresh dropout-resampled forward (reference)
+            with torch.no_grad():
+                pred_rhc = _train_pred(generator, scg, rng, cfg)
+        if dt != torch.float32:
+            scg, rhc, pred_rhc = scg.to(dt), rhc.to(dt), pred_rhc.to(dt)
+        # eps drawn in f32 so the stream is the same in every compute dtype
+        eps = _draw_eps(rng, rhc.shape[0], rhc.device).to(rhc.dtype)
+        pred_mean, real_mean, gp = _critic_terms(
+            _compute(critic, cfg), scg, rhc, pred_rhc, eps, cfg.critic_fuse, mask, count
+        )
+        loss = -real_mean + pred_mean + cfg.lambda_gp * gp
+        return loss.to(_stat_dtype(loss))
 
 
 def generator_loss(generator: Generator, critic: Critic, scg, rhc, rng, cfg: TrainConfig,
                    mask=None, pred_rhc=None, count=None):
     """``pred_rhc`` (with its graph) stands in for the forward when given;
-    ``count`` as in :func:`_masked_mean`."""
-    dt = DTYPES[cfg.compute_dtype]
-    if pred_rhc is None:
-        pred_rhc = _train_pred(generator, scg, rng, cfg)
-    if dt != torch.float32:
-        scg, rhc = scg.to(dt), rhc.to(dt)
-    adv_input = pred_rhc.to(dt) if cfg.fix_g_adversarial else rhc
-    with _frozen(critic):
-        pred_validity = _compute(critic, cfg)(torch.cat((scg, adv_input), dim=1))
-    resid = pred_rhc - rhc
-    sq = torch.square(resid.to(_stat_dtype(resid)))
-    mse = _masked_mean(sq, mask, count)
-    loss = -_masked_mean(pred_validity, mask, count) + cfg.lambda_aux * mse
-    return loss.to(_stat_dtype(loss))
+    ``count`` as in :func:`_masked_mean`.  Under the span ``generator_loss``."""
+    with annotate("generator_loss"):
+        dt = DTYPES[cfg.compute_dtype]
+        if pred_rhc is None:
+            pred_rhc = _train_pred(generator, scg, rng, cfg)
+        if dt != torch.float32:
+            scg, rhc = scg.to(dt), rhc.to(dt)
+        adv_input = pred_rhc.to(dt) if cfg.fix_g_adversarial else rhc
+        with _frozen(critic):
+            pred_validity = _compute(critic, cfg)(torch.cat((scg, adv_input), dim=1))
+        resid = pred_rhc - rhc
+        sq = torch.square(resid.to(_stat_dtype(resid)))
+        mse = _masked_mean(sq, mask, count)
+        loss = -_masked_mean(pred_validity, mask, count) + cfg.lambda_aux * mse
+        return loss.to(_stat_dtype(loss))
 
 
-def _apply(opt: torch.optim.Adam, params, loss, reduce=None):
+def _apply(opt: torch.optim.Adam, params, loss, grad_span: str, reduce=None):
     """One update from ``loss``; returns the loss, detached.  ``reduce``
     (data parallelism) first sums the gradients and the loss over the
     ranks: every rank then steps on the global gradient and reports the
-    global loss."""
-    grads = torch.autograd.grad(loss, params)
+    global loss.  The gradient runs under the span ``grad_span``, the
+    optimizer's step under ``adam``."""
+    with annotate(grad_span):
+        grads = torch.autograd.grad(loss, params)
     loss = loss.detach()
     if reduce is not None:
         *grads, loss = reduce([*grads, loss])
     for p, g in zip(params, grads):
         p.grad = g
-    opt.step()
+    with annotate("adam"):
+        opt.step()
     return loss
 
 
@@ -302,17 +310,25 @@ def train_step(state: TrainState, scg, rhc, rng, cfg: TrainConfig, mask=None, co
     (:class:`scgrhc_torch.parallel.dp.DataParallelTrainer`) passes this
     rank's block of a global batch with the global batch's real row
     ``count``, its draws, and the ``reduce`` of :func:`_apply`; the step is
-    then the global batch's, and the losses returned are the global ones."""
+    then the global batch's, and the losses returned are the global ones.
+
+    The phases' spans (:mod:`scgrhc_torch.core.trace`): ``critic_loss``,
+    ``critic_grad``, ``adam`` per critic update, then ``generator_loss``
+    (which also holds the shared forward of ``reuse_pred``),
+    ``generator_grad``, ``adam``."""
     g, d = state.generator, state.critic
     d_params, g_params = list(d.parameters()), list(g.parameters())
-    pred = _train_pred(g, scg, rng, cfg) if cfg.reuse_pred else None
+    pred = None
+    if cfg.reuse_pred:
+        with annotate("generator_loss"):
+            pred = _train_pred(g, scg, rng, cfg)
     shared = None if pred is None else pred.detach()
     d_losses = []
     for _ in range(cfg.n_critic):
         loss = critic_loss(d, g, scg, rhc, rng, cfg, mask, shared, count)
-        d_losses.append(_apply(state.d_opt, d_params, loss, reduce))
+        d_losses.append(_apply(state.d_opt, d_params, loss, "critic_grad", reduce))
     g_loss = generator_loss(g, d, scg, rhc, rng, cfg, mask, pred, count)
-    return torch.stack(d_losses), _apply(state.g_opt, g_params, g_loss, reduce)
+    return torch.stack(d_losses), _apply(state.g_opt, g_params, g_loss, "generator_grad", reduce)
 
 
 def launches_per_step(cfg: TrainConfig) -> dict[str, int]:

@@ -1229,3 +1229,44 @@ def test_orbax_checkpoint_round_trip_on_the_card(cuda, tmp_path):
             assert float(sa[i]["step"]) == float(sb[i]["step"]) == 1.0
             for k in ("exp_avg", "exp_avg_sq"):
                 assert sb[i][k].device.type == "cuda" and torch.equal(sa[i][k], sb[i][k])
+
+
+def test_step_phases_timed_on_the_card(cuda):
+    """Three steps at B 64, T 750 under a profiler with CUDA activity: every
+    phase span of the step records device time, the GP's second order lies
+    inside the critic's gradient, and the top-level phases cover 95-101 % of
+    ``train_step``'s device time (the rest: the batch gather and the
+    losses' stacking)."""
+    from scgrhc_torch.core import trace
+    from scgrhc_torch.parallel.dp import DataParallelTrainer
+    from scgrhc_torch.parallel.mesh import make_mesh
+
+    cfg = wgan.TrainConfig(n_critic=2)
+    st = wgan.init_state(0, 3, cfg, cuda)
+    g = torch.Generator(cuda).manual_seed(4)
+    scg, rhc = (torch.rand(128, 3, 750, device=cuda, generator=g),
+                torch.rand(128, 1, 750, device=cuda, generator=g))
+    trainer = DataParallelTrainer(make_mesh())
+
+    def step(i):
+        idx = torch.arange(64 * (i % 2), 64 * (i % 2 + 1), device=cuda)
+        trainer.step(st, scg, rhc, idx, wgan.step_rng(0, 0, i, cuda), cfg)
+
+    step(0)  # loads the kernels and warms cuDNN
+    torch.cuda.synchronize()
+    trace.reset_phases()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        for i in range(1, 4):
+            step(i)
+        torch.cuda.synchronize()
+    tot = trace.phase_totals()
+    trace.reset_phases()
+    top = ("critic_loss", "critic_grad", "adam", "generator_loss", "generator_grad")
+    for name in ("train_step", "gp_second_order", *top):
+        assert tot[name]["device_ms"] > 0, (name, tot)
+    assert tot["train_step"]["calls"] == 3 and tot["adam"]["calls"] == 9
+    assert tot["gp_second_order"]["device_ms"] <= tot["critic_grad"]["device_ms"]
+    share = sum(tot[n]["device_ms"] for n in top) / tot["train_step"]["device_ms"]
+    print({k: round(v["device_ms"] / 3, 3) for k, v in tot.items()}, f"share {share:.4f}")
+    assert 0.95 <= share <= 1.01, tot
