@@ -114,9 +114,11 @@ beside an empty kernel on its grid (the launch floor); the data stage's
 device backend is split, for one interval, into host framing, upload, K3
 and the download of ``keep``.
 
-It also checks the build: HMMA (tensor-core) instructions in every conv
-core instance of both layers' sources, and no kernel of the FMA conv core
-that the tensor-core core replaced.
+It also checks the build: tensor-core instructions (HMMA, and HGMMA in the
+f32 core's warpgroup-MMA instances) in every conv core instance of both
+layers' sources, and no kernel of the FMA conv core that the tensor-core
+core replaced; the training phase prints the conv launches by path
+(``conv3.path_launches``) and fails if an f32 one took mma.sync.
 
 Any failure exits non-zero before the result lines; without a CUDA device,
 or without the package beside it, it exits non-zero at once.
@@ -284,6 +286,10 @@ def _kernel_label(kernel: str, args: str) -> str:
     dtype = "bf16" if "nv_bfloat16" in args else "f32"
     if kernel == "dw_mma_kernel":
         return f"<{dtype}, {8 if 'Lb1E' in args else 4}-byte copies>"
+    if kernel == "conv_mma_kernel" and "WgTile" in args:
+        bn, mw, stages, pw = re.search(r"WgTileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", args).groups()
+        return (f"<f32, wgmma, {bn} cols x {128 * int(mw)} steps, {stages} stages, {pw} "
+                f"producer warps>")
     if kernel == "conv_mma_kernel":
         transw, relu, pairs = (f == "1" for f in re.findall(r"Lb(\d)E", args))
         types = args[:args.index("Lb")]
@@ -296,7 +302,7 @@ def _kernel_label(kernel: str, args: str) -> str:
     return f"<{dtype}{out}, O <= {omax}, {vec} a load>"
 
 
-TC_KERNELS = ("dw_mma_kernel", "conv_mma_kernel")  # every instance must hold HMMA
+TC_KERNELS = ("dw_mma_kernel", "conv_mma_kernel")  # every instance must hold HMMA or HGMMA
 # The FMA conv core that the tensor-core core replaced; none may be left.
 # Matched in the mangled names with their length prefixes (10fwd_kernelI).
 FMA_CORE = re.compile(r"(?:10fwd_kernel|9dc_kernel|9dx_kernel)I")
@@ -313,12 +319,13 @@ def fma_core_left(smoke: Smoke, *texts: str) -> list[str]:
 
 
 def sass_hmma(smoke: Smoke, lib_path) -> tuple[dict | None, str]:
-    """HMMA (tensor-core) instructions in the built library's SASS
-    (``cuobjdump -sass``), per instance of the dw stage's and the conv
-    core's kernels, in the generator's and the critic's sources; every
+    """Tensor-core instructions in the built library's SASS (``cuobjdump
+    -sass``): HMMA (mma.sync) and HGMMA (the warpgroup MMA of the f32
+    conv core), per instance of the dw stage's and the conv core's
+    kernels, in the generator's and the critic's sources; every
     dw_mma_kernel and conv_mma_kernel instance must hold some, and each
-    source must hold conv_mma_kernel instances.  None (and no SASS) when
-    the toolkit has no cuobjdump."""
+    source must hold conv_mma_kernel instances on HGMMA.  None (and no
+    SASS) when the toolkit has no cuobjdump."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     tool = tool if os.path.isfile(tool) else shutil.which("cuobjdump")
     if tool is None:
@@ -336,18 +343,21 @@ def sass_hmma(smoke: Smoke, lib_path) -> tuple[dict | None, str]:
                 tu = "critic_layer" if "critic_layer" in line else "conv_in_relu"
                 name = f"{m.group(1)}{_kernel_label(m.group(1), m.group(2))} ({tu})"
                 counts[name] = 0
-        elif name and "HMMA" in line:
+        elif name and re.search(r"\bH(?:G)?MMA\.", line):
             counts[name] += 1
     tc = {k: v for k, v in counts.items() if k.startswith(TC_KERNELS)}
     for tu in ("conv_in_relu", "critic_layer"):
         smoke.check(any(k.startswith("conv_mma_kernel") and k.endswith(f"({tu})") for k in tc),
                     f"sass: no conv_mma_kernel instance from {tu}.cu in the library")
+        smoke.check(any(k.startswith("conv_mma_kernel<f32, wgmma") and k.endswith(f"({tu})")
+                        for k in tc),
+                    f"sass: no warpgroup-MMA conv_mma_kernel instance from {tu}.cu")
     smoke.check(all(v > 0 for v in tc.values()),
-                f"sass: tensor-core kernel instances without HMMA: "
+                f"sass: tensor-core kernel instances without HMMA or HGMMA: "
                 f"{ {k: v for k, v in tc.items() if v == 0} }")
     for kernel in ("dw_mma_kernel", "dw_stream_kernel", "conv_mma_kernel", "conv_stream_kernel",
                    "dx_stream_kernel"):
-        print(f"sass: HMMA instructions per {kernel} instance "
+        print(f"sass: HMMA and HGMMA instructions per {kernel} instance "
               f"{ {k[len(kernel):]: v for k, v in counts.items() if k.startswith(kernel)} }",
               flush=True)
     return counts, sass
@@ -1133,6 +1143,7 @@ def _max_state_diff(a: dict, b: dict) -> float:
 
 
 def train_end_to_end(torch, smoke: Smoke, root: str, card: str) -> dict:
+    from scgrhc_torch.ops.kernels import conv3
     from scgrhc_torch.train import run as train_run
     from scgrhc_torch.train.wgan import TrainConfig, launches_per_step
 
@@ -1142,6 +1153,8 @@ def train_end_to_end(torch, smoke: Smoke, root: str, card: str) -> dict:
     def drive(params):
         for fn in fns.values():
             fn.launches = 0
+        for path in conv3.path_launches:
+            conv3.path_launches[path] = 0
         t0 = time.perf_counter()
         stats = train_run.run(params, plot=False)
         torch.cuda.synchronize()
@@ -1159,7 +1172,15 @@ def train_end_to_end(torch, smoke: Smoke, root: str, card: str) -> dict:
     per_step = launches_per_step(TrainConfig.from_params(run_b))
     want = {k: v * steps for k, v in per_step.items()}
     smoke.check(launches == want, f"training launches {launches}, expected {want}")
-    report.update(launches=launches, steps=steps, wall_s=wall, epochs=stats["epochs"])
+    # every f32 conv of the step from 16 output channels on the warpgroup-MMA
+    # core, the score layer's on the streams, none on mma.sync
+    paths = dict(conv3.path_launches)
+    smoke.check(paths["mma"] == 0 and paths["wgmma"] > 0 and paths["stream"] > 0,
+                f"f32 training's conv launches by path {paths}")
+    print(f"train: conv launches by path (conv3.path_launches) {paths}, a step "
+          + ", ".join(f"{k} {v / steps:g}" for k, v in paths.items()), flush=True)
+    report.update(launches=launches, steps=steps, wall_s=wall, epochs=stats["epochs"],
+                  path_launches=paths)
     keys = {"format", "start_time", "epoch", "g_losses", "d_losses", "g_state_dict",
             "d_state_dict", "g_optimizer_state_dict", "d_optimizer_state_dict"}
     for e in (0, 1):
@@ -1277,7 +1298,7 @@ def _pinned_step(torch, dev, dtype, inputs, n_critic: int, reverse_critic: bool 
     state.generator.to(dtype)
     state.critic.to(dtype)
 
-    def apply(opt, params, loss, reduce=None):
+    def apply(opt, params, loss, grad_span, reduce=None):
         sign = -1.0 if reverse_critic and opt is state.d_opt else 1.0
         for p, g in zip(params, torch.autograd.grad(loss, params)):
             p.grad = sign * g

@@ -25,9 +25,11 @@
 // (a no-op in f32); db sums the f32 dc.
 //
 // One conv core computes c and dx for both models: an implicit GEMM on the
-// tensor cores over (O, T) tiles (conv_mma_kernel; its note is above it),
-// with conv_stream_kernel and dx_stream_kernel for the forward and dx below
-// 16 output channels, then row_kernel for the modes that need a whole row
+// tensor cores (conv_mma_kernel; its note is above it), on Hopper's
+// warpgroup MMA over (T, O) tiles in f32 and on mma.sync over (O, T)
+// tiles in bf16, with conv_stream_kernel and dx_stream_kernel for the
+// forward and dx below 16 output channels, then row_kernel for the modes
+// that need a whole row
 // of c, which goes through an f32 scratch (the in_relu forward's rows past
 // kRowPiece steps in pieces: row_part_kernel, row_sum_kernel,
 // row_apply_kernel).  No pass
@@ -535,49 +537,70 @@ db_kernel(const float* __restrict__ dc, float* __restrict__ db, int n, int cout,
 // of the dc pass, and dx) and of _bwd_dwdb_kernel's dc pass (K2dw).
 //
 // c[n, o, t] = b[o] + sum_i sum_k w[o, i, k] * x[n, i, t + k - 1] is one
-// product per sample with M = O, N = T and K = 3 * C_in; dx is the same
-// product over dc with A[i][(o, tap)] = w[o, i, 2 - tap] (M = C_in, K = 3 *
-// O): conv_fill's TRANSW staging.
+// product per sample with K = 3 * C_in; dx is the same product over dc
+// with the weights W(i, o, tap) = w[o, i, 2 - tap] (K = 3 * O).
 //
 // Bound: operations.  256 -> 512 at N = 32, T = 750 is 18.9 GFLOP a pass:
 // 0.114 ms at the 3xTF32 rate (495/3 TFLOP/s), 0.28 ms at the f32 FMA
 // peak, against 0.015 ms of bytes (x and y); the generator's 512 -> 512 at
-// N = 512, T = 744 is 600 GFLOP, 3.6 ms at the 3xTF32 rate.  An FMA core
-// that kept a whole row of c in registers (16 output rows a block, each
-// staged x value feeding one m16 tile, T <= 1024) ran at a third of the
-// FMA peak.
+// N = 512, T = 744 is 600 GFLOP, 3.6 ms at the 3xTF32 rate.
 //
-// Design (conv_mma_kernel, ConvTile): a block owns BM = 64 output rows x
-// BN = 128 steps of one sample, 8 warps of 32 rows x 32 steps (2 x 4 m16n8
-// tiles), and walks K in slices of BC = 16 channels x 3 taps through a
-// 3-stage cp.async ring (72 KB in f32: two blocks an SM, the same budget as
-// dw_mma_kernel).  Per slice it stages the weights as A[tap][m][ci] and an
-// x slab of the 16 channels x (BN + 4) steps with its zero halo; the three
-// taps read the slab at column offsets 1, 2 and 3, so each x value comes
-// from device memory once per block and row tile.  Rows are padded so that
-// a fragment's 32 lanes fall on 32 banks.  64 rows: the 5 -> 64 and 4 -> 64
-// layers fill one tile.  128 steps: T = 750 takes 6 tiles (2 % waste).  A
-// K below one slice (C_in = 4 or 1 in the generator's first layer) is a
-// part of one slice, zero-filled.
-// Timed on an H100 (bench/conv_core.cu, f32, N = 32): the fastest of six
-// tilings at every critic layer; at 256 -> 512 0.532 ms (21 % of the
-// 3xTF32 rate), against 0.602 for 32-channel slices, 0.634 for 128 x 64,
-// 0.642 for 128 x 128 and 0.779 for 64 x 64 tiles (a fourth stage: 0.529);
-// with row_kernel, the in_relu forward took 0.580 against the FMA core's
-// 0.886.  The same loop without the TF32 split reads 0.412 ms, and with
-// one product instead of three 0.292: the split costs a fifth of the
-// time, and the staging and the rest of the loop more than the products.
-//   f32: m16n8k8 TF32 with the 3xTF32 split; each slice sums from zero in
-//   the tensor cores and is added to the running sums in f32 outside them
-//   (one running sum on the tensor cores read 1.45e-5 at dw).  bf16:
-//   m16n8k16 with f32 accumulation, staged values rounded as round_to does
-//   (dc to bf16 before dx's product).
-//   Epilogue: + bias, relu in the relu mode, stored in the output type.
-//   The in_relu mode stores c in f32 (the wrapper's scratch, or the dc
-//   scratch itself) and row_kernel, a warp per (n, o) row, takes the
-//   one-pass statistics over T and writes y, or dc over c in place.  The
-//   round trip of c costs 2 x 49 MB at 256 -> 512, about 0.03 ms, and
-//   2 x 780 MB at the generator's 512 -> 512 at N = 512, about 0.5 ms.
+// f32 (conv_mma_kernel<WgTile<BN>>): the transposed product D[t][o] =
+// sum_(tap, ci) X[t][(tap, ci)] * W[(tap, ci)][o] on Hopper's warpgroup MMA
+// (wgmma m64nNk8, TF32), M = steps and N = output channels (dx: input
+// channels).  TF32 wgmma reads shared-memory operands K-major only, and an
+// x tile in the (N, C, T) layout is t-contiguous, so A, the im2col of x,
+// comes from registers: each consumer thread loads its fragment from a
+// shared x slab [ci][t0 - 2 .. t0 + BM + 1] at the tap's shift (a
+// descriptor cannot shift by one step) and splits it into big + small
+// once; each split value feeds all BN columns.  B is a copy of the weights
+// that conv_weight_split_kernel arranges and splits once a launch: for
+// each tile of BN columns and each stage of BC channels, an image of the
+// stage's big and small planes, 3 taps each, in wgmma's K-major core
+// matrices (8 columns x 4 channels, 128 bytes), so that one bulk copy
+// (the TMA unit, completing on an mbarrier) brings a stage's weights.  The
+// x slab goes by cp.async (8-byte copies where T is even): a tensor map
+// needs row strides of a multiple of 16 bytes, which T = 750 (and 746)
+// is not.  Three wgmma a tap: small*big, big*small, big*big.
+//   A block is 4 producer warps and two consumer warpgroups of 64 steps
+//   each (BM = 128 steps x BN columns; 256 steps below 32 columns),
+//   persistent over (step tile, column tile, sample) tiles, with a ring of
+//   8 stages (full and empty mbarriers): the producers fill stages ahead,
+//   so a tile's epilogue overlaps the next tile's loads.  BN follows the
+//   product's columns (8 .. 128), so the 64 -> 64 layers and the 4- and
+//   5-channel dx fill their tiles.  Each stage's products (8 channels x 3
+//   taps) sum from zero in the tensor cores and are added to the running
+//   sums in f32 outside them (one running sum on the tensor cores read
+//   1.45e-5 at dw).
+//   Epilogue: + bias, relu where asked, stored in f32 from the fragments
+//   (a thread's 8 consecutive steps of a column fill one 32-byte sector).
+//   The split costs a launch of conv_weight_split_kernel a pass (0.004 ms;
+//   0.43 ms in a training step's 173).
+//   Timed on an H100 (bench/conv_core.cu, N = 32, T = 750, fwd at 256 ->
+//   512): 128 x 128 tiles with one producer warp 0.306 ms (37 % of the
+//   3xTF32 rate), against 0.528 for the mma.sync core it replaces; 64
+//   columns x 256 steps 0.442 (smaller wgmma, the same bytes); 8 stages
+//   against 6 2 % faster; partial sums over 2 stages 5 % faster, but 16-20 %
+//   slower with 4 producer warps (ptxas serializes the wgmma there).  With
+//   the x slab not reloaded (its values stale)
+//   the same loop read 0.186 ms, with the weights not reloaded 0.298: one
+//   warp's cp.async of x, not the bulk copies, held the pipeline.  2
+//   producer warps 0.256, 4 0.218 (53 %; dx 0.194, 59 %), at 168
+//   registers, the most 384 threads may take; 64 -> 64 and 64 -> 128 run
+//   at 17-25 %, with 4 to 8 stages a tile.  The generator's 11 layer
+//   shapes at N = 512 (the in_relu forward with row_kernel) take 20.4 ms
+//   against 46.3.
+// bf16 (conv_mma_kernel<MmaTile, ...>): mma.sync m16n8k16 with f32
+// accumulation over (O, T) tiles of 64 x 128 steps in slices of 16
+// channels x 3 taps through a 3-stage cp.async ring, each slice summed
+// from zero and added in f32 (staged values rounded as round_to does: dc
+// to bf16 before dx's product).
+//
+// The in_relu mode stores c in f32 (the wrapper's scratch, or the dc
+// scratch itself) and row_kernel, a warp per (n, o) row, takes the
+// one-pass statistics over T and writes y, or dc over c in place.  The
+// round trip of c costs 2 x 49 MB at 256 -> 512, about 0.03 ms, and
+// 2 x 780 MB at the generator's 512 -> 512 at N = 512, about 0.5 ms.
 //
 // Below kConvStreamBelow output channels (the 512 -> 1 score layer) the
 // forward is conv_stream_kernel.  Bound: bytes, x read once (49 MB, 14.7
@@ -598,44 +621,447 @@ db_kernel(const float* __restrict__ dc, float* __restrict__ db, int n, int cout,
 constexpr int kConvStreamBelow = 16;  // O below this: the forward streams over x
 constexpr int kStreamSteps = 64;      // steps of a streaming block, two a lane
 
-// The tiling of conv_mma_kernel for the product's type T (conv3.py:
-// CONV_TILE_M, CONV_TILE_N).  A stage holds A[tap][m][ci] = W(m0 + m,
+// ---- f32: warpgroup MMA ----
+
+constexpr int kWgConsumers = 2;  // consumer warpgroups a block
+constexpr int kWgBlocks = 132;   // the persistent grid: an H100's SMs
+constexpr int kWgBC = 8;  // source channels a stage: one k8 step a tap
+
+// A tiling of the f32 core (conv3.py: wg_tile_m, wg_tile_n): BN product
+// columns x BM = 64 * MW * kWgConsumers steps a tile, each consumer
+// warpgroup MW m64 row tiles; STAGES stages of BC = 8 source channels (one
+// k8 step a tap), filled by PW producer warps.  A stage holds the
+// weight image (plane, tap: BN x BC each, in core matrices: element (n, c)
+// at (n / 8) * 64 + (c / 4) * 32 + (n % 8) * 4 + c % 4) and the x slab
+// X[ci][j] = source channel c0 + ci at step t0 - 2 + j (zero outside [0,
+// T)) in rows of kLdX floats: kLdX = 8 (mod 32) puts a fragment's 32 lanes
+// on 32 banks, and the 2-step offset keeps 8-byte copies aligned.
+template <int BN_, int MW_, int STAGES_, int PW_>
+struct WgTile {
+  static constexpr int BN = BN_, MW = MW_, STAGES = STAGES_, PW = PW_;
+  static constexpr int kThreads = 128 * kWgConsumers + 32 * PW;
+  static constexpr int BM = 64 * MW * kWgConsumers;  // steps a tile
+  static constexpr int BC = kWgBC;
+  static constexpr int kLdX = BM + 8;
+  static constexpr int kXCols = BM + 4;  // filled columns: steps t0 - 2 .. t0 + BM + 1
+  static constexpr int kPlane = 3 * BN * BC;   // floats of one plane's 3 taps
+  static constexpr int kWFloats = 2 * kPlane;  // big and small
+  static constexpr int kStage = kWFloats + BC * kLdX;
+  static constexpr int kSmemBytes = (int)sizeof(float) * STAGES * kStage + 16 * STAGES;
+  static_assert(BN % 8 == 0 && BN <= 128 && kLdX % 32 == 8 && kXCols <= kLdX &&
+                    (kWFloats * 4) % 128 == 0 && (kStage * 4) % 128 == 0 &&
+                    kSmemBytes <= 232448,
+                "WgTile: bad shape");
+};
+
+// The f32 core's tile width for a product of cols columns.
+int wg_tile_n(int cols) {
+  return cols <= 8 ? 8 : cols <= 16 ? 16 : cols <= 32 ? 32 : cols <= 64 ? 64 : 128;
+}
+
+// The tiling the launchers take at tile width BN (timed on an H100,
+// bench/conv_core.cu; the note above conv_mma_kernel): 4 producer warps,
+// 8 stages, each stage's partial sums added alone; below 32 columns 256
+// steps a tile (two m64 tiles a consumer warpgroup), else 128.
+template <int BN>
+struct WgChoice {
+  using Tile = WgTile<BN, BN <= 16 ? 2 : 1, 8, 4>;
+};
+
+// The f32 core's steps a tile for a product of cols columns.
+int wg_tile_m(int cols) {
+  switch (wg_tile_n(cols)) {
+    case 8: return WgChoice<8>::Tile::BM;
+    case 16: return WgChoice<16>::Tile::BM;
+    case 32: return WgChoice<32>::Tile::BM;
+    case 64: return WgChoice<64>::Tile::BM;
+    default: return WgChoice<128>::Tile::BM;
+  }
+}
+
+// The product's B for the f32 core at tile width BN: the weights of the
+// product W(n, c, tap) = w[(n * kdim + c) * 3 + tap], or with transw (dx:
+// n a layer input channel, c a layer output channel) w[(c * cols + n) * 3
+// + 2 - tap], zero outside (cols, kdim), split v = big + small (TF32) and
+// arranged stage by stage: the image of column tile nb and stage ks starts
+// at ws + (nb * nks + ks) * 6 * BN * kWgBC, big plane then small, each
+// tap's BN x kWgBC block in core matrices.  One thread per (stage, tap,
+// n, c).
+template <int BN>
+__global__ void __launch_bounds__(kThreads)
+conv_weight_split_kernel(const float* __restrict__ w, float* __restrict__ ws, int kdim, int cols,
+                         int transw, int nks, long long count) {
+  constexpr int kBlock = BN * kWgBC;  // one tap of one plane
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= count) return;
+  const int j = (int)(i % kBlock), tap = (int)(i / kBlock % 3);
+  const long long stage = i / (3 * kBlock);
+  const int nb = (int)(stage / nks), ks = (int)(stage % nks);
+  const int n = nb * BN + j / 64 * 8 + j % 32 / 4;
+  const int c = ks * kWgBC + j % 64 / 32 * 4 + j % 4;
+  float v = 0.f;
+  if (n < cols && c < kdim)
+    v = transw ? w[((size_t)c * cols + n) * 3 + 2 - tap] : w[((size_t)n * kdim + c) * 3 + tap];
+  unsigned big, small;
+  split_tf32(v, big, small);
+  float* img = ws + stage * 6 * kBlock + tap * kBlock + j;
+  img[0] = __uint_as_float(big);
+  img[3 * kBlock] = __uint_as_float(small);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(unsigned bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+// Waits for the completion of the barrier's phase of the given parity.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// An arrival that also expects bytes from the TMA unit.
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// An arrival once the thread's cp.async copies so far have landed.
+__device__ __forceinline__ void cp_async_arrive(unsigned bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+// A bulk copy of bytes (a multiple of 16, both ends 16-byte aligned) by
+// the TMA unit, completing on bar.
+__device__ __forceinline__ void bulk_load(unsigned dst, const void* src, unsigned bytes,
+                                          unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The shared-memory descriptor of one tap's B (BN x 8 channels) at addr:
+// K-major core matrices with no swizzle, 128 bytes from one 4-channel half
+// to the next (the leading offset) and 256 from 8 columns to the next (the
+// stride offset).
+__device__ __forceinline__ uint64_t wg_desc(unsigned addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(256 >> 4) << 32);
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving reads of v above a wg_wait.
+__device__ __forceinline__ void wg_hold(float& v) { asm volatile("" : "+f"(v)::"memory"); }
+
+// d (+)= a (64 x 8, TF32 fragments in registers) * b (8 x N at the
+// descriptor b), f32 accumulate; scale_d 0 discards d first.  d[4j + e]
+// is row g (+ 8 for e >= 2) and column 8j + 2q + (e & 1) of the warp's 16
+// rows, g = lane / 4, q = lane % 4; a[0..3] are the fragment's (g, q),
+// (g + 8, q), (g, q + 4), (g + 8, q + 4).
+template <int N>
+struct Wgmma;
+template <>
+struct Wgmma<8> {
+  __device__ __forceinline__ static void mma(float (&d)[4], const unsigned (&a)[4], uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+template <>
+struct Wgmma<16> {
+  __device__ __forceinline__ static void mma(float (&d)[8], const unsigned (&a)[4], uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+template <>
+struct Wgmma<32> {
+  __device__ __forceinline__ static void mma(float (&d)[16], const unsigned (&a)[4], uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+template <>
+struct Wgmma<64> {
+  __device__ __forceinline__ static void mma(float (&d)[32], const unsigned (&a)[4], uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+template <>
+struct Wgmma<128> {
+  __device__ __forceinline__ static void mma(float (&d)[64], const unsigned (&a)[4], uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+        "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
+        "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+          "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+          "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+// out[s, col, t] = (bias[col] if bias) + the product's (t, col) entry,
+// relu'd where relu, in f32, for the product over src (n, kdim, len) and
+// the split weights ws (conv_weight_split_kernel's), with cols columns.
+// Tiles: (step tile, column tile, sample), ntt x ntn x n of them, the step
+// tile fastest; block b takes tiles b, b + gridDim.x, ...  pairs: len
+// even and src 8-byte aligned (8-byte copies of x).
+template <typename Tile>
+__global__ void __launch_bounds__(Tile::kThreads, 1)
+conv_mma_kernel(const float* __restrict__ src, const float* __restrict__ ws,
+                const float* __restrict__ bias, float* __restrict__ out, int kdim, int cols,
+                int len, int ntt, int ntn, int n, int use_relu, int pairs) {
+  extern __shared__ __align__(128) float wg_smem[];
+  constexpr int S = Tile::STAGES, BN = Tile::BN, BM = Tile::BM, BC = Tile::BC;
+  constexpr int MW = Tile::MW, kLdX = Tile::kLdX, R = BN / 2;
+  const unsigned full0 = smem_addr(wg_smem + S * Tile::kStage), empty0 = full0 + 8 * S;
+  const int nks = (kdim + BC - 1) / BC;
+  const long long tiles = (long long)ntt * ntn * n;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full0 + 8 * s, 32 * Tile::PW + 1);  // the producers' copies, the bulk copy
+      mbar_init(empty0 + 8 * s, 4 * kWgConsumers);  // a consumer warp each
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int stage = 0;
+  unsigned phase = 0;
+
+  if (warp >= 4 * kWgConsumers) {  // a producer: its share of x, and the first one the weights
+    const int pw = warp - 4 * kWgConsumers;
+    for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int t0 = (int)(tile % ntt) * BM, nb = (int)(tile / ntt % ntn);
+      const float* xg = src + (size_t)(tile / ((long long)ntt * ntn)) * kdim * len;
+      for (int ks = 0; ks < nks; ++ks) {
+        mbar_wait(empty0 + 8 * stage, phase ^ 1);
+        float* st = wg_smem + stage * Tile::kStage;
+        const unsigned full = full0 + 8 * stage;
+        if (pw == 0 && lane == 0) {
+          mbar_expect_tx(full, Tile::kWFloats * 4);
+          bulk_load(smem_addr(st), ws + ((size_t)nb * nks + ks) * Tile::kWFloats,
+                    Tile::kWFloats * 4, full);
+        }
+        float* xs = st + Tile::kWFloats;
+        const int c0 = ks * BC;
+        if (pairs) {  // each pair wholly inside or outside [0, T): t0 and T even
+          constexpr int kRow = Tile::kXCols / 2;
+          for (int e = pw * 32 + lane; e < BC * kRow; e += 32 * Tile::PW) {
+            const int ci = e / kRow, j = (e - ci * kRow) * 2, t = t0 - 2 + j;
+            const bool in = c0 + ci < kdim && t >= 0 && t < len;
+            cp_async8(xs + ci * kLdX + j, in ? xg + (size_t)(c0 + ci) * len + t : src, in);
+          }
+        } else {
+          constexpr int kRow = Tile::kXCols;
+          for (int e = pw * 32 + lane; e < BC * kRow; e += 32 * Tile::PW) {
+            const int ci = e / kRow, j = e - ci * kRow, t = t0 - 2 + j;
+            const bool in = c0 + ci < kdim && t >= 0 && t < len;
+            cp_async4(xs + ci * kLdX + j, in ? xg + (size_t)(c0 + ci) * len + t : src, in);
+          }
+        }
+        cp_async_arrive(full);
+        if (++stage == S) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    // every stage released before the warp leaves
+    for (int i = 0; i < S; ++i) {
+      mbar_wait(empty0 + 8 * stage, phase ^ 1);
+      if (++stage == S) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // a consumer: warp wq of warpgroup wg holds the rows wq * 16 .. of its
+  // MW m64 tiles, steps wg * 64 * MW + mi * 64 + ..
+  const int g = lane >> 2, q = lane & 3;
+  const int row = (warp >> 2) * 64 * MW + (warp & 3) * 16 + g;  // the first tile's first step
+  float acc[MW][R], sl[MW][R];
+#pragma unroll
+  for (int mi = 0; mi < MW; ++mi)
+#pragma unroll
+    for (int i = 0; i < R; ++i) sl[mi][i] = 0.f;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int t0 = (int)(tile % ntt) * BM, nb = (int)(tile / ntt % ntn);
+    const size_t s = (size_t)(tile / ((long long)ntt * ntn));
+#pragma unroll
+    for (int mi = 0; mi < MW; ++mi)
+#pragma unroll
+      for (int i = 0; i < R; ++i) acc[mi][i] = 0.f;
+    for (int ks = 0; ks < nks; ++ks) {
+      mbar_wait(full0 + 8 * stage, phase);
+      const float* st = wg_smem + stage * Tile::kStage;
+      // column j of the slab is step t0 - 2 + j: tap k of step t0 + r reads r + k + 1
+      const float* xr = st + Tile::kWFloats + q * kLdX + row + 1;
+      unsigned ab[MW][3][4], as[MW][3][4];
+#pragma unroll
+      for (int mi = 0; mi < MW; ++mi)
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          const float* r = xr + mi * 64 + k;
+          split_tf32(r[0], ab[mi][k][0], as[mi][k][0]);
+          split_tf32(r[8], ab[mi][k][1], as[mi][k][1]);
+          split_tf32(r[4 * kLdX], ab[mi][k][2], as[mi][k][2]);
+          split_tf32(r[4 * kLdX + 8], ab[mi][k][3], as[mi][k][3]);
+        }
+      const unsigned wb = smem_addr(st);
+      wg_fence();
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const uint64_t big = wg_desc(wb + k * BN * BC * 4);
+        const uint64_t small = wg_desc(wb + (Tile::kPlane + k * BN * BC) * 4);
+#pragma unroll
+        for (int mi = 0; mi < MW; ++mi) {
+          Wgmma<BN>::mma(sl[mi], as[mi][k], big, k > 0);  // the stage's sums start at 0
+          Wgmma<BN>::mma(sl[mi], ab[mi][k], small, 1);
+          Wgmma<BN>::mma(sl[mi], ab[mi][k], big, 1);
+        }
+      }
+      wg_commit();
+      wg_wait();
+#pragma unroll
+      for (int mi = 0; mi < MW; ++mi)
+#pragma unroll
+        for (int i = 0; i < R; ++i) wg_hold(sl[mi][i]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * stage);  // the stage is free
+#pragma unroll
+      for (int mi = 0; mi < MW; ++mi)
+#pragma unroll
+        for (int i = 0; i < R; ++i) acc[mi][i] += sl[mi][i];
+      if (++stage == S) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    float* outs = out + s * cols * len;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = nb * BN + 8 * j + 2 * q + e;
+        if (col >= cols) continue;
+        const float bc = bias != nullptr ? bias[col] : 0.f;
+        float* o = outs + (size_t)col * len + t0 + row;
+#pragma unroll
+        for (int mi = 0; mi < MW; ++mi)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float v = acc[mi][4 * j + 2 * h + e] + bc;
+            if (use_relu) v = relu(v);
+            if (t0 + row + 64 * mi + 8 * h < len) o[64 * mi + 8 * h] = v;
+          }
+      }
+    }
+  }
+}
+
+// ---- bf16: mma.sync ----
+
+// The bf16 core's tiling (conv3.py: MMA_TILE_M, MMA_TILE_N): a block of
+// kThreads owns BM rows (output channels; dx: input channels) x BN steps
+// of one sample, 8 warps of 32 rows x 32 steps (2 x 4 m16n8 tiles), and
+// walks K in slices of BC = 16 channels x 3 taps through a 3-stage ring
+// (72 KB: two blocks an SM).  A stage holds A[tap][m][ci] = W(m0 + m,
 // c0 + ci, tap) in rows of kLdA floats and X[ci][j] = source channel
 // c0 + ci at step t0 - 2 + j (zero outside [0, T)) in rows of kLdX floats.
-// The TF32 fragments read A at (g, q) and X at (q, g): kLdA = 4 (mod 8)
-// and kLdX = 8 (mod 32) put the 32 lanes on 32 banks.  The bf16 fragments
-// read A as pairs at (g, 2q) and X at (2q, g): kLdA = 8 (mod 32) and kLdX
-// = 4 (mod 16).  The slab starts 2 steps early so 8-byte copies stay
-// aligned where T is even.
-template <typename T>
-struct ConvTile {
+// The fragments read A as pairs at (g, 2q) and X at (2q, g): kLdA = 8 (mod
+// 32) and kLdX = 4 (mod 16).  The slab starts 2 steps early so 8-byte
+// copies stay aligned where T is even.
+struct MmaTile {
   static constexpr int BM = 64, BN = 128, BC = 16, STAGES = 3, WM = 2;
   static constexpr int WN = kWarps / WM;    // warps along the steps
   static constexpr int kMI = BM / WM / 16;  // m16 tiles per warp
   static constexpr int kNI = BN / WN / 8;   // n8 tiles per warp
-  static constexpr bool kF32 = std::is_same<T, float>::value;
-  static constexpr int kLdA = kF32 ? BC + 4 : BC + 8;
-  static constexpr int kLdX = kF32 ? BN + 8 : BN + 4;
+  static constexpr int kLdA = BC + 8;
+  static constexpr int kLdX = BN + 4;
   static constexpr int kXCols = BN + 4;  // filled columns: steps t0 - 2 .. t0 + BN + 1
   static constexpr int kAFloats = 3 * BM * kLdA;
   static constexpr int kStage = kAFloats + BC * kLdX;
   static constexpr int kSmemBytes = (int)sizeof(float) * STAGES * kStage;
-  static_assert(kXCols <= kLdX && kMI >= 1 && kNI >= 1, "ConvTile: bad shape");
+  static_assert(kXCols <= kLdX && kMI >= 1 && kNI >= 1 && BC == 16, "MmaTile: bad shape");
 };
 
 // Stage K slice (channels c0 ..) for the block's rows m0 .. and steps
 // t0 .. of one sample: src is the sample's (kdim, len) source rows (x, or
 // dc for dx), W(m, i, tap) is w[(m * kdim + i) * 3 + tap], or with TRANSW
 // (dx: m is a layer input channel, i a layer output channel)
-// w[(i * mdim + m) * 3 + 2 - tap].  f32 goes in by cp.async (8-byte copies
-// of the source with PAIRS: T even, src 8-byte aligned, each pair wholly
-// inside or outside [0, T) as t0 is even); bf16 is converted on its way in
-// with plain loads.
-template <typename Tile, typename T, typename TB, bool TRANSW, bool PAIRS>
+// w[(i * mdim + m) * 3 + 2 - tap].  The weights and a bf16 source are
+// converted on their way in with plain loads; an f32 source (dc) goes in
+// by cp.async (8-byte copies with PAIRS: T even, src 8-byte aligned, each
+// pair wholly inside or outside [0, T) as t0 is even).
+template <typename TB, bool TRANSW, bool PAIRS>
 __device__ __forceinline__ void conv_fill(float* st, const TB* __restrict__ src,
-                                          const T* __restrict__ w, int c0, int m0, int t0,
-                                          int kdim, int mdim, int len) {
-  constexpr int BM = Tile::BM, BC = Tile::BC, kLdA = Tile::kLdA, kLdX = Tile::kLdX;
+                                          const __nv_bfloat16* __restrict__ w, int c0, int m0,
+                                          int t0, int kdim, int mdim, int len) {
+  constexpr int BM = MmaTile::BM, BC = MmaTile::BC, kLdA = MmaTile::kLdA;
+  constexpr int kLdX = MmaTile::kLdX;
 #pragma unroll 4
   for (int e = threadIdx.x; e < BM * BC * 3; e += kThreads) {
     // consecutive e read consecutive weights
@@ -654,15 +1080,11 @@ __device__ __forceinline__ void conv_fill(float* st, const TB* __restrict__ src,
     const bool in = m0 + m < mdim && c0 + ci < kdim;
     const size_t gi = TRANSW ? ((size_t)(c0 + ci) * mdim + m0 + m) * 3 + k
                              : ((size_t)(m0 + m) * kdim + c0 + ci) * 3 + k;
-    float* dst = st + ((TRANSW ? 2 - k : k) * BM + m) * kLdA + ci;
-    if constexpr (Tile::kF32)
-      cp_async4(dst, in ? w + gi : w, in);
-    else
-      *dst = in ? to_f32(w[gi]) : 0.f;
+    st[((TRANSW ? 2 - k : k) * BM + m) * kLdA + ci] = in ? to_f32(w[gi]) : 0.f;
   }
   constexpr int W = PAIRS ? 2 : 1;
-  constexpr int kRow = Tile::kXCols / W;
-  float* xs = st + Tile::kAFloats;
+  constexpr int kRow = MmaTile::kXCols / W;
+  float* xs = st + MmaTile::kAFloats;
 #pragma unroll 2
   for (int e = threadIdx.x; e < BC * kRow; e += kThreads) {
     const int ci = e / kRow, j = (e - ci * kRow) * W;
@@ -683,70 +1105,37 @@ __device__ __forceinline__ void conv_fill(float* st, const TB* __restrict__ src,
 
 // acc[mi][ni] += the warp's share of the staged slice at st: rows
 // (wr * kMI + mi) * 16 .., steps (wc * kNI + ni) * 8 .., over the slice's
-// 16 channels x 3 taps.  g = lane / 4 and q = lane % 4 index the
-// fragments as the PTX ISA lays them out.
-template <typename Tile>
+// 16 channels x 3 taps, one m16n8k16 step a tap.  g = lane / 4 and q =
+// lane % 4 index the fragments as the PTX ISA lays them out.
 __device__ __forceinline__ void conv_mma_slice(const float* st, int wr, int wc, int g, int q,
-                                               float (&acc)[Tile::kMI][Tile::kNI][4]) {
-  constexpr int kLdA = Tile::kLdA, kLdX = Tile::kLdX, kMI = Tile::kMI, kNI = Tile::kNI;
-  constexpr int kTap = Tile::BM * kLdA;  // A's stride between taps
+                                               float (&acc)[MmaTile::kMI][MmaTile::kNI][4]) {
+  constexpr int kLdA = MmaTile::kLdA, kLdX = MmaTile::kLdX, kMI = MmaTile::kMI;
+  constexpr int kNI = MmaTile::kNI, kTap = MmaTile::BM * kLdA;  // A's stride between taps
   const float* A = st + (wr * kMI * 16 + g) * kLdA;
   // column j of the slab is step t0 - 2 + j: tap k of step t0 + s reads s + k + 1
-  const float* X = st + Tile::kAFloats + wc * kNI * 8 + g + 1;
-  if constexpr (Tile::kF32) {
+  const float* X = st + MmaTile::kAFloats + wc * kNI * 8 + g + 1;
 #pragma unroll
-    for (int tap = 0; tap < 3; ++tap) {
+  for (int tap = 0; tap < 3; ++tap) {
+    unsigned a[kMI][4];
 #pragma unroll
-      for (int kc = 0; kc < Tile::BC; kc += 8) {
-        unsigned ab[kMI][4], as[kMI][4];
-#pragma unroll
-        for (int mi = 0; mi < kMI; ++mi) {
-          const float* r = A + tap * kTap + mi * 16 * kLdA + kc + q;
-          split_tf32(r[0], ab[mi][0], as[mi][0]);
-          split_tf32(r[8 * kLdA], ab[mi][1], as[mi][1]);
-          split_tf32(r[4], ab[mi][2], as[mi][2]);
-          split_tf32(r[8 * kLdA + 4], ab[mi][3], as[mi][3]);
-        }
-#pragma unroll
-        for (int ni = 0; ni < kNI; ++ni) {
-          const float* xr = X + (kc + q) * kLdX + ni * 8 + tap;
-          unsigned b0, b0s, b1, b1s;
-          split_tf32(xr[0], b0, b0s);
-          split_tf32(xr[4 * kLdX], b1, b1s);
-#pragma unroll
-          for (int mi = 0; mi < kMI; ++mi) {
-            mma_tf32(acc[mi][ni], as[mi], b0, b1);
-            mma_tf32(acc[mi][ni], ab[mi], b0s, b1s);
-            mma_tf32(acc[mi][ni], ab[mi], b0, b1);
-          }
-        }
-      }
+    for (int mi = 0; mi < kMI; ++mi) {
+      const float* r = A + tap * kTap + mi * 16 * kLdA + 2 * q;
+      const float2 r0 = *reinterpret_cast<const float2*>(r);
+      const float2 r1 = *reinterpret_cast<const float2*>(r + 8 * kLdA);
+      const float2 r2 = *reinterpret_cast<const float2*>(r + 8);
+      const float2 r3 = *reinterpret_cast<const float2*>(r + 8 * kLdA + 8);
+      a[mi][0] = pack_bf16(r0.x, r0.y);
+      a[mi][1] = pack_bf16(r1.x, r1.y);
+      a[mi][2] = pack_bf16(r2.x, r2.y);
+      a[mi][3] = pack_bf16(r3.x, r3.y);
     }
-  } else {
-    static_assert(Tile::BC == 16, "one m16n8k16 step per tap");
 #pragma unroll
-    for (int tap = 0; tap < 3; ++tap) {
-      unsigned a[kMI][4];
+    for (int ni = 0; ni < kNI; ++ni) {
+      const float* xr = X + 2 * q * kLdX + ni * 8 + tap;
+      const unsigned b0 = pack_bf16(xr[0], xr[kLdX]);
+      const unsigned b1 = pack_bf16(xr[8 * kLdX], xr[9 * kLdX]);
 #pragma unroll
-      for (int mi = 0; mi < kMI; ++mi) {
-        const float* r = A + tap * kTap + mi * 16 * kLdA + 2 * q;
-        const float2 r0 = *reinterpret_cast<const float2*>(r);
-        const float2 r1 = *reinterpret_cast<const float2*>(r + 8 * kLdA);
-        const float2 r2 = *reinterpret_cast<const float2*>(r + 8);
-        const float2 r3 = *reinterpret_cast<const float2*>(r + 8 * kLdA + 8);
-        a[mi][0] = pack_bf16(r0.x, r0.y);
-        a[mi][1] = pack_bf16(r1.x, r1.y);
-        a[mi][2] = pack_bf16(r2.x, r2.y);
-        a[mi][3] = pack_bf16(r3.x, r3.y);
-      }
-#pragma unroll
-      for (int ni = 0; ni < kNI; ++ni) {
-        const float* xr = X + 2 * q * kLdX + ni * 8 + tap;
-        const unsigned b0 = pack_bf16(xr[0], xr[kLdX]);
-        const unsigned b1 = pack_bf16(xr[8 * kLdX], xr[9 * kLdX]);
-#pragma unroll
-        for (int mi = 0; mi < kMI; ++mi) mma_bf16(acc[mi][ni], a[mi], b0, b1);
-      }
+      for (int mi = 0; mi < kMI; ++mi) mma_bf16(acc[mi][ni], a[mi], b0, b1);
     }
   }
 }
@@ -767,6 +1156,8 @@ template <typename Tile, typename T, typename TB, typename TOUT, bool TRANSW, bo
 __global__ void __launch_bounds__(kThreads, 2)
 conv_mma_kernel(const TB* __restrict__ src, const T* __restrict__ w, const T* __restrict__ bias,
                 TOUT* __restrict__ out, int kdim, int mdim, int len) {
+  static_assert(std::is_same<Tile, MmaTile>::value && std::is_same<T, __nv_bfloat16>::value,
+                "the mma.sync core is bf16's");
   extern __shared__ __align__(16) float conv_smem[];
   constexpr int kMI = Tile::kMI, kNI = Tile::kNI, S = Tile::STAGES;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -780,8 +1171,8 @@ conv_mma_kernel(const TB* __restrict__ src, const T* __restrict__ w, const T* __
 #pragma unroll
   for (int st = 0; st < S - 1; ++st) {
     if (st < slices)
-      conv_fill<Tile, T, TB, TRANSW, PAIRS>(conv_smem + st * Tile::kStage, srcn, w,
-                                            st * Tile::BC, m0, t0, kdim, mdim, len);
+      conv_fill<TB, TRANSW, PAIRS>(conv_smem + st * Tile::kStage, srcn, w, st * Tile::BC, m0,
+                                   t0, kdim, mdim, len);
     cp_async_commit();
   }
   for (int i = 0; i < slices; ++i) {
@@ -789,11 +1180,11 @@ conv_mma_kernel(const TB* __restrict__ src, const T* __restrict__ w, const T* __
     __syncthreads();         // ... for every thread; slice i-1's stage is free
     const int next = i + S - 1;
     if (next < slices)
-      conv_fill<Tile, T, TB, TRANSW, PAIRS>(conv_smem + next % S * Tile::kStage, srcn, w,
-                                            next * Tile::BC, m0, t0, kdim, mdim, len);
+      conv_fill<TB, TRANSW, PAIRS>(conv_smem + next % S * Tile::kStage, srcn, w,
+                                   next * Tile::BC, m0, t0, kdim, mdim, len);
     cp_async_commit();
     float sl[kMI][kNI][4] = {};
-    conv_mma_slice<Tile>(conv_smem + i % S * Tile::kStage, wr, wc, g, q, sl);
+    conv_mma_slice(conv_smem + i % S * Tile::kStage, wr, wc, g, q, sl);
 #pragma unroll
     for (int mi = 0; mi < kMI; ++mi)
 #pragma unroll
@@ -1207,45 +1598,51 @@ cudaError_t launch_dw(const float* dcp, const T* xp, void* dw, void* db, void* p
 // The conv passes of a layer: the forward (K1f, K2f), the recompute of c
 // at the head of the dc pass (K1b, K2dx, K2dw), and dx (K1b, K2dx).
 enum ConvPass { kPassFwd = 0, kPassDc = 1, kPassDx = 2 };
-enum ConvPath { kPathNone = 0, kPathMma = 1, kPathStream = 2 };
+enum ConvPath { kPathNone = 0, kPathMma = 1, kPathStream = 2, kPathWgmma = 3 };
 
 // A pass's launch plan for n samples (conv3.py's conv_plan mirrors it; the
 // launchers take the plan of each chunk of samples): the conv kernel's
-// path and grid, the row pass's blocks (row_kernel; 0: none), its pieces
-// a row where the in_relu forward's rows are longer than kRowPiece
-// (row_part_kernel, row_sum_kernel and row_apply_kernel; 0: none), and
-// whether the forward writes c into the wrapper's f32 scratch (n, cout,
-// len) first; with row pieces the scratch holds their (n, cout, row_parts)
-// float2 partial sums after c, from the next even element, then the
-// (n, cout) float2 row sums.
+// path (f32: the warpgroup-MMA core; bf16: the mma.sync core; below
+// kConvStreamBelow output channels the streams) and grid, the tiles the
+// grid walks (the warpgroup-MMA core's (step tiles, column tiles,
+// samples), walked by a persistent grid; elsewhere the grid itself), the
+// row pass's blocks (row_kernel; 0: none), its pieces a row where the
+// in_relu forward's rows are longer than kRowPiece (row_part_kernel,
+// row_sum_kernel and row_apply_kernel; 0: none), and whether the forward
+// writes c into the wrapper's f32 scratch (n, cout, len) first; with row
+// pieces the scratch holds their (n, cout, row_parts) float2 partial sums
+// after c, from the next even element, then the (n, cout) float2 row sums.
 struct ConvPlan {
   int path;
   dim3 grid;
+  dim3 tiles;
   int row_blocks;
   int row_parts;
   bool scratch;
 };
 
-static_assert(ConvTile<float>::BM == ConvTile<__nv_bfloat16>::BM &&
-                  ConvTile<float>::BN == ConvTile<__nv_bfloat16>::BN,
-              "one grid for both types");
-
 unsigned cdiv(long long a, long long b) { return (unsigned)((a + b - 1) / b); }
 
-ConvPlan conv_plan(int n, int cin, int cout, int len, int mode, int pass) {
-  constexpr int BM = ConvTile<float>::BM, BN = ConvTile<float>::BN;
-  ConvPlan p{kPathNone, dim3(0, 0, 0), 0, 0, false};
-  if (pass == kPassDx) {
-    // M = cin, K = 3 * cout: below 16 output channels a stream over dc
-    p.path = cout < kConvStreamBelow ? kPathStream : kPathMma;
-    p.grid = p.path == kPathStream ? dim3(cdiv(len, kStreamSteps), n, 1)
-                                   : dim3(cdiv(len, BN), cdiv(cin, BM), n);
-    return p;
-  }
+ConvPlan conv_plan(int n, int cin, int cout, int len, int mode, int pass, bool f32) {
+  ConvPlan p{kPathNone, dim3(0, 0, 0), dim3(0, 0, 0), 0, 0, false};
   if (pass == kPassDc && mode == kLinear) return p;  // dc = dy
+  // the product's columns: the output channels, or for dx (K = 3 * cout)
+  // the input channels; below 16 output channels a stream over x or dc
+  const int cols = pass == kPassDx ? cin : cout;
   const bool stream = cout < kConvStreamBelow;
-  p.path = stream ? kPathStream : kPathMma;
-  p.grid = stream ? dim3(cdiv(len, kStreamSteps), n, 1) : dim3(cdiv(len, BN), cdiv(cout, BM), n);
+  if (stream) {
+    p.path = kPathStream;
+    p.grid = p.tiles = dim3(cdiv(len, kStreamSteps), n, 1);
+  } else if (f32) {
+    p.path = kPathWgmma;
+    p.tiles = dim3(cdiv(len, wg_tile_m(cols)), cdiv(cols, wg_tile_n(cols)), n);
+    const long long tiles = (long long)p.tiles.x * p.tiles.y * p.tiles.z;
+    p.grid = dim3((unsigned)(tiles < kWgBlocks ? tiles : kWgBlocks), 1, 1);
+  } else {
+    p.path = kPathMma;
+    p.grid = p.tiles = dim3(cdiv(len, MmaTile::BN), cdiv(cols, MmaTile::BM), n);
+  }
+  if (pass == kPassDx) return p;
   // the conv kernels' epilogues add the bias and relu; the rest is the row pass's
   const bool row = mode == kInRelu || (mode == kRelu && (stream || pass == kPassDc));
   const bool pieces = pass == kPassFwd && mode == kInRelu && len > kRowPiece;
@@ -1253,6 +1650,14 @@ ConvPlan conv_plan(int n, int cin, int cout, int len, int mode, int pass) {
   p.row_parts = pieces ? (int)cdiv(len, kRowPiece) : 0;
   p.scratch = pass == kPassFwd && row;
   return p;
+}
+
+// The f32 elements of the split weights that the warpgroup-MMA core reads
+// for a product of cols columns over kdim source channels (conv3.py:
+// wsplit_numel).
+long long wsplit_numel(int kdim, int cols) {
+  const int bn = wg_tile_n(cols);
+  return (long long)cdiv(cols, bn) * cdiv(kdim, kWgBC) * 2 * 3 * bn * kWgBC;
 }
 
 // Lets the kernel K take smem bytes of dynamic shared memory (past 48 KB);
@@ -1265,21 +1670,80 @@ cudaError_t allow_smem(int smem) {
   return err;
 }
 
-template <typename T, typename TB, typename TOUT, bool TRANSW, bool RELU>
-cudaError_t launch_conv_mma(dim3 grid, const TB* src, const T* w, const T* bias, TOUT* out,
-                            int kdim, int mdim, int len, cudaStream_t stream) {
-  using Tile = ConvTile<T>;
-  constexpr auto kPairs = &conv_mma_kernel<Tile, T, TB, TOUT, TRANSW, RELU, true>;
-  constexpr auto kSingle = &conv_mma_kernel<Tile, T, TB, TOUT, TRANSW, RELU, false>;
+template <int BN>
+cudaError_t launch_wsplit_bn(const float* w, float* ws, int kdim, int cols, bool transw,
+                             cudaStream_t stream) {
+  const int nks = (int)cdiv(kdim, kWgBC);
+  const long long count = (long long)cdiv(cols, BN) * nks * 3 * BN * kWgBC;
+  conv_weight_split_kernel<BN><<<cdiv(count, kThreads), kThreads, 0, stream>>>(
+      w, ws, kdim, cols, transw ? 1 : 0, nks, count);
+  return cudaGetLastError();
+}
+
+// The split weights ws (wsplit_numel(kdim, cols) floats) for the
+// warpgroup-MMA core's product; transw: dx's weights.
+cudaError_t launch_wsplit(const float* w, float* ws, int kdim, int cols, bool transw,
+                          cudaStream_t stream) {
+  if (ws == nullptr) return cudaErrorInvalidValue;
+  switch (wg_tile_n(cols)) {
+    case 8: return launch_wsplit_bn<8>(w, ws, kdim, cols, transw, stream);
+    case 16: return launch_wsplit_bn<16>(w, ws, kdim, cols, transw, stream);
+    case 32: return launch_wsplit_bn<32>(w, ws, kdim, cols, transw, stream);
+    case 64: return launch_wsplit_bn<64>(w, ws, kdim, cols, transw, stream);
+    default: return launch_wsplit_bn<128>(w, ws, kdim, cols, transw, stream);
+  }
+}
+
+// out (n, cols, len) in f32 = (bias if bias) + the product over src (n,
+// kdim, len) with the split weights ws, relu'd where relu, on the plan's
+// grid, with the tiling Tile.
+template <typename Tile>
+cudaError_t launch_wgmma_tile(const ConvPlan& p, const float* src, const float* ws,
+                              const float* bias, float* out, int kdim, int cols, int len,
+                              bool relu, cudaStream_t stream) {
+  using Kernel = void (*)(const float*, const float*, const float*, float*, int, int, int, int,
+                          int, int, int, int);
+  constexpr Kernel kernel = conv_mma_kernel<Tile>;
+  const cudaError_t e = allow_smem<kernel>(Tile::kSmemBytes);
+  if (e != cudaSuccess) return e;
+  const int pairs = len % 2 == 0 && reinterpret_cast<uintptr_t>(src) % 8 == 0;
+  kernel<<<p.grid, Tile::kThreads, Tile::kSmemBytes, stream>>>(
+      src, ws, bias, out, kdim, cols, len, (int)p.tiles.x, (int)p.tiles.y, (int)p.tiles.z,
+      relu ? 1 : 0, pairs);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_conv_wgmma(const ConvPlan& p, const float* src, const float* ws,
+                              const float* bias, float* out, int kdim, int cols, int len,
+                              bool relu, cudaStream_t stream) {
+  using F = cudaError_t (*)(const ConvPlan&, const float*, const float*, const float*, float*,
+                            int, int, int, bool, cudaStream_t);
+  const int bn = wg_tile_n(cols);
+  const F launch = bn == 8    ? &launch_wgmma_tile<WgChoice<8>::Tile>
+                   : bn == 16 ? &launch_wgmma_tile<WgChoice<16>::Tile>
+                   : bn == 32 ? &launch_wgmma_tile<WgChoice<32>::Tile>
+                   : bn == 64 ? &launch_wgmma_tile<WgChoice<64>::Tile>
+                              : &launch_wgmma_tile<WgChoice<128>::Tile>;
+  return launch(p, src, ws, bias, out, kdim, cols, len, relu, stream);
+}
+
+// The bf16 core.
+template <typename TB, typename TOUT, bool TRANSW, bool RELU>
+cudaError_t launch_conv_mma(dim3 grid, const TB* src, const __nv_bfloat16* w,
+                            const __nv_bfloat16* bias, TOUT* out, int kdim, int mdim, int len,
+                            cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  constexpr auto kPairs = &conv_mma_kernel<MmaTile, T, TB, TOUT, TRANSW, RELU, true>;
+  constexpr auto kSingle = &conv_mma_kernel<MmaTile, T, TB, TOUT, TRANSW, RELU, false>;
   const bool pairs = len % 2 == 0 &&
                      (!std::is_same<TB, float>::value ||
                       reinterpret_cast<uintptr_t>(src) % 8 == 0) &&
                      reinterpret_cast<uintptr_t>(out) % (2 * sizeof(TOUT)) == 0;
-  const cudaError_t e = pairs ? allow_smem<kPairs>(Tile::kSmemBytes)
-                              : allow_smem<kSingle>(Tile::kSmemBytes);
+  const cudaError_t e = pairs ? allow_smem<kPairs>(MmaTile::kSmemBytes)
+                              : allow_smem<kSingle>(MmaTile::kSmemBytes);
   if (e != cudaSuccess) return e;
   const auto kernel = pairs ? kPairs : kSingle;
-  kernel<<<grid, kThreads, Tile::kSmemBytes, stream>>>(src, w, bias, out, kdim, mdim, len);
+  kernel<<<grid, kThreads, MmaTile::kSmemBytes, stream>>>(src, w, bias, out, kdim, mdim, len);
   return cudaGetLastError();
 }
 
@@ -1298,8 +1762,6 @@ cudaError_t launch_conv_stream(dim3 grid, const T* x, const T* w, const T* bias,
   return cudaGetLastError();
 }
 
-// out = conv1d(x, w, padding=1) + b (relu'd with RELU, which only the
-// tensor-core path takes) on the plan's path, for the plan's samples.
 // dx below kConvStreamBelow output channels, with 8-byte (f32) or 4-byte
 // (bf16) stores where T and dx's alignment allow.
 template <typename T>
@@ -1314,11 +1776,32 @@ cudaError_t launch_dx_stream(dim3 grid, const float* dc, const T* w, T* dx, int 
   return cudaGetLastError();
 }
 
+// The weights of a pass's product, split for the warpgroup-MMA core into
+// ws where the plan (of all n samples) takes it: once a launch, for every
+// chunk of samples.
+template <typename T>
+cudaError_t prepare_weights(const ConvPlan& p, const T* w, float* ws, int kdim, int cols,
+                            bool transw, cudaStream_t stream) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (p.path == kPathWgmma) return launch_wsplit(w, ws, kdim, cols, transw, stream);
+  }
+  return cudaSuccess;
+}
+
+// out = conv1d(x, w, padding=1) + b (relu'd with RELU, which only the
+// tensor-core paths take) on the plan's path, for the plan's samples; ws:
+// the split weights (prepare_weights).
 template <typename T, typename TOUT, bool RELU>
-cudaError_t launch_layer_conv(const ConvPlan& p, const T* x, const T* w, const T* b, TOUT* out,
-                              int cin, int cout, int len, cudaStream_t stream) {
-  if (p.path == kPathMma)
-    return launch_conv_mma<T, T, TOUT, false, RELU>(p.grid, x, w, b, out, cin, cout, len, stream);
+cudaError_t launch_layer_conv(const ConvPlan& p, const T* x, const T* w, const float* ws,
+                              const T* b, TOUT* out, int cin, int cout, int len,
+                              cudaStream_t stream) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (p.path == kPathWgmma)
+      return launch_conv_wgmma(p, x, ws, b, out, cin, cout, len, RELU, stream);
+  } else {
+    if (p.path == kPathMma)
+      return launch_conv_mma<T, TOUT, false, RELU>(p.grid, x, w, b, out, cin, cout, len, stream);
+  }
   if constexpr (!RELU) {
     if (p.path == kPathStream)
       return launch_conv_stream<T, TOUT>(p.grid, x, w, b, out, cin, cout, len, stream);
@@ -1354,30 +1837,38 @@ cudaError_t launch_row_apply(const float* c, int ld, const float2* sums, T* y, i
   return cudaGetLastError();
 }
 
+template <typename T>
+constexpr bool kIsF32 = std::is_same<T, float>::value;
+
 // The layer's forward (K1f: the in_relu mode; K2f): y (n, cout, len) in
 // T; c is the f32 scratch (n, cout, len) where conv_plan asks for one,
-// else null.
+// else null; ws the split weights (wsplit_numel(cin, cout) floats) where
+// the plan takes the warpgroup-MMA core, else null.
 template <typename T, int MODE>
 cudaError_t launch_layer_fwd(const void* x, const void* w, const void* b, void* y, void* c,
-                             int n, int cin, int cout, int len, cudaStream_t stream) {
-  if (conv_plan(n, cin, cout, len, MODE, kPassFwd).scratch != (c != nullptr))
+                             void* ws, int n, int cin, int cout, int len, cudaStream_t stream) {
+  const ConvPlan whole = conv_plan(n, cin, cout, len, MODE, kPassFwd, kIsF32<T>);
+  if (whole.scratch != (c != nullptr) || (whole.path == kPathWgmma) != (ws != nullptr))
     return cudaErrorInvalidValue;
   const T* wp = static_cast<const T*>(w);
   const T* bp = static_cast<const T*>(b);
+  float* wsp = static_cast<float*>(ws);
+  const cudaError_t err = prepare_weights<T>(whole, wp, wsp, cin, cout, false, stream);
+  if (err != cudaSuccess) return err;
   return over_samples(n, [&](int n0, int nc) {
-    const ConvPlan p = conv_plan(nc, cin, cout, len, MODE, kPassFwd);
+    const ConvPlan p = conv_plan(nc, cin, cout, len, MODE, kPassFwd, kIsF32<T>);
     const T* xp = static_cast<const T*>(x) + (size_t)n0 * cin * len;
     T* yp = static_cast<T*>(y) + (size_t)n0 * cout * len;
     if constexpr (MODE == kLinear) {
-      return launch_layer_conv<T, T, false>(p, xp, wp, bp, yp, cin, cout, len, stream);
+      return launch_layer_conv<T, T, false>(p, xp, wp, wsp, bp, yp, cin, cout, len, stream);
     } else {
       if constexpr (MODE == kRelu) {
         if (!p.scratch)
-          return launch_layer_conv<T, T, true>(p, xp, wp, bp, yp, cin, cout, len, stream);
+          return launch_layer_conv<T, T, true>(p, xp, wp, wsp, bp, yp, cin, cout, len, stream);
       }
       float* cp = static_cast<float*>(c) + (size_t)n0 * cout * len;
       const cudaError_t err =
-          launch_layer_conv<T, float, false>(p, xp, wp, bp, cp, cin, cout, len, stream);
+          launch_layer_conv<T, float, false>(p, xp, wp, wsp, bp, cp, cin, cout, len, stream);
       if (err != cudaSuccess) return err;
       if (p.row_parts > 0) {
         float2* part = reinterpret_cast<float2*>(static_cast<float*>(c) +
@@ -1401,19 +1892,25 @@ cudaError_t launch_layer_fwd(const void* x, const void* w, const void* b, void* 
 // neighbours' edge columns; then each row's (s, q) over those len columns
 // into sums (n * cout float2), through part (n * cout * row_pieces(len)
 // float2): the one-launch path's row_part_kernel and row_sum_kernel, at
-// any len.
+// any len.  ws as for launch_layer_fwd, at len + 2 steps.
 int row_pieces(int len) { return (int)cdiv(len, kRowPiece); }
 
 template <typename T>
 cudaError_t launch_layer_part(const void* xh, const void* w, const void* b, void* c, void* part,
-                              void* sums, int n, int cin, int cout, int len,
+                              void* sums, void* ws, int n, int cin, int cout, int len,
                               cudaStream_t stream) {
   const int lh = len + 2, parts = row_pieces(len);
+  const ConvPlan whole = conv_plan(n, cin, cout, lh, kInRelu, kPassFwd, kIsF32<T>);
+  if ((whole.path == kPathWgmma) != (ws != nullptr)) return cudaErrorInvalidValue;
+  float* wsp = static_cast<float*>(ws);
+  const cudaError_t err =
+      prepare_weights<T>(whole, static_cast<const T*>(w), wsp, cin, cout, false, stream);
+  if (err != cudaSuccess) return err;
   return over_samples(n, [&](int n0, int nc) {
-    const ConvPlan p = conv_plan(nc, cin, cout, lh, kInRelu, kPassFwd);
+    const ConvPlan p = conv_plan(nc, cin, cout, lh, kInRelu, kPassFwd, kIsF32<T>);
     float* cp = static_cast<float*>(c) + (size_t)n0 * cout * lh;
     const cudaError_t err = launch_layer_conv<T, float, false>(
-        p, static_cast<const T*>(xh) + (size_t)n0 * cin * lh, static_cast<const T*>(w),
+        p, static_cast<const T*>(xh) + (size_t)n0 * cin * lh, static_cast<const T*>(w), wsp,
         static_cast<const T*>(b), cp, cin, cout, lh, stream);
     if (err != cudaSuccess) return err;
     return launch_row_sums(cp + 1, lh, static_cast<float2*>(part) + (size_t)n0 * cout * parts,
@@ -1443,26 +1940,36 @@ cudaError_t launch_layer_apply(const void* c, const void* sums, void* y, int n, 
 // (c recomputed there, then the row pass over it; dy itself in the f32
 // linear mode), then dx (n, cin, len) in T unless dx is null, then dw
 // (cout, cin, 3) and db (cout,) in f32 unless dw is null, through the f32
-// scratch part (launch_dw).
+// scratch part (launch_dw).  ws: the split weights of the recompute and of
+// dx in turn (the larger of wsplit_numel(cin, cout) and wsplit_numel(cout,
+// cin) floats) where either takes the warpgroup-MMA core, else null.
 template <typename T, int MODE>
 cudaError_t launch_layer_bwd(const void* x, const void* w, const void* b, const void* dy,
-                             void* dx, void* dw, void* db, void* dc, void* part, int n,
-                             int cin, int cout, int len, int nsplit, cudaStream_t stream) {
+                             void* dx, void* dw, void* db, void* dc, void* part, void* ws,
+                             int n, int cin, int cout, int len, int nsplit,
+                             cudaStream_t stream) {
   const T* xp = static_cast<const T*>(x);
   const T* wp = static_cast<const T*>(w);
+  float* wsp = static_cast<float*>(ws);
   const float* dcp = static_cast<const float*>(dc);
+  const ConvPlan dc_whole = conv_plan(n, cin, cout, len, MODE, kPassDc, kIsF32<T>);
+  const ConvPlan dx_whole = conv_plan(n, cin, cout, len, MODE, kPassDx, kIsF32<T>);
+  const bool split = dc_whole.path == kPathWgmma || (dx != nullptr && dx_whole.path == kPathWgmma);
+  if (split != (ws != nullptr)) return cudaErrorInvalidValue;
   cudaError_t err;
   if constexpr (MODE == kLinear) {
     dcp = dc_linear<T>(dy, dc, n, cout, len, stream);
     err = cudaGetLastError();
   } else {
+    err = prepare_weights<T>(dc_whole, wp, wsp, cin, cout, false, stream);
+    if (err != cudaSuccess) return err;
     err = over_samples(n, [&](int n0, int nc) {
-      const ConvPlan p = conv_plan(nc, cin, cout, len, MODE, kPassDc);
+      const ConvPlan p = conv_plan(nc, cin, cout, len, MODE, kPassDc, kIsF32<T>);
       const size_t off = (size_t)n0 * cout * len;
       float* dcw = static_cast<float*>(dc) + off;
       const cudaError_t e = launch_layer_conv<T, float, false>(
-          p, xp + (size_t)n0 * cin * len, wp, static_cast<const T*>(b), dcw, cin, cout, len,
-          stream);
+          p, xp + (size_t)n0 * cin * len, wp, wsp, static_cast<const T*>(b), dcw, cin, cout,
+          len, stream);
       if (e != cudaSuccess) return e;
       constexpr int kRow = MODE == kInRelu ? kRowInReluDc : kRowReluDc;
       return launch_row<T, kRow>(p.row_blocks, dcw, static_cast<const T*>(dy) + off, nullptr,
@@ -1472,14 +1979,19 @@ cudaError_t launch_layer_bwd(const void* x, const void* w, const void* b, const 
   if (err != cudaSuccess) return err;
   if (dx != nullptr) {
     // a conv from cout channels (dc) to cin channels (dx), w read transposed
+    err = prepare_weights<T>(dx_whole, wp, wsp, cout, cin, true, stream);
+    if (err != cudaSuccess) return err;
     err = over_samples(n, [&](int n0, int nc) {
-      const ConvPlan p = conv_plan(nc, cin, cout, len, MODE, kPassDx);
+      const ConvPlan p = conv_plan(nc, cin, cout, len, MODE, kPassDx, kIsF32<T>);
       const float* dcn = dcp + (size_t)n0 * cout * len;
       T* dxn = static_cast<T*>(dx) + (size_t)n0 * cin * len;
       if (p.path == kPathStream)
         return launch_dx_stream<T>(p.grid, dcn, wp, dxn, cin, cout, len, stream);
-      return launch_conv_mma<T, float, T, true, false>(p.grid, dcn, wp, nullptr, dxn, cout, cin,
-                                                       len, stream);
+      if constexpr (kIsF32<T>)
+        return launch_conv_wgmma(p, dcn, wsp, nullptr, dxn, cout, cin, len, false, stream);
+      else
+        return launch_conv_mma<float, T, true, false>(p.grid, dcn, wp, nullptr, dxn, cout, cin,
+                                                      len, stream);
     });
     if (err != cudaSuccess) return err;
   }

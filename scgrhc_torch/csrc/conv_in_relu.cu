@@ -13,13 +13,16 @@
 // sample in the forward on (C_in + O)*T elements of traffic (the
 // bottleneck layer: 1.17 GFLOP against 3 MB per window), far above the
 // H100's ridge point; the backward does three times that (recompute, dx,
-// dw).  Every product runs on the tensor cores (mma.sync: 3xTF32 for f32,
-// which keeps f32's accuracy, or bf16): the conv and dx on the conv core,
-// dw on the dw stage (conv3.cuh, above conv_mma_kernel and dw_mma_kernel).
+// dw).  Every product runs on the tensor cores (3xTF32 for f32, which
+// keeps f32's accuracy, or bf16): the conv and dx on the conv core (f32 on
+// Hopper's warpgroup MMA, bf16 on mma.sync), dw on the dw stage
+// (mma.sync; conv3.cuh, above conv_mma_kernel and dw_mma_kernel).
 //
 // Design: the TPU kernel held a whole (C_in, T) sample in VMEM; a 512 x 750
 // f32 sample is 1.5 MB, far over a block's shared memory.  Here the core
-// tiles (O, T) 64 x 128 and writes c to an f32 scratch (N, O, T) that the
+// tiles (T, O) (f32: 128 steps x up to 128 channels on Hopper's warpgroup
+// MMA, with the weights split once a launch into a scratch the wrapper
+// allocates) and writes c to an f32 scratch (N, O, T) that the
 // wrapper allocates (780 MB at N = 512, O = 512, T = 744); row_kernel, a
 // warp per (n, o) row, takes the instance norm's statistics over T in a
 // fixed order and writes y.  Rows past 8192 steps (the continuous mode's
@@ -57,16 +60,20 @@ using namespace scgrhc;
 // contiguous and of one dtype: 0 = float32, 1 = bfloat16; c an f32
 // scratch of n*cout*len, with 2*n*cout*(row_parts + 1) more from the next
 // even element where the plan cuts rows into pieces (conv3.py's conv_plan,
-// in_relu, pass 0; scratch_numel).  Returns
-// the launch's cudaError_t (0 on success); it does not synchronise.
+// in_relu, pass 0; scratch_numel); ws an f32 scratch of
+// wsplit_numel(cin, cout) for the f32 core's split weights where the plan
+// takes it (conv3.py: wsplit_numel), else null.  Returns the launch's
+// cudaError_t (0 on success); it does not synchronise.
 extern "C" int scgrhc_conv_in_relu(const void* x, const void* w, const void* b, void* y,
-                                   void* c, int n, int cin, int cout, int len, int dtype,
-                                   void* stream) {
+                                   void* c, void* ws, int n, int cin, int cout, int len,
+                                   int dtype, void* stream) {
   if (!shape_ok(n, cin, cout, len, false)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_layer_fwd<float, kInRelu>(x, w, b, y, c, n, cin, cout, len, s);
+  if (dtype == 0)
+    return (int)launch_layer_fwd<float, kInRelu>(x, w, b, y, c, ws, n, cin, cout, len, s);
   if (dtype == 1)
-    return (int)launch_layer_fwd<__nv_bfloat16, kInRelu>(x, w, b, y, c, n, cin, cout, len, s);
+    return (int)launch_layer_fwd<__nv_bfloat16, kInRelu>(x, w, b, y, c, ws, n, cin, cout, len,
+                                                         s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -74,36 +81,41 @@ extern "C" int scgrhc_conv_in_relu(const void* x, const void* w, const void* b, 
 // (n, cout, len): dx (n, cin, len) in the dtype, or skipped when dx is
 // null; dw (cout, cin, 3) and db (cout,) in float32.  dc is an f32
 // scratch of n*cout*len, part one of nsplit*cout*(3*cin + (cout < 16))
-// (1 <= nsplit <= n; conv3.py's dw_plan).
+// (1 <= nsplit <= n; conv3.py's dw_plan), ws one for the split weights of
+// the f32 core's passes, or null where none takes it (conv3.py:
+// bwd_wsplit_numel).
 extern "C" int scgrhc_conv_in_relu_bwd(const void* x, const void* w, const void* b,
                                        const void* dy, void* dx, void* dw, void* db,
-                                       void* dc, void* part, int n, int cin, int cout,
+                                       void* dc, void* part, void* ws, int n, int cin, int cout,
                                        int len, int nsplit, int dtype, void* stream) {
   if (!shape_ok(n, cin, cout, len, true) || nsplit < 1 || nsplit > n || dw == nullptr ||
       db == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch_layer_bwd<float, kInRelu>(x, w, b, dy, dx, dw, db, dc, part, n, cin,
+    return (int)launch_layer_bwd<float, kInRelu>(x, w, b, dy, dx, dw, db, dc, part, ws, n, cin,
                                                  cout, len, nsplit, s);
   if (dtype == 1)
-    return (int)launch_layer_bwd<__nv_bfloat16, kInRelu>(x, w, b, dy, dx, dw, db, dc, part, n,
-                                                         cin, cout, len, nsplit, s);
+    return (int)launch_layer_bwd<__nv_bfloat16, kInRelu>(x, w, b, dy, dx, dw, db, dc, part, ws,
+                                                         n, cin, cout, len, nsplit, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // The time-sharded forward's first phase: x (n, cin, len + 2) the block
 // with its halo columns, c an f32 scratch of n*cout*(len + 2), part one of
 // n*cout*ceil(len / 8192) float2, sums (n*cout) float2 out: each row's
-// (sum, sum of squares) of c over the block's len steps.
+// (sum, sum of squares) of c over the block's len steps; ws as for
+// scgrhc_conv_in_relu.
 extern "C" int scgrhc_conv_in_relu_part(const void* x, const void* w, const void* b, void* c,
-                                        void* part, void* sums, int n, int cin, int cout,
-                                        int len, int dtype, void* stream) {
+                                        void* part, void* sums, void* ws, int n, int cin,
+                                        int cout, int len, int dtype, void* stream) {
   if (!shape_ok(n, cin, cout, len + 2, false) || len < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_layer_part<float>(x, w, b, c, part, sums, n, cin, cout, len, s);
+  if (dtype == 0)
+    return (int)launch_layer_part<float>(x, w, b, c, part, sums, ws, n, cin, cout, len, s);
   if (dtype == 1)
-    return (int)launch_layer_part<__nv_bfloat16>(x, w, b, c, part, sums, n, cin, cout, len, s);
+    return (int)launch_layer_part<__nv_bfloat16>(x, w, b, c, part, sums, ws, n, cin, cout, len,
+                                                 s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -21,7 +21,8 @@ second-order gradient can differentiate it.
 
 Both layers run one set of kernels: the conv passes (forward, the dc
 pass's recompute of c, dx) follow :func:`conv_plan`, the dw stage
-:func:`dw_plan`.  The kernels take any non-empty shape, but for one limit
+:func:`dw_plan`.  :data:`path_launches` counts the conv kernels' launches
+by path.  The kernels take any non-empty shape, but for one limit
 that :func:`check_inputs` states: below 16 output channels, dw holds one
 sample's dc in a block's shared memory (:func:`dw_stream_max_len`).
 """
@@ -55,19 +56,25 @@ DW_BLOCKS, DW_STREAM_BLOCKS = 264, 528
 
 
 # The conv passes of both layers (csrc/conv3.cuh: conv_plan).  The forward
-# and the dc pass's recompute run the tensor-core product over tiles of
-# CONV_TILE_M output channels x CONV_TILE_N steps of one sample; below
-# CONV_STREAM_BELOW output channels (the 512 -> 1 score layer) the forward
-# streams over x, a block per CONV_STREAM_STEPS steps of one sample.  The
-# instance norm, a relu the stream kernel cannot apply and the dc formulas
-# go to a row pass, a warp per (n, o) row, ROW_WARPS rows a block.  dx is
-# the product over dc (M = C_in, K = 3 O) or, below CONV_STREAM_BELOW
-# output channels, a stream over dc, a block per CONV_STREAM_STEPS steps
-# of one sample.  The plan is for n samples; the launchers take it for
-# each chunk of at most 65535 samples (a grid axis's extent).
+# and the dc pass's recompute run the tensor-core product; dx is the
+# product over dc with K = 3 O, whose columns are the input channels.  In
+# f32 ("wgmma") the product runs over tiles of wg_tile_m(columns) steps x
+# wg_tile_n(columns) columns of one sample, which a persistent grid of at
+# most WG_BLOCKS blocks (an H100's SMs) walks, from weights split into a
+# scratch once a launch (wsplit_numel); in bf16 ("mma") over tiles of
+# MMA_TILE_M columns x MMA_TILE_N steps, a block each.  Below
+# CONV_STREAM_BELOW output channels (the 512 -> 1 score layer) the
+# forward streams over x and dx over dc ("stream"), a block per
+# CONV_STREAM_STEPS steps of one sample.  The instance norm, a relu the
+# stream kernel cannot apply and the dc formulas go to a row pass, a warp
+# per (n, o) row, ROW_WARPS rows a block.  The plan is for n samples; the
+# launchers take it for each chunk of at most SAMPLE_CHUNK samples (a grid
+# axis's extent).
 CONV_STREAM_BELOW = 16
-CONV_TILE_M, CONV_TILE_N, CONV_STREAM_STEPS = 64, 128, 64
+WG_TILE_C, WG_BLOCKS = 8, 132
+MMA_TILE_M, MMA_TILE_N, CONV_STREAM_STEPS = 64, 128, 64
 ROW_WARPS = 8
+SAMPLE_CHUNK = 65535
 # The in_relu forward's rows longer than ROW_PIECE steps (the continuous
 # mode's whole record) take the row pass in pieces of ROW_PIECE steps, a
 # block each, whose (sum, sum of squares) go to the scratch after c and
@@ -75,7 +82,7 @@ ROW_WARPS = 8
 # pieces a row.
 ROW_PIECE = 8192
 PASSES = ("fwd", "dc", "dx")
-PATHS = ("none", "mma", "stream")
+PATHS = ("none", "mma", "stream", "wgmma")
 
 # dw's stream (O < DW_STREAM_BELOW) holds one sample's dc, O x (T + 2)
 # f32, in one block's shared memory: the 232,448 bytes a block may take on
@@ -91,33 +98,85 @@ class ConvPlan:
     row_blocks: int  # blocks of the row pass after it (a warp a row), 0 for none
     scratch: tuple[int, int, int] | None  # the forward's f32 c, allocated by the wrapper
     row_parts: int = 0  # pieces a row where the row pass runs in pieces, else 0
+    # the "wgmma" path's (step tiles, column tiles, samples), which its
+    # persistent grid walks; None elsewhere (a block a tile)
+    tiles: tuple[int, int, int] | None = None
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def conv_plan(n: int, cin: int, cout: int, t: int, mode: str, pass_: str = "fwd") -> ConvPlan:
-    """The launch plan of one conv pass of the layer for x (n, cin, t) and
-    cout output channels, as the C launchers take it."""
-    if pass_ not in PASSES or mode not in MODES:
-        raise ValueError(f"conv_plan: pass {pass_!r}, mode {mode!r}")
-    if pass_ == "dx":
-        if cout < CONV_STREAM_BELOW:
-            return ConvPlan("stream", (_cdiv(t, CONV_STREAM_STEPS), n, 1), 0, None)
-        return ConvPlan("mma", (_cdiv(t, CONV_TILE_N), _cdiv(cin, CONV_TILE_M), n), 0, None)
+def wg_tile_n(cols: int) -> int:
+    """The f32 core's tile width for a product of ``cols`` columns: the
+    least of 8, 16, 32, 64 and 128 that holds them, else 128."""
+    return next((bn for bn in (8, 16, 32, 64) if cols <= bn), 128)
+
+
+def wg_tile_m(cols: int) -> int:
+    """The f32 core's steps a tile for a product of ``cols`` columns: 256
+    (two m64 tiles a consumer warpgroup) at tile widths of 16 and less,
+    else 128."""
+    return 256 if wg_tile_n(cols) <= 16 else 128
+
+
+def wsplit_numel(kdim: int, cols: int) -> int:
+    """The f32 elements of the split weights the f32 core reads for a
+    product of ``cols`` columns over ``kdim`` source channels: a big and a
+    small plane of 3 taps for each tile of columns and each WG_TILE_C
+    source channels (csrc/conv3.cuh: wsplit_numel)."""
+    bn = wg_tile_n(cols)
+    return _cdiv(cols, bn) * _cdiv(kdim, WG_TILE_C) * 2 * 3 * bn * WG_TILE_C
+
+
+def conv_plan(n: int, cin: int, cout: int, t: int, mode: str, pass_: str = "fwd",
+              dtype=torch.float32) -> ConvPlan:
+    """The launch plan of one conv pass of the layer for x (n, cin, t) in
+    ``dtype`` and cout output channels, as the C launchers take it."""
+    if pass_ not in PASSES or mode not in MODES or dtype not in DTYPE_CODE:
+        raise ValueError(f"conv_plan: pass {pass_!r}, mode {mode!r}, dtype {dtype}")
     if pass_ == "dc" and mode == "linear":
         return ConvPlan("none", (0, 0, 0), 0, None)
+    cols = cin if pass_ == "dx" else cout
     stream = cout < CONV_STREAM_BELOW
+    tiles = None
     if stream:
         path, grid = "stream", (_cdiv(t, CONV_STREAM_STEPS), n, 1)
+    elif dtype == torch.float32:
+        path = "wgmma"
+        tiles = (_cdiv(t, wg_tile_m(cols)), _cdiv(cols, wg_tile_n(cols)), n)
+        grid = (min(tiles[0] * tiles[1] * tiles[2], WG_BLOCKS), 1, 1)
     else:
-        path, grid = "mma", (_cdiv(t, CONV_TILE_N), _cdiv(cout, CONV_TILE_M), n)
+        path, grid = "mma", (_cdiv(t, MMA_TILE_N), _cdiv(cols, MMA_TILE_M), n)
+    if pass_ == "dx":
+        return ConvPlan(path, grid, 0, None, tiles=tiles)
     row = mode == "in_relu" or (mode == "relu" and (stream or pass_ == "dc"))
     pieces = pass_ == "fwd" and mode == "in_relu" and t > ROW_PIECE
     rows = _cdiv(n * cout, ROW_WARPS) if row and not pieces else 0
     return ConvPlan(path, grid, rows, (n, cout, t) if pass_ == "fwd" and row else None,
-                    _cdiv(t, ROW_PIECE) if pieces else 0)
+                    _cdiv(t, ROW_PIECE) if pieces else 0, tiles)
+
+
+def bwd_wsplit_numel(n: int, cin: int, cout: int, t: int, mode: str, need_dx: bool,
+                     dtype=torch.float32) -> int:
+    """The f32 elements of the backward's split-weight scratch: the larger
+    of what the dc pass's recompute and dx read on the f32 core (one
+    scratch, in turn), 0 where neither runs there."""
+    dc = conv_plan(n, cin, cout, t, mode, "dc", dtype).path == "wgmma"
+    dx = need_dx and conv_plan(n, cin, cout, t, mode, "dx", dtype).path == "wgmma"
+    return max(wsplit_numel(cin, cout) if dc else 0, wsplit_numel(cout, cin) if dx else 0)
+
+
+# The conv kernels' launches by path (PATHS but "none"), one a pass and
+# chunk of samples, as the wrappers make them: a run can show that every
+# f32 conv of the training step went through the warpgroup-MMA core.
+path_launches = {"wgmma": 0, "mma": 0, "stream": 0}
+
+
+def count_launches(plan: ConvPlan, n: int) -> None:
+    """Add a pass's conv-kernel launches for n samples to :data:`path_launches`."""
+    if plan.path != "none":
+        path_launches[plan.path] += _cdiv(n, SAMPLE_CHUNK)
 
 
 def scratch_numel(plan: ConvPlan) -> int:
@@ -129,14 +188,18 @@ def scratch_numel(plan: ConvPlan) -> int:
     return c + c % 2 + 2 * n * cout * (plan.row_parts + 1) if plan.row_parts else c
 
 
-def c_plan(n: int, cin: int, cout: int, t: int, mode: str, pass_: str = "fwd") -> ConvPlan:
-    """The C launchers' own plan (``scgrhc_critic_plan``), for holding
-    :func:`conv_plan` to it."""
-    out = (ctypes.c_int * 7)()
+def c_plan(n: int, cin: int, cout: int, t: int, mode: str, pass_: str = "fwd",
+           dtype=torch.float32) -> tuple[ConvPlan, int, int]:
+    """The C launchers' own plan (``scgrhc_critic_plan``) and split-weight
+    sizes (of the forward's product and of dx's), for holding
+    :func:`conv_plan` and :func:`wsplit_numel` to them."""
+    out = (ctypes.c_int * 12)()
     _build.library().scgrhc_critic_plan(n, cin, cout, t, MODE_CODE[mode], PASSES.index(pass_),
-                                        out)
-    path, gx, gy, gz, rows, scratch, parts = out
-    return ConvPlan(PATHS[path], (gx, gy, gz), rows, (n, cout, t) if scratch else None, parts)
+                                        DTYPE_CODE[dtype], out)
+    path, gx, gy, gz, rows, scratch, parts, tx, ty, tz, ws_fwd, ws_dx = out
+    plan = ConvPlan(PATHS[path], (gx, gy, gz), rows, (n, cout, t) if scratch else None, parts,
+                    (tx, ty, tz) if PATHS[path] == "wgmma" else None)
+    return plan, ws_fwd, ws_dx
 
 
 @dataclass(frozen=True)
@@ -275,32 +338,36 @@ def _stream(x) -> int:
 def launch_fwd(entry: str, what: str, x, w, b, mode: str, mode_arg: bool = True):
     """The forward kernel ``entry`` on CUDA tensors → y (N, O, T) in x's
     dtype, with the f32 scratch that :func:`conv_plan` asks for
-    (:func:`scratch_numel`; or null).  ``mode_arg`` False: the entry point
+    (:func:`scratch_numel`; or null) and the split weights where it takes
+    the f32 core (:func:`wsplit_numel`; or null).  ``mode_arg`` False: the entry point
     takes no mode (the generator's, which is in_relu only)."""
     check_inputs(what, x, w, b)
     n, cin, t = x.shape
     o = w.shape[0]
     y = torch.empty((n, o, t), dtype=x.dtype, device=x.device)
-    plan = conv_plan(n, cin, o, t, mode)
-    c = (None if plan.scratch is None
-         else torch.empty(scratch_numel(plan), dtype=torch.float32, device=x.device))
+    plan = conv_plan(n, cin, o, t, mode, "fwd", x.dtype)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    c = None if plan.scratch is None else torch.empty(scratch_numel(plan), **f32)
+    ws = torch.empty(wsplit_numel(cin, o), **f32) if plan.path == "wgmma" else None
     extra = (MODE_CODE[mode],) if mode_arg else ()
     with torch.cuda.device(x.device):
         err = getattr(_build.library(), entry)(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-            None if c is None else c.data_ptr(), n, cin, o, t, *extra, DTYPE_CODE[x.dtype],
-            _stream(x),
+            *(None if v is None else v.data_ptr() for v in (c, ws)), n, cin, o, t, *extra,
+            DTYPE_CODE[x.dtype], _stream(x),
         )
     _build.check(err, what)
+    count_launches(plan, n)
     return y
 
 
 def launch_bwd(entry: str, what: str, x, w, b, dy, mode: str, need_dx: bool, need_dw: bool,
                mode_arg: bool = True):
     """The backward kernel ``entry`` on CUDA tensors → ``(dx, dw, db)`` as
-    :func:`layer_bwd_plain` gives them.  The f32 scratch for dc (N, O, T)
-    and for dw's per-split partial sums (:func:`dw_plan`) is allocated
-    here.  ``mode_arg`` as for :func:`launch_fwd`."""
+    :func:`layer_bwd_plain` gives them.  The f32 scratch for dc (N, O, T),
+    for dw's per-split partial sums (:func:`dw_plan`) and for the split
+    weights (:func:`bwd_wsplit_numel`) is allocated here.  ``mode_arg`` as
+    for :func:`launch_fwd`."""
     check_inputs(what, x, w, b, dy, need_dw)
     n, cin, t = x.shape
     o = w.shape[0]
@@ -313,13 +380,19 @@ def launch_bwd(entry: str, what: str, x, w, b, dy, mode: str, need_dx: bool, nee
         dw = torch.empty((o, cin, 3), **f32)
         db = torch.empty((o,), **f32)
         part = torch.empty(plan.part_shape, **f32)
+    ws_numel = bwd_wsplit_numel(n, cin, o, t, mode, need_dx, x.dtype)
+    ws = torch.empty(ws_numel, **f32) if ws_numel else None
     extra = (MODE_CODE[mode],) if mode_arg else ()
-    ptrs = [None if v is None else v.data_ptr() for v in (x, w, b, dy, dx, dw, db, dc, part)]
+    ptrs = [None if v is None else v.data_ptr()
+            for v in (x, w, b, dy, dx, dw, db, dc, part, ws)]
     with torch.cuda.device(x.device):
         err = getattr(_build.library(), entry)(
             *ptrs, n, cin, o, t, *extra, plan.nsplit, DTYPE_CODE[x.dtype], _stream(x)
         )
     _build.check(err, what)
+    count_launches(conv_plan(n, cin, o, t, mode, "dc", x.dtype), n)
+    if need_dx:
+        count_launches(conv_plan(n, cin, o, t, mode, "dx", x.dtype), n)
     return dx, dw, db
 
 

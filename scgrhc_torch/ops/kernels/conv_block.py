@@ -6,8 +6,9 @@ Replaces the TPU kernel ``scgrhc/ops/pallas/conv_block.py::conv_in_relu``:
 K1f its ``_fwd_kernel``, K1b its ``_bwd_kernel`` (the custom_vjp's
 ``_cir_bwd``).  The CUDA source is ``scgrhc_torch/csrc/conv_in_relu.cu``
 over ``conv3.cuh``: the critic's layer kernels in the ``in_relu`` mode,
-the conv on the tensor-core core, c through an f32 scratch (N, O, T) and
-a row pass for the instance norm.  Its header says what bounds both on
+the conv on the tensor-core core (f32 on Hopper's warpgroup MMA, from
+weights split into a scratch once a launch), c through an f32 scratch
+(N, O, T) and a row pass for the instance norm.  Its header says what bounds both on
 the H100 (operations, on the tensor cores) and why c may round-trip
 through device memory.  The plain versions are :mod:`.conv3`'s in the
 ``in_relu`` mode; the wrappers take them on the CPU only.
@@ -110,11 +111,15 @@ def conv_in_relu_part(xh, w, b):
     c = torch.empty((n, o, lh), **f32)
     part = torch.empty((n * o * -(-length // conv3.ROW_PIECE), 2), **f32)
     sums = torch.empty((n * o, 2), **f32)
+    plan = conv3.conv_plan(n, cin, o, lh, "in_relu", "fwd", xh.dtype)
+    ws = torch.empty(conv3.wsplit_numel(cin, o), **f32) if plan.path == "wgmma" else None
     with torch.cuda.device(xh.device):
         err = _build.library().scgrhc_conv_in_relu_part(
             xh.data_ptr(), w.data_ptr(), b.data_ptr(), c.data_ptr(), part.data_ptr(),
-            sums.data_ptr(), n, cin, o, length, conv3.DTYPE_CODE[xh.dtype], conv3._stream(xh))
+            sums.data_ptr(), None if ws is None else ws.data_ptr(), n, cin, o, length,
+            conv3.DTYPE_CODE[xh.dtype], conv3._stream(xh))
     _build.check(err, "conv_in_relu_part")
+    conv3.count_launches(plan, n)
     conv_in_relu_part.launches += 1
     return c, sums
 

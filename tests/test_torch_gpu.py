@@ -98,19 +98,36 @@ def _windows(n, c, t, nan_window, seed=0):
     return w
 
 
+# (C_in, O, T) of the generator's 14 layers at T = 750, 11 distinct
+# (models/generator.py), run at training's N = 64
+GENERATOR_SHAPES = [(4, 64, 750), (64, 64, 750), (64, 128, 748), (128, 128, 748),
+                    (128, 256, 746), (256, 256, 746), (256, 512, 744), (512, 512, 744),
+                    (512, 256, 746), (256, 128, 748), (128, 64, 750)]
+
+
 @pytest.mark.parametrize(
-    "ci,o,t", [(4, 64, 750), (2, 64, 96), (64, 128, 748), (512, 512, 744),
-               (256, 128, 747), (100, 24, 1024), (7, 5, 1), (4, 8, 750)]
+    "n,ci,o,t", [(3, 4, 64, 750), (3, 2, 64, 96), (3, 64, 128, 748), (3, 512, 512, 744),
+                 (3, 256, 128, 747), (3, 100, 24, 1024), (3, 7, 5, 1), (3, 4, 8, 750),
+                 (3, 1, 17, 129), (3, 3, 40, 1500), (1, 12, 20, 65_600)]
+    + [(64, ci, o, t) for ci, o, t in GENERATOR_SHAPES]
 )
-def test_conv_in_relu_kernel_f32(cuda, ci, o, t):
-    """K1f against its plain version; O = 8 is enc1's shard at tensor
+def test_conv_in_relu_kernel_f32(cuda, n, ci, o, t):
+    """K1f against its plain version, at the generator's layers at N = 64
+    and at ragged shapes (C_in = 1, 3; O and C_in off multiples of 8; T =
+    1, 129, 1500 and past 65,536); O = 8 is enc1's shard at tensor
     parallelism 8 (``parallel.tp``), below the conv core's 16 rows: the
-    streaming conv then the row pass."""
-    x, w, b = (torch.from_numpy(a).to(cuda) for a in _conv_inputs(3, ci, o, t))
-    before = k1f.conv_in_relu.launches
+    streaming conv then the row pass.  Every f32 conv from 16 output
+    channels takes the warpgroup-MMA core (``conv3.path_launches``)."""
+    from scgrhc_torch.ops.kernels import conv3
+
+    x, w, b = (torch.from_numpy(a).to(cuda) for a in _conv_inputs(n, ci, o, t))
+    before, paths = k1f.conv_in_relu.launches, dict(conv3.path_launches)
     got = k1f.conv_in_relu(x, w, b)
     torch.cuda.synchronize()
     assert k1f.conv_in_relu.launches == before + 1
+    core = "wgmma" if o >= 16 else "stream"
+    assert {k: conv3.path_launches[k] - v for k, v in paths.items()} == {
+        p: int(p == core) for p in paths}
     want = k1f.conv_in_relu_plain(x, w, b)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
 
@@ -341,15 +358,19 @@ def _bwd_inputs(cuda, n, ci, o, t, seed=0, dtype=torch.float32):
 
 
 @pytest.mark.parametrize(
-    "ci,o,t,need_dx", [(4, 64, 750, False), (64, 128, 748, True), (512, 512, 744, True),
-                       (256, 128, 747, True), (7, 5, 1, True), (100, 24, 1024, True)]
+    "n,ci,o,t,need_dx", [(3, 4, 64, 750, False), (3, 64, 128, 748, True),
+                         (3, 512, 512, 744, True), (3, 256, 128, 747, True), (3, 7, 5, 1, True),
+                         (3, 100, 24, 1024, True), (3, 1, 17, 129, True), (3, 3, 40, 7, True),
+                         (2, 12, 20, 65_600, True)]
+    + [(64, ci, o, t, ci != 4) for ci, o, t in GENERATOR_SHAPES]
 )
-def test_conv_in_relu_bwd_kernel_f32(cuda, ci, o, t, need_dx):
+def test_conv_in_relu_bwd_kernel_f32(cuda, n, ci, o, t, need_dx):
     """K1b against the plain backward in float64 on K1f's relu masks (the
     kernels' own: K1b recomputes c on the same tensor-core core, which sums
     in another order than cuDNN), and those masks against the plain
-    version's within MASK_FLIP_SHARE."""
-    x, w, b, dy = _bwd_inputs(cuda, 3, ci, o, t)
+    version's within MASK_FLIP_SHARE: at the generator's layers at N = 64
+    (dx but at the first, whose input needs none) and at ragged shapes."""
+    x, w, b, dy = _bwd_inputs(cuda, n, ci, o, t)
     before = k1f.conv_in_relu_bwd.launches
     got = k1f.conv_in_relu_bwd(x, w, b, dy, need_dx)
     torch.cuda.synchronize()
@@ -634,13 +655,18 @@ def test_dw_bf16_at_widest_critic_layer(cuda):
 
 
 # The critic's conv passes (K2f, K2dx): (N, C_in, O, T).  The five critic
-# layers; a tiny case for the fragment layouts (one 16-row tile, one
-# channel slice, one step tile); ragged O (24: a part of a 64-row tile),
-# C_in (3, 5: a part of a 16-channel slice), T (1, 7, 1023, 1024: ragged
-# and odd step tiles) and N (1, 33); and the streaming forward with O = 3, 5.
+# layers, and the first at waveform_06's 4 channels (a 4-column dx); a tiny
+# case for the fragment layouts (one tile, one channel stage, one step
+# tile); ragged O (17, 20, 24, 129: parts of a column tile), C_in (1, 3, 5,
+# 7: parts of an 8-channel stage) and T (1, 7, 129, 1023, 1024, 1500 and
+# past 65,536: ragged and odd step tiles) and N (1, 33, and 64 over
+# more tiles than the persistent grid has blocks); and the streaming
+# forward with O = 3, 5.
 CONV_SHAPES = [(4, 5, 64, 750), (4, 64, 128, 750), (4, 128, 256, 750), (4, 256, 512, 750),
                (4, 512, 1, 750), (1, 8, 16, 8), (1, 3, 24, 1), (33, 5, 24, 7),
-               (1, 3, 24, 1023), (33, 5, 24, 1024), (33, 24, 5, 7), (1, 24, 3, 1023)]
+               (1, 3, 24, 1023), (33, 5, 24, 1024), (33, 24, 5, 7), (1, 24, 3, 1023),
+               (4, 4, 64, 750), (2, 1, 16, 129), (2, 7, 17, 1500), (2, 70, 129, 129),
+               (1, 16, 20, 65_600), (64, 64, 64, 750)]
 
 
 # The share of relu masks (c > 0, or x̂ > 0) on which the kernels and the
@@ -700,14 +726,23 @@ def test_critic_conv_core(cuda, n, ci, o, t, mode, dtype):
     channels): y against the plain version, its relu masks against the
     plain version's, dx against the plain backward in float64 on those
     masks, and a repeat launch equal bit for bit."""
+    from scgrhc_torch.ops.kernels import conv3
+
     x, w, b, dy = _bwd_inputs(cuda, n, ci, o, t, seed=o + t, dtype=dtype)
     f = [v.float() for v in (x, w, b, dy)]
     counts = (k2.critic_layer.launches, k2.critic_layer_bwd_dx.launches)
+    paths = dict(conv3.path_launches)
     y = k2.critic_layer(x, w, b, mode)
     dx = k2.critic_layer_bwd_dx(x, w, b, dy, mode)
     torch.cuda.synchronize()
     assert (k2.critic_layer.launches, k2.critic_layer_bwd_dx.launches) == (
         counts[0] + 1, counts[1] + 1)
+    # the forward, the dc pass's recompute (but in the linear mode) and dx:
+    # on the f32 core in f32, mma.sync in bf16, streams below 16 channels
+    core = "stream" if o < 16 else "wgmma" if dtype == torch.float32 else "mma"
+    passes = 3 if mode != "linear" else 2
+    assert {k: conv3.path_launches[k] - v for k, v in paths.items()} == {
+        p: passes * int(p == core) for p in paths}
     assert y.dtype == dtype and y.shape == (n, o, t) and dx.dtype == dtype and dx.shape == x.shape
     fwd_tol, bwd_tol = (FWD_TOL, BWD_TOL) if dtype == torch.float32 else (BF16_TOL, BF16_TOL)
     want = k2.critic_layer_plain(*f[:3], mode)
@@ -721,7 +756,7 @@ def test_critic_conv_core(cuda, n, ci, o, t, mode, dtype):
 
 
 @pytest.mark.parametrize("mode", k2.MODES)
-@pytest.mark.parametrize("ci,o", [(64, 128), (512, 1)])
+@pytest.mark.parametrize("ci,o", [(64, 128), (512, 1), (4, 64), (256, 512)])
 def test_critic_conv_core_propagates_nan(cuda, mode, ci, o):
     """A NaN in one sample's x reaches that sample's y only; a NaN in one
     sample's dy reaches that sample's dx only."""
@@ -735,16 +770,19 @@ def test_critic_conv_core_propagates_nan(cuda, mode, ci, o):
     assert torch.isnan(dx[1]).any() and not torch.isnan(dx[0]).any()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", k2.MODES)
 @pytest.mark.parametrize("pass_", ["fwd", "dc", "dx"])
-def test_conv_plan_mirrors_the_c_launcher(cuda, mode, pass_):
-    """conv3.conv_plan, which the CPU tests hold, is the plan the C
-    launchers take."""
+def test_conv_plan_mirrors_the_c_launcher(cuda, mode, pass_, dtype):
+    """conv3.conv_plan and conv3.wsplit_numel, which the CPU tests hold,
+    are the plan and the split-weight sizes the C launchers take."""
     from scgrhc_torch.ops.kernels import conv3
 
     for n, ci, o, t in CONV_SHAPES + [(32, 256, 512, 750), (65535, 7, 15, 4096),
-                                      (70_000, 4, 16, 8)]:
-        assert conv3.conv_plan(n, ci, o, t, mode, pass_) == conv3.c_plan(n, ci, o, t, mode, pass_)
+                                      (70_000, 4, 16, 8), (1, 512, 512, 900_000)]:
+        plan, ws_fwd, ws_dx = conv3.c_plan(n, ci, o, t, mode, pass_, dtype)
+        assert conv3.conv_plan(n, ci, o, t, mode, pass_, dtype) == plan
+        assert (conv3.wsplit_numel(ci, o), conv3.wsplit_numel(o, ci)) == (ws_fwd, ws_dx)
 
 
 @pytest.mark.parametrize("ci,o,mode", CRITIC_LAYERS)

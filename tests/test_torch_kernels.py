@@ -143,23 +143,41 @@ CRITIC_LAYERS = [(5, 64, "relu"), (64, 128, "in_relu"), (128, 256, "in_relu"),
                  (256, 512, "in_relu"), (512, 1, "linear")]
 
 
+def _core_plan(dtype, n, cols, t):
+    """(path, grid, tiles) of the tensor-core core for a product of cols
+    columns over n samples of t steps: f32 on the warpgroup-MMA core's
+    (wg_tile_m steps x wg_tile_n columns) tiles, walked by a persistent
+    grid of at most 132 blocks; bf16 a block per (64 columns x 128 steps)
+    tile."""
+    if dtype == torch.float32:
+        bn = conv3.wg_tile_n(cols)
+        tiles = (-(-t // (256 if bn <= 16 else 128)), -(-cols // bn), n)
+        return "wgmma", (min(tiles[0] * tiles[1] * tiles[2], 132), 1, 1), tiles
+    return "mma", (-(-t // 128), -(-cols // 64), n), None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("pass_", conv3.PASSES)
 @pytest.mark.parametrize("cin,cout,mode", CRITIC_LAYERS)
-def test_conv_plan_at_critic_layers(cin, cout, mode, pass_):
+def test_conv_plan_at_critic_layers(cin, cout, mode, pass_, dtype):
     n, t = 32, 750
-    plan = conv3.conv_plan(n, cin, cout, t, mode, pass_)
+    plan = conv3.conv_plan(n, cin, cout, t, mode, pass_, dtype)
     if pass_ == "dx":
         # the score layer's dx (K = 3) streams over dc, every other layer
-        # takes the tensor-core product with M = C_in
-        want = "stream" if cout == 1 else "mma"
-        assert plan == conv3.ConvPlan(
-            want, (12, n, 1) if want == "stream" else (6, -(-cin // 64), n), 0, None)
+        # takes the tensor-core product with C_in columns
+        if cout == 1:
+            assert plan == conv3.ConvPlan("stream", (12, n, 1), 0, None)
+        else:
+            path, grid, tiles = _core_plan(dtype, n, cin, t)
+            assert plan == conv3.ConvPlan(path, grid, 0, None, tiles=tiles)
         return
     if pass_ == "dc" and mode == "linear":
         assert plan == conv3.ConvPlan("none", (0, 0, 0), 0, None)  # dc = dy
         return
-    assert plan.path == ("stream" if cout == 1 else "mma")
-    assert plan.grid == ((12, n, 1) if cout == 1 else (6, -(-cout // 64), n))
+    if cout == 1:
+        assert (plan.path, plan.grid, plan.tiles) == ("stream", (12, n, 1), None)
+    else:
+        assert (plan.path, plan.grid, plan.tiles) == _core_plan(dtype, n, cout, t)
     # in_relu's statistics, and the dc pass's relu mask, go through the row
     # pass; the forward's relu and linear modes end in the conv's epilogue
     row = mode == "in_relu" or (mode == "relu" and pass_ == "dc")
@@ -167,27 +185,40 @@ def test_conv_plan_at_critic_layers(cin, cout, mode, pass_):
     assert plan.scratch == ((n, cout, t) if row and pass_ == "fwd" else None)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cout", [1, 2, 5, 15, 16, 17])
 @pytest.mark.parametrize("mode", conv3.MODES)
-def test_conv_plan_streams_below_16_output_channels(cout, mode):
+def test_conv_plan_streams_below_16_output_channels(cout, mode, dtype):
     n, cin, t = 3, 40, 130
-    fwd = conv3.conv_plan(n, cin, cout, t, mode)
-    dx = conv3.conv_plan(n, cin, cout, t, mode, "dx")
+    fwd = conv3.conv_plan(n, cin, cout, t, mode, "fwd", dtype)
+    dx = conv3.conv_plan(n, cin, cout, t, mode, "dx", dtype)
     if cout < conv3.CONV_STREAM_BELOW:
         assert fwd.path == "stream" and fwd.grid == (3, n, 1)
         assert dx.path == "stream" and dx.grid == (3, n, 1)
         # the stream kernel has no relu epilogue: relu goes through c and the row pass
         assert (fwd.scratch is not None) == (mode != "linear")
     else:
-        assert fwd.path == "mma" and dx.path == "mma"
+        core = "wgmma" if dtype == torch.float32 else "mma"
+        assert fwd.path == core and dx.path == core
         assert (fwd.scratch is not None) == (mode == "in_relu")
 
 
 def _tiles(plan, m_rows, t):
     """The (sample, row, step) entries the conv kernel's blocks write."""
     gx, gy, gz = plan.grid
+    if plan.path == "wgmma":
+        # block b walks the tiles b, b + gx, ...: the step tile fastest,
+        # then the column tile, then the sample
+        tx, ty, tz = plan.tiles
+        bm, bn = conv3.wg_tile_m(m_rows), conv3.wg_tile_n(m_rows)
+        assert (gy, gz) == (1, 1) and ty == -(-m_rows // bn)
+        walked = [i for b in range(gx) for i in range(b, tx * ty * tz, gx)]
+        assert sorted(walked) == list(range(tx * ty * tz))  # every tile once
+        return [(i // (tx * ty), m, s) for i in walked
+                for m in range(i // tx % ty * bn, min((i // tx % ty + 1) * bn, m_rows))
+                for s in range(i % tx * bm, min((i % tx + 1) * bm, t))]
     if plan.path == "mma":
-        bm, bn = conv3.CONV_TILE_M, conv3.CONV_TILE_N
+        bm, bn = conv3.MMA_TILE_M, conv3.MMA_TILE_N
         blocks = [(z, y, x) for z in range(gz) for y in range(gy) for x in range(gx)]
         return [(z, m, s) for z, y, x in blocks
                 for m in range(y * bm, min((y + 1) * bm, m_rows))
@@ -198,32 +229,47 @@ def _tiles(plan, m_rows, t):
             for s in range(x * bn, min((x + 1) * bn, t))]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("pass_", conv3.PASSES)
 @pytest.mark.parametrize("n,cin,cout,t", [(2, 5, 64, 750), (1, 3, 24, 1), (3, 24, 5, 7),
-                                          (2, 70, 129, 129), (1, 17, 1, 1023), (1, 8, 16, 8)])
-def test_conv_plan_grids_cover_every_tile_once(n, cin, cout, t, pass_):
-    plan = conv3.conv_plan(n, cin, cout, t, "in_relu", pass_)
+                                          (2, 70, 129, 129), (1, 17, 1, 1023), (1, 8, 16, 8),
+                                          (3, 4, 40, 300), (70, 16, 16, 129)])
+def test_conv_plan_grids_cover_every_tile_once(n, cin, cout, t, pass_, dtype):
+    plan = conv3.conv_plan(n, cin, cout, t, "in_relu", pass_, dtype)
     m_rows = cin if pass_ == "dx" else cout
     got = _tiles(plan, m_rows, t)
     assert len(got) == len(set(got)) == n * m_rows * t  # each (n, row, step) once
-    # no block lies wholly outside the tensors
+    # no block or tile lies wholly outside the tensors
     gx, gy, gz = plan.grid
     if plan.path == "mma":
-        assert (gx - 1) * conv3.CONV_TILE_N < t and (gy - 1) * conv3.CONV_TILE_M < m_rows
+        assert (gx - 1) * conv3.MMA_TILE_N < t and (gy - 1) * conv3.MMA_TILE_M < m_rows
         assert gz == n
+    if plan.path == "wgmma":
+        tx, ty, tz = plan.tiles
+        assert (tx - 1) * conv3.wg_tile_m(m_rows) < t
+        assert (ty - 1) * conv3.wg_tile_n(m_rows) < m_rows
+        assert tz == n and gx == min(tx * ty * tz, conv3.WG_BLOCKS)
     if plan.row_blocks:
         assert (plan.row_blocks - 1) * conv3.ROW_WARPS < n * cout <= plan.row_blocks * 8
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("pass_", conv3.PASSES)
-def test_conv_plan_has_no_length_limit(pass_):
+def test_conv_plan_has_no_length_limit(pass_, dtype):
     """The tensor-core core and the row pass tile T and never hold a whole
-    row: a plan at T = 4096 covers it."""
+    row: a plan at T = 4096 covers it, and one at T = 900,000 (a whole
+    1800-s record, N = 1)."""
     n, cin, cout, t = 32, 256, 512, 4096
-    plan = conv3.conv_plan(n, cin, cout, t, "in_relu", pass_)
-    assert plan.path == "mma"
-    assert plan.grid == (32, (cin if pass_ == "dx" else cout) // 64, n)
-    stream = conv3.conv_plan(n, 512, 1, t, "linear")
+    plan = conv3.conv_plan(n, cin, cout, t, "in_relu", pass_, dtype)
+    cols = cin if pass_ == "dx" else cout
+    assert (plan.path, plan.grid, plan.tiles) == _core_plan(dtype, n, cols, t)
+    if dtype == torch.float32:
+        assert plan.tiles == (32, cols // 128, n) and plan.grid == (132, 1, 1)
+    else:
+        assert plan.grid == (32, cols // 64, n)
+    whole = conv3.conv_plan(1, 512, 512, 900_000, "in_relu", pass_, dtype)
+    assert (whole.path, whole.grid, whole.tiles) == _core_plan(dtype, 1, 512, 900_000)
+    stream = conv3.conv_plan(n, 512, 1, t, "linear", "fwd", dtype)
     assert stream.path == "stream" and stream.grid == (64, n, 1)
 
 
@@ -232,6 +278,8 @@ def test_conv_plan_rejects_unknown_pass_and_mode():
         conv3.conv_plan(1, 4, 16, 8, "in_relu", "dw")
     with pytest.raises(ValueError):
         conv3.conv_plan(1, 4, 16, 8, "gelu")
+    with pytest.raises(ValueError):
+        conv3.conv_plan(1, 4, 16, 8, "in_relu", "fwd", torch.float64)
 
 
 # (C_in, O, T) of the generator's 14 layers at T = 750 (models/generator.py)
@@ -246,14 +294,48 @@ GENERATOR_LAYERS = [(4, 64, 750), (64, 64, 750), (64, 128, 748), (128, 128, 748)
 @pytest.mark.parametrize("cin,cout,t", sorted(set(GENERATOR_LAYERS)))
 def test_conv_plan_at_generator_layers(cin, cout, t, pass_, n):
     """K1f (serving's N = 512, training's N = 32) and K1b's dc and dx
-    passes take the tensor-core core, with c through the scratch and the
-    row pass in the forward, and dc in place in the dc pass."""
+    passes take the tensor-core core (f32: the warpgroup-MMA core, 6 step
+    tiles a window), with c through the scratch and the row pass in the
+    forward, and dc in place in the dc pass."""
     plan = conv3.conv_plan(n, cin, cout, t, "in_relu", pass_)
     rows = cin if pass_ == "dx" else cout
-    assert plan.path == "mma"
-    assert plan.grid == (6, -(-rows // 64), n)
+    assert plan.path == "wgmma"
+    # 64 columns: one tile of 64; dx's 4 columns (the first layer's, which
+    # training never asks for): one of 8 columns x 256 steps
+    assert plan.tiles == ((3, 1, n) if rows == 4 else (6, -(-rows // 128), n))
+    assert plan.grid == (min(plan.tiles[0] * plan.tiles[1] * n, 132), 1, 1)
+    assert conv3.conv_plan(n, cin, cout, t, "in_relu", pass_, torch.bfloat16).grid == (
+        6, -(-rows // 64), n)
     assert plan.row_blocks == (0 if pass_ == "dx" else n * cout // 8)
     assert plan.scratch == ((n, cout, t) if pass_ == "fwd" else None)
+
+
+@pytest.mark.parametrize("cols,bn", [(1, 8), (4, 8), (5, 8), (8, 8), (9, 16), (17, 32),
+                                     (64, 64), (65, 128), (128, 128), (512, 128)])
+def test_wg_tile_n_follows_the_columns(cols, bn):
+    """The f32 core's tile width is the least of 8 .. 128 that holds the
+    product's columns (the 4- and 5-channel dx, the 64 -> 64 layers fill
+    their tiles), and 128 past it; the narrowest tiles take 256 steps."""
+    assert conv3.wg_tile_n(cols) == bn
+    assert conv3.wg_tile_m(cols) == (256 if bn <= 16 else 128)
+    assert conv3.wsplit_numel(16, cols) == -(-cols // bn) * 2 * 2 * 3 * bn * 8
+
+
+@pytest.mark.parametrize("cin,cout,mode",
+                         CRITIC_LAYERS + [(4, 64, "in_relu"), (512, 512, "in_relu")])
+@pytest.mark.parametrize("need_dx", [False, True])
+def test_bwd_wsplit_numel(cin, cout, mode, need_dx):
+    """The backward's split weights hold the dc pass's recompute and dx in
+    turn: the larger of the two products' sizes, 0 where neither runs on
+    the f32 core (the score layer streams; bf16 runs mma.sync)."""
+    n, t = 32, 750
+    got = conv3.bwd_wsplit_numel(n, cin, cout, t, mode, need_dx)
+    dc = conv3.wsplit_numel(cin, cout) if mode != "linear" and cout >= 16 else 0
+    dx = conv3.wsplit_numel(cout, cin) if need_dx and cout >= 16 else 0
+    assert got == max(dc, dx)
+    assert conv3.bwd_wsplit_numel(n, cin, cout, t, mode, need_dx, torch.bfloat16) == 0
+    if (cin, cout) == (256, 512):  # 4 column tiles x 32 stages x 2 planes x 3 taps x 128 x 8
+        assert conv3.wsplit_numel(cin, cout) == 4 * 32 * 2 * 3 * 128 * 8
 
 
 def _meta(*shape, dtype=torch.float32):
