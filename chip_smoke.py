@@ -786,12 +786,12 @@ def _bound_ms(flops: float, nbytes: float) -> tuple[float, float]:
     return flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
-def _train_inputs(torch, gen, cin, o, t):
+def _train_inputs(torch, gen, cin, o, t, n=N_TRAIN):
     bound = 1.0 / math.sqrt(cin * 3)
-    x = torch.randn(N_TRAIN, cin, t, device="cuda", generator=gen)
+    x = torch.randn(n, cin, t, device="cuda", generator=gen)
     w = (torch.rand(o, cin, 3, device="cuda", generator=gen) * 2 - 1) * bound
     b = (torch.rand(o, device="cuda", generator=gen) * 2 - 1) * bound
-    dy = torch.randn(N_TRAIN, o, t, device="cuda", generator=gen)
+    dy = torch.randn(n, o, t, device="cuda", generator=gen)
     return x, w, b, dy
 
 
@@ -1085,10 +1085,87 @@ def check_critic_layers(torch, smoke: Smoke) -> dict:
         "graph_ms" in r for r in per.values()) else ())) for name, per in out.items()}
 
 
+N_GP = 64  # waveform_06's published batch, at which train.w06 runs the GP
+
+
+def check_gp_vjp(torch, smoke: Smoke) -> dict:
+    """BwdDx's backward, K2dx's closed-form vjp (the gradient penalty's
+    second order), one node per critic layer at B = N_GP, T = 750, every
+    input needing a gradient: each gradient against the plain input
+    gradient's vjp in float64 on the kernels' own relu masks (K2f's, which
+    K2dx's dc pass recomputes), within TOL_TRAIN["bwd"] (an in_relu bias
+    gradient over |Σ|d_c||, the scale it sums to zero from), one launch of
+    the vjp a node, and its time (the backward of a recorded K2dx, CUDA
+    events) beside its bound: its products (v = conv(u, w) and dw over
+    (u, dc); in in_relu also dx and dw over (x, d_c)) at 495/3 TFLOP/s and
+    its inputs and outputs (x, u, c, dc, dy, w; dx, d_dy, dw) at 3.35 TB/s."""
+    from scgrhc_torch.ops.kernels import conv3
+    from scgrhc_torch.ops.kernels import critic_fused as k2
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    for cin, o, mode in CRITIC_LAYERS:
+        x, w, b, dy = _train_inputs(torch, gen, cin, o, T, N_GP)
+        u = torch.randn(x.shape, device="cuda", generator=gen)
+        ins = [t.clone().requires_grad_() for t in (x, w, b, dy)]
+        before = k2.critic_layer_bwd_dx_vjp.launches
+        dxk = k2.fused_layer_bwd_dx(*ins, mode)
+        got = torch.autograd.grad(dxk, ins, u, retain_graph=True, allow_unused=True)
+        torch.cuda.synchronize()
+        what = f"critic_layer_bwd_dx_vjp {mode} {cin}x{o}x{T} N={N_GP}"
+        smoke.check(k2.critic_layer_bwd_dx_vjp.launches == before + 1,
+                    f"{what}: {k2.critic_layer_bwd_dx_vjp.launches - before} vjp launches")
+        mask = k2.critic_layer(x, w, b, mode) > 0
+        ins64 = [t.double().requires_grad_() for t in (x, w, b, dy)]
+        want = torch.autograd.grad(_dx_on_masks(torch, *ins64, mode, mask), ins64, u.double(),
+                                   allow_unused=True)
+        floor = 0.0
+        if mode == "in_relu":
+            x64, w64, b64, dy64 = (t.detach() for t in ins64)
+            c64 = conv3.conv(x64, w64, b64)
+            v64 = torch.nn.functional.conv1d(u.double(), w64, padding=1)
+            d_c = k2.dx_vjp_row_plain(c64, k2.row_stats_plain(c64), dy64, v64, mode)[1]
+            floor = float(d_c.abs().sum(dim=(0, 2)).norm())
+            del x64, w64, b64, dy64, c64, v64, d_c
+        rels = {}
+        for name, g, r in zip(("x", "w", "b", "dy"), got, want):
+            smoke.check((g is None) == (r is None), f"{what}: d{name} None {g is None}, "
+                                                    f"float64 None {r is None}")
+            if g is not None and r is not None:
+                rels[name] = _rel(g, r, floor if name == "b" else 0.0)
+        rel = max(rels.values())
+        smoke.check(rel <= TOL_TRAIN["bwd"], f"{what}: relative errors {rels}")
+        del ins64, want
+        conv_flops = 6.0 * N_GP * cin * o * T
+        nct, nott, wts = N_GP * cin * T, N_GP * o * T, 3 * cin * o
+        products = 4 if mode == "in_relu" else 2
+        elems = {"linear": nct + 2 * nott, "relu": nct + 3 * nott,
+                 "in_relu": 3 * nct + 4 * nott}[mode] + 2 * wts
+        flop_ms = products * conv_flops / PEAK_TF32X3_FLOPS * 1e3
+        byte_ms = 4.0 * elems / PEAK_BYTES * 1e3
+        ms = _time_ms(torch, lambda: torch.autograd.grad(dxk, ins, u, retain_graph=True,
+                                                         allow_unused=True), reps=10)
+        rec = {"mode": mode, "n": N_GP, "rel_err": rel, "rel_errs": rels, "ms": ms,
+               "flop_bound_ms": flop_ms, "byte_bound_ms": byte_ms,
+               "bound_ms": max(flop_ms, byte_ms),
+               "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
+        out[f"{cin}x{o}x{T} {mode}"] = rec
+        print(f"{what}: one BwdDx backward {ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}: {products} products at 495/3 TFLOP/s {flop_ms:.4f} ms, "
+              f"{4.0 * elems / 1e6:.1f} MB at 3.35 TB/s {byte_ms:.4f} ms), relative errors "
+              f"against float64 on the kernels' masks {rels} (tol {TOL_TRAIN['bwd']:g})",
+              flush=True)
+        del x, w, b, dy, u, ins, dxk, got, mask
+    total = {k: sum(r[k] for r in out.values()) for k in ("ms", "bound_ms")}
+    print(f"critic_layer_bwd_dx_vjp: the 5 layers at N={N_GP} {total['ms']:.4f} ms against "
+          f"{total['bound_ms']:.4f} ms bound", flush=True)
+    return {**total, "rel_err": max(r["rel_err"] for r in out.values()), "per_shape": out}
+
+
 # ---- training end to end ----------------------------------------------------
 
 TRAIN_KERNELS = ("conv_in_relu", "conv_in_relu_bwd", "critic_layer", "critic_layer_bwd_dx",
-                 "critic_layer_bwd_dwdb")
+                 "critic_layer_bwd_dwdb", "critic_layer_bwd_dx_vjp")
 
 
 def write_train_data(root: str, duration_s: float = 600.0, t: int = T) -> tuple[str, int]:
@@ -1628,7 +1705,8 @@ def train_long(torch, smoke: Smoke, root: str, card: str) -> dict:
 ALL_KERNELS = {"conv_in_relu": "conv_block", "conv_in_relu_bwd": "conv_block",
                "conv_in_relu_part": "conv_block", "conv_in_relu_apply": "conv_block",
                "critic_layer": "critic_fused", "critic_layer_bwd_dx": "critic_fused",
-               "critic_layer_bwd_dwdb": "critic_fused", "gate_and_normalize": "dsp",
+               "critic_layer_bwd_dwdb": "critic_fused",
+               "critic_layer_bwd_dx_vjp": "critic_fused", "gate_and_normalize": "dsp",
                "normalize_windows": "dsp"}
 N_EVAL = 1024  # eval_batch
 
@@ -1925,12 +2003,12 @@ def pipeline_end_to_end(torch, smoke: Smoke, root: str, card: str) -> dict:
 
 # The port's kernels as CUPTI names them (csrc/*.cu, conv3.cuh).
 PORT_KERNEL = re.compile(r"\b(?:conv_mma|conv_stream|dx_stream|dw_mma|dw_stream|dw_reduce|db|"
-                         r"dc_linear|row|row_part|row_sum|row_apply|gate_normalize|"
-                         r"normalize_windows)_kernel\b")
+                         r"dc_linear|row|row_part|row_sum|row_apply|conv_weight_split|"
+                         r"dx_vjp_row|gate_normalize|normalize_windows)_kernel\b")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # The device time of a step by who launched it: the port's kernels, cuDNN's
-# convolutions (the plain ops left on the path: the GP's second order, the
-# attention 1x1 convs, up*, final), PyTorch's own elementwise and reduction
+# convolutions (the plain ops left on the path: the attention 1x1 convs,
+# up*, final), PyTorch's own elementwise and reduction
 # kernels (instance norms, Adam, the losses), and copies and fills.
 OP_CLASSES = (("port kernels", PORT_KERNEL),
               ("cuDNN convolutions", re.compile(r"cudnn|xmma|implicit_gemm|cutlass|gemm")),
@@ -1955,7 +2033,9 @@ def _launching_nodes(events) -> dict:
     """correlation id → the autograd node whose backward launched the kernel:
     the outermost ``evaluate_function: <node>`` around the launch on its
     thread, with the innermost after a "/" where a backward ran inside it
-    (``_plain_vjp``'s ``autograd.grad``), or ``OUTSIDE`` where none ran."""
+    (bf16's ``_plain_vjp``, ``autograd.grad`` inside ``BwdDxBackward``), or
+    ``OUTSIDE`` where none ran.  In f32 BwdDx's backward, the GP's second
+    order, launches its kernels itself, so its gaps read ``BwdDxBackward``."""
     spans: dict = {}
     for e in events:
         if e["name"].startswith("autograd::engine::evaluate_function: "):
@@ -2900,7 +2980,10 @@ def cli_end_to_end(torch, smoke: Smoke, root: str, card: str) -> dict:
     finally:
         sweep.run_experiment_inproc = real_inproc
     launches = {k: fn.launches for k, fn in fns.items()}
-    smoke.check(all(v > 0 for v in launches.values()), f"sweep --fast: launches {launches}")
+    # bf16 ("fast") takes the plain vjp for the GP's second order, not the
+    # f32 closed form: every training kernel but that one launches
+    smoke.check(all((v == 0) == (k == "critic_layer_bwd_dx_vjp") for k, v in launches.items()),
+                f"sweep --fast: launches {launches}")
     smoke.check(list(codes.values()) == [0, 0], f"sweep --fast: exit codes {codes}")
     for d in dirs:
         p = Params(os.path.join(d, "params.json"))
@@ -4090,6 +4173,7 @@ def main() -> int:
     k3 = check_gate_normalize(torch, smoke, card)
     k1b = check_conv_in_relu_bwd(torch, smoke)
     k2 = check_critic_layers(torch, smoke)
+    gp_vjp = check_gp_vjp(torch, smoke)
 
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -4180,7 +4264,8 @@ def main() -> int:
         json.dump({"card": card, "kind": kind, "count": count,
                    "build_seconds": build.seconds, "build_log": build.log,
                    "conv_in_relu": k1f, "normalize_windows": k4,
-                   "conv_in_relu_bwd": k1b, **k2, "gate_and_normalize": k3, "sass_hmma": sass,
+                   "conv_in_relu_bwd": k1b, **k2, "critic_layer_bwd_dx_vjp": gp_vjp,
+                   "gate_and_normalize": k3, "sass_hmma": sass,
                    "ptxas_conv_core": core,
                    "serve": serve, "continuous": whole, "calibrate": calibrated, "int8": int8,
                    "train": train, "pipeline": pipeline, "long_windows": long,

@@ -26,9 +26,10 @@ a bool read, nothing imported, nothing made.  The spans:
     ``generator_loss``, ``generator_grad`` and ``adam`` (``train/wgan.py``):
     every device operation of ``train_step`` falls in one of them or in
     ``grad_reduce``, except the losses' stacking;
-  * ``gp_second_order`` (``ops/kernels/critic_fused.py``, ``_plain_vjp``):
-    one rerun of a plain critic layer under autograd at a ``BwdDx`` node,
-    inside ``critic_grad``, on autograd's thread;
+  * ``gp_second_order`` (``ops/kernels/critic_fused.py``,
+    ``BwdDx.backward``): the closed-form vjp of one K2dx node on the conv
+    core's kernels (in bf16 the plain layer's vjp under autograd), inside
+    ``critic_grad``, on autograd's thread;
   * ``grad_reduce`` (``parallel/dp.py``): a bucket's all-reduce, only when a
     process group exists;
   * ``train_epoch``, ``losses_read_back`` and ``checkpoint_save``

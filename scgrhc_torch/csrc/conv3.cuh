@@ -1338,10 +1338,14 @@ dx_stream_kernel(const float* __restrict__ dc, const T* __restrict__ w, T* __res
 // What row_kernel does with a row of c (f32):
 //   kRowInReluFwd  y = relu((c - mean) * rsig), in T
 //   kRowReluFwd    y = relu(c), in T
-//   kRowInReluDc   c becomes dc = rsig * (g - mean g - xhat * mean(g * xhat)),
+//   kRowInReluDc   dc = rsig * (g - mean g - xhat * mean(g * xhat)),
 //                  g = dy * (xhat > 0)
-//   kRowReluDc     c becomes dc = dy * (c > 0)
-// with mean and rsig = rsqrt(max(E[c^2] - mean^2, 0) + eps) over T.
+//   kRowReluDc     dc = dy * (c > 0)
+// with mean and rsig = rsqrt(max(E[c^2] - mean^2, 0) + eps) over T.  dc
+// overwrites c, or goes to dc where that is given: then c stays, and stats
+// (where given) takes each row's (mean, E[c^2] - mean^2 before the clamp),
+// which the GP's second order reads to differentiate this very dc
+// (critic_layer.cu: dx_vjp_row_kernel).
 enum RowMode { kRowInReluFwd = 0, kRowReluFwd = 1, kRowInReluDc = 2, kRowReluDc = 3 };
 
 // One warp per (n, o) row of c (n * cout rows of len); each lane sums its
@@ -1350,17 +1354,19 @@ enum RowMode { kRowInReluFwd = 0, kRowReluFwd = 1, kRowInReluDc = 2, kRowReluDc 
 // times, from L1 after the first.
 template <typename T, int ROW>
 __global__ void __launch_bounds__(kThreads)
-row_kernel(float* __restrict__ c, const T* __restrict__ dy, T* __restrict__ y, int rows, int len) {
+row_kernel(float* c, const T* __restrict__ dy, T* __restrict__ y, float* dc,
+           float2* __restrict__ stats, int rows, int len) {
   const int r = blockIdx.x * kWarps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (r >= rows) return;  // whole warps
   float* cr = c + (size_t)r * len;
   const size_t base = (size_t)r * len;
+  float* out = dc == nullptr ? cr : dc + base;
   if constexpr (ROW == kRowReluFwd) {
     for (int t = lane; t < len; t += 32) store(y + base + t, relu(cr[t]));
     return;
   }
   if constexpr (ROW == kRowReluDc) {
-    for (int t = lane; t < len; t += 32) cr[t] = to_f32(dy[base + t]) * step(cr[t]);
+    for (int t = lane; t < len; t += 32) out[t] = to_f32(dy[base + t]) * step(cr[t]);
     return;
   }
   float s = 0.f, q = 0.f;
@@ -1373,6 +1379,7 @@ row_kernel(float* __restrict__ c, const T* __restrict__ dy, T* __restrict__ y, i
   q = warp_sum(q);
   const float mean = s / (float)len;
   float var = q / (float)len - mean * mean;
+  if (stats != nullptr && lane == 0) stats[r] = make_float2(mean, var);
   var = var < 0.f ? 0.f : var;
   const float rsig = rsqrtf(var + kEps);
   if constexpr (ROW == kRowInReluFwd) {
@@ -1391,7 +1398,7 @@ row_kernel(float* __restrict__ c, const T* __restrict__ dy, T* __restrict__ y, i
   for (int t = lane; t < len; t += 32) {
     const float xh = (cr[t] - mean) * rsig;
     const float gv = to_f32(dy[base + t]) * step(xh);
-    cr[t] = rsig * ((gv - mg) - xh * mgx);
+    out[t] = rsig * ((gv - mg) - xh * mgx);
   }
 }
 
@@ -1811,8 +1818,8 @@ cudaError_t launch_layer_conv(const ConvPlan& p, const T* x, const T* w, const f
 
 template <typename T, int ROW>
 cudaError_t launch_row(int blocks, float* c, const T* dy, T* y, int rows, int len,
-                       cudaStream_t stream) {
-  row_kernel<T, ROW><<<blocks, kThreads, 0, stream>>>(c, dy, y, rows, len);
+                       cudaStream_t stream, float* dc = nullptr, float2* stats = nullptr) {
+  row_kernel<T, ROW><<<blocks, kThreads, 0, stream>>>(c, dy, y, dc, stats, rows, len);
   return cudaGetLastError();
 }
 
@@ -1943,11 +1950,18 @@ cudaError_t launch_layer_apply(const void* c, const void* sums, void* y, int n, 
 // scratch part (launch_dw).  ws: the split weights of the recompute and of
 // dx in turn (the larger of wsplit_numel(cin, cout) and wsplit_numel(cout,
 // cin) floats) where either takes the warpgroup-MMA core, else null.
+// keep (relu and in_relu only, else null): an f32 (n, cout, len) that
+// keeps the recomputed c, the row pass writing dc beside it; stats (given
+// with keep in the in_relu mode, else null): n * cout float2, each row's
+// (mean, E[c^2] - mean^2) as the row pass took them.
 template <typename T, int MODE>
 cudaError_t launch_layer_bwd(const void* x, const void* w, const void* b, const void* dy,
                              void* dx, void* dw, void* db, void* dc, void* part, void* ws,
-                             int n, int cin, int cout, int len, int nsplit,
-                             cudaStream_t stream) {
+                             void* keep, void* stats, int n, int cin, int cout, int len,
+                             int nsplit, cudaStream_t stream) {
+  if ((MODE == kLinear && keep != nullptr) ||
+      (stats != nullptr) != (MODE == kInRelu && keep != nullptr))
+    return cudaErrorInvalidValue;
   const T* xp = static_cast<const T*>(x);
   const T* wp = static_cast<const T*>(w);
   float* wsp = static_cast<float*>(ws);
@@ -1967,13 +1981,16 @@ cudaError_t launch_layer_bwd(const void* x, const void* w, const void* b, const 
       const ConvPlan p = conv_plan(nc, cin, cout, len, MODE, kPassDc, kIsF32<T>);
       const size_t off = (size_t)n0 * cout * len;
       float* dcw = static_cast<float*>(dc) + off;
+      float* cw = keep == nullptr ? dcw : static_cast<float*>(keep) + off;
       const cudaError_t e = launch_layer_conv<T, float, false>(
-          p, xp + (size_t)n0 * cin * len, wp, wsp, static_cast<const T*>(b), dcw, cin, cout,
+          p, xp + (size_t)n0 * cin * len, wp, wsp, static_cast<const T*>(b), cw, cin, cout,
           len, stream);
       if (e != cudaSuccess) return e;
       constexpr int kRow = MODE == kInRelu ? kRowInReluDc : kRowReluDc;
-      return launch_row<T, kRow>(p.row_blocks, dcw, static_cast<const T*>(dy) + off, nullptr,
-                                 nc * cout, len, stream);
+      return launch_row<T, kRow>(
+          p.row_blocks, cw, static_cast<const T*>(dy) + off, nullptr, nc * cout, len, stream,
+          keep == nullptr ? nullptr : dcw,
+          stats == nullptr ? nullptr : static_cast<float2*>(stats) + (size_t)n0 * cout);
     });
   }
   if (err != cudaSuccess) return err;

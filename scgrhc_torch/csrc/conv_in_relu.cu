@@ -93,11 +93,12 @@ extern "C" int scgrhc_conv_in_relu_bwd(const void* x, const void* w, const void*
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch_layer_bwd<float, kInRelu>(x, w, b, dy, dx, dw, db, dc, part, ws, n, cin,
-                                                 cout, len, nsplit, s);
+    return (int)launch_layer_bwd<float, kInRelu>(x, w, b, dy, dx, dw, db, dc, part, ws,
+                                                 nullptr, nullptr, n, cin, cout, len, nsplit, s);
   if (dtype == 1)
     return (int)launch_layer_bwd<__nv_bfloat16, kInRelu>(x, w, b, dy, dx, dw, db, dc, part, ws,
-                                                         n, cin, cout, len, nsplit, s);
+                                                         nullptr, nullptr, n, cin, cout, len,
+                                                         nsplit, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -21,9 +21,11 @@
 // channels the forward streams over x and dx over dc, each at the byte
 // bound.  K2dw's dw product runs on the tensor cores, or for the score
 // layer as a stream over x (conv3.cuh, above dw_mma_kernel).
-// The second-order pass of the gradient penalty is not a kernel: it
-// differentiates the plain PyTorch version, as the JAX package
-// differentiates its reference under XLA.
+// The gradient penalty's second order (the vjp of K2dx, critic_fused.py:
+// BwdDx.backward) runs on the same launchers in f32: the forward core for
+// v = conv(u, w), the dw product twice, dx, and between them one row pass
+// of its own, dx_vjp_row_kernel below, on the c and row statistics that
+// K2dx's dc pass kept.
 
 #include "conv3.cuh"
 
@@ -44,23 +46,90 @@ cudaError_t fwd(int mode, const void* x, const void* w, const void* b, void* y, 
 
 template <typename T>
 cudaError_t bwd(int mode, const void* x, const void* w, const void* b, const void* dy,
-                void* dx, void* dw, void* db, void* dc, void* part, void* ws, int n, int cin,
-                int cout, int len, int nsplit, cudaStream_t s) {
+                void* dx, void* dw, void* db, void* dc, void* part, void* ws, void* keep,
+                void* stats, int n, int cin, int cout, int len, int nsplit, cudaStream_t s) {
   switch (mode) {
     case kLinear:
-      return launch_layer_bwd<T, kLinear>(x, w, b, dy, dx, dw, db, dc, part, ws, n, cin, cout,
-                                          len, nsplit, s);
+      return launch_layer_bwd<T, kLinear>(x, w, b, dy, dx, dw, db, dc, part, ws, keep, stats,
+                                          n, cin, cout, len, nsplit, s);
     case kRelu:
-      return launch_layer_bwd<T, kRelu>(x, w, b, dy, dx, dw, db, dc, part, ws, n, cin, cout,
-                                        len, nsplit, s);
+      return launch_layer_bwd<T, kRelu>(x, w, b, dy, dx, dw, db, dc, part, ws, keep, stats, n,
+                                        cin, cout, len, nsplit, s);
     case kInRelu:
-      return launch_layer_bwd<T, kInRelu>(x, w, b, dy, dx, dw, db, dc, part, ws, n, cin, cout,
-                                          len, nsplit, s);
+      return launch_layer_bwd<T, kInRelu>(x, w, b, dy, dx, dw, db, dc, part, ws, keep, stats,
+                                          n, cin, cout, len, nsplit, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
+
+// A kernel lives in a named namespace here: beside conv3.cuh's anonymous one
+// (visible through the using-directive), a second anonymous namespace makes
+// nvcc's generated launch stubs ambiguous.
+namespace critic {
+
+// The vjp of K2dx, dx = conv_t(dc, w) with dc = dc_from_dy(dy, c), at the
+// cotangent u on dx, between its products: v = conv(u, w) arrives in v and
+// leaves as the cotangent on dy; in the in_relu mode dcc takes the
+// cotangent on c, which the linear backward then carries to x, w and b.
+// c and each row's (mean, var) are K2dx's own (its dc pass's keep and
+// stats), so the masks are those its dc applied; with rsig =
+// rsqrt(max(var, 0) + eps), xhat = (c - mean) rsig, m = (xhat > 0) and
+// g = m dy, and bars the means over the row's T steps:
+//   relu     d_dy = (c > 0) v
+//   in_relu  d_dy = m rsig (v - vbar - xhat pv),   pv = mean(v xhat)
+//            d_c  = -rsig^2 (pv (g - gbar) + k (v - vbar) + xhat q),
+//            k = mean(g xhat), q = mean(v g) - gbar vbar - 3 k pv, and q
+//            = 0 where var < 0 (the clamp's zero gradient).
+// One warp per (n, o) row, as row_kernel, which reads c, dy and v twice
+// (from L1 the second time) and writes v and dcc: bound by bytes, 5 f32
+// per element.
+template <int MODE>
+__global__ void __launch_bounds__(kThreads)
+dx_vjp_row_kernel(const float* __restrict__ c, const float2* __restrict__ stats,
+                  const float* __restrict__ dy, float* __restrict__ v, float* __restrict__ dcc,
+                  int rows, int len) {
+  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (r >= rows) return;  // whole warps
+  const size_t base = (size_t)r * len;
+  const float* cr = c + base;
+  float* vr = v + base;
+  if constexpr (MODE == kRelu) {
+    for (int t = lane; t < len; t += 32) vr[t] *= step(cr[t]);
+  } else {
+    const float* dyr = dy + base;
+    const float mean = stats[r].x, var = stats[r].y;
+    const float rsig = rsqrtf((var < 0.f ? 0.f : var) + kEps);  // row_kernel's
+    float sv = 0.f, svx = 0.f, sg = 0.f, sgx = 0.f, svg = 0.f;
+    for (int t = lane; t < len; t += 32) {
+      const float xh = (cr[t] - mean) * rsig;
+      const float g = dyr[t] * step(xh);
+      const float vv = vr[t];
+      sv += vv;
+      svx += vv * xh;
+      sg += g;
+      sgx += g * xh;
+      svg += vv * g;
+    }
+    const float vbar = warp_sum(sv) / (float)len, pv = warp_sum(svx) / (float)len;
+    const float gbar = warp_sum(sg) / (float)len, k = warp_sum(sgx) / (float)len;
+    const float mvg = warp_sum(svg) / (float)len;
+    const float q = var < 0.f ? 0.f : mvg - gbar * vbar - 3.f * k * pv;
+    const float r2 = rsig * rsig;
+    float* dcr = dcc + base;
+    for (int t = lane; t < len; t += 32) {
+      const float xh = (cr[t] - mean) * rsig;
+      const float m = step(xh);
+      const float g = dyr[t] * m;
+      const float vv = vr[t];
+      vr[t] = m * (rsig * ((vv - vbar) - xh * pv));
+      dcr[t] = -r2 * (pv * (g - gbar) + k * (vv - vbar) + xh * q);
+    }
+  }
+}
+
+}  // namespace critic
 
 // mode: 0 = linear, 1 = relu, 2 = in_relu; dtype: 0 = float32,
 // 1 = bfloat16.  x (n, cin, len), w (cout, cin, 3), b (cout,), y (n, cout,
@@ -86,23 +155,53 @@ extern "C" int scgrhc_critic_layer_fwd(const void* x, const void* w, const void*
 // n*cout*len; part one of nsplit*cout*(3*cin + (cout < 16)) when dw is
 // wanted (conv3.py's dw_plan); ws one for the split weights of the f32
 // core's passes, or null where none takes it (conv3.py:
-// bwd_wsplit_numel).
+// bwd_wsplit_numel).  keep and stats, or null: what the dc pass leaves for
+// the GP's second order (relu and in_relu; stats in_relu only): c in an f32
+// keep of n*cout*len, dc then in dc, and each row's (mean, var) in n*cout
+// float2 (launch_layer_bwd).
 extern "C" int scgrhc_critic_layer_bwd(const void* x, const void* w, const void* b,
                                        const void* dy, void* dx, void* dw, void* db,
-                                       void* dc, void* part, void* ws, int n, int cin, int cout,
-                                       int len, int mode, int nsplit, int dtype,
-                                       void* stream) {
+                                       void* dc, void* part, void* ws, void* keep, void* stats,
+                                       int n, int cin, int cout, int len, int mode, int nsplit,
+                                       int dtype, void* stream) {
   if (!shape_ok(n, cin, cout, len, dw != nullptr) || (dx == nullptr && dw == nullptr) ||
       (dw != nullptr && (db == nullptr || nsplit < 1 || nsplit > n)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)bwd<float>(mode, x, w, b, dy, dx, dw, db, dc, part, ws, n, cin, cout, len,
-                           nsplit, s);
+    return (int)bwd<float>(mode, x, w, b, dy, dx, dw, db, dc, part, ws, keep, stats, n, cin,
+                           cout, len, nsplit, s);
   if (dtype == 1)
-    return (int)bwd<__nv_bfloat16>(mode, x, w, b, dy, dx, dw, db, dc, part, ws, n, cin, cout,
-                                   len, nsplit, s);
+    return (int)bwd<__nv_bfloat16>(mode, x, w, b, dy, dx, dw, db, dc, part, ws, keep, stats, n,
+                                   cin, cout, len, nsplit, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The row pass of K2dx's vjp (dx_vjp_row_kernel), float32: c (n, cout,
+// len) and stats (n*cout float2) as K2dx's keep and stats left them (stats
+// and dcc null in the relu mode), dy (n, cout, len) K2dx's cotangent, v
+// (n, cout, len) conv(u, w) in, the cotangent on dy out; dcc (n, cout,
+// len) the cotangent on c (in_relu).  mode 1 relu, 2 in_relu.
+extern "C" int scgrhc_critic_layer_dx_vjp(const void* c, const void* stats, const void* dy,
+                                          void* v, void* dcc, int n, int cout, int len, int mode,
+                                          void* stream) {
+  const long long rows = (long long)n * cout;
+  if (n < 1 || cout < 1 || len < 1 || rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = cdiv(rows, kWarps);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* cp = static_cast<const float*>(c);
+  float* vp = static_cast<float*>(v);
+  if (mode == kRelu) {
+    critic::dx_vjp_row_kernel<kRelu><<<blocks, kThreads, 0, s>>>(cp, nullptr, nullptr, vp,
+                                                                 nullptr, (int)rows, len);
+  } else if (mode == kInRelu && stats != nullptr && dcc != nullptr) {
+    critic::dx_vjp_row_kernel<kInRelu><<<blocks, kThreads, 0, s>>>(
+        cp, static_cast<const float2*>(stats), static_cast<const float*>(dy), vp,
+        static_cast<float*>(dcc), (int)rows, len);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 // The launch plan of a conv pass (0 forward, 1 the dc pass's recompute,

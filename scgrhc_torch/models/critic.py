@@ -13,8 +13,9 @@ runs the same weights through the plain version.
 With ``ct``, the forward also returns the scores' input gradient, built
 in the forward direction from each layer's input gradient (K2dx, or the
 plain version's) rather than by a ``create_graph`` backward.  The
-gradient penalty differentiates it, and so its whole graph is recorded by
-the calling thread: nodes that a ``create_graph`` backward records come
+gradient penalty differentiates it (for K2dx, by its closed-form vjp,
+``critic_fused.BwdDx``), and so its whole graph is recorded by the
+calling thread: nodes that a ``create_graph`` backward records come
 from the autograd engine's CUDA worker thread, whose sequence numbers set
 the order in which the parameter gradient sums its terms, and that order
 then differs between a process's first steps and its later ones.

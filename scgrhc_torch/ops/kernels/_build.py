@@ -40,8 +40,11 @@ _SIGNATURES = {
     "scgrhc_conv_in_relu_bwd": (_P,) * 10 + (_I,) * 6 + (_P,),
     # x, w, b, y, c, ws, n, cin, cout, len, mode, dtype, stream
     "scgrhc_critic_layer_fwd": (_P,) * 6 + (_I,) * 6 + (_P,),
-    # x, w, b, dy, dx, dw, db, dc, part, ws, n, cin, cout, len, mode, nsplit, dtype, stream
-    "scgrhc_critic_layer_bwd": (_P,) * 10 + (_I,) * 7 + (_P,),
+    # x, w, b, dy, dx, dw, db, dc, part, ws, keep, stats, n, cin, cout, len, mode, nsplit,
+    # dtype, stream
+    "scgrhc_critic_layer_bwd": (_P,) * 12 + (_I,) * 7 + (_P,),
+    # c, stats, dy, v, dcc, n, cout, len, mode, stream
+    "scgrhc_critic_layer_dx_vjp": (_P,) * 5 + (_I,) * 4 + (_P,),
     # n, cin, cout, len, mode, pass, dtype, out (int[12])
     "scgrhc_critic_plan": (_I,) * 7 + (_P,),
     # w, out, n, m, stream

@@ -299,21 +299,23 @@ def check_inputs(what: str, x, w, b, dy=None, need_dw: bool = False) -> None:
     bfloat16, mixed dtypes or devices, wrong or empty shapes,
     non-contiguous tensors, and, where the backward computes dw
     (``need_dw``), a T past :func:`dw_stream_max_len` below 16 output
-    channels.  Any N and any other T are taken."""
-    ts = (x, w, b) if dy is None else (x, w, b, dy)
+    channels.  Any N and any other T are taken; b None: no bias."""
+    ts = tuple(t for t in (x, w, b, dy) if t is not None)
     if x.dtype not in DTYPE_CODE or any(t.dtype != x.dtype for t in ts):
         raise TypeError(
             f"{what} kernel takes float32 or bfloat16 tensors of one dtype, got "
             f"{[t.dtype for t in ts]}"
         )
-    if x.dim() != 3 or w.dim() != 3 or b.dim() != 1:
+    if x.dim() != 3 or w.dim() != 3 or (b is not None and b.dim() != 1):
         raise ValueError(f"{what} expects x (N, C_in, T), w (O, C_in, 3), b (O,)")
     n, cin, t = x.shape
     o = w.shape[0]
-    if w.shape != (o, cin, 3) or b.shape != (o,) or (dy is not None and dy.shape != (n, o, t)):
+    if (w.shape != (o, cin, 3) or (b is not None and b.shape != (o,))
+            or (dy is not None and dy.shape != (n, o, t))):
         raise ValueError(
             f"{what} shape mismatch: x {tuple(x.shape)}, w {tuple(w.shape)}, "
-            f"b {tuple(b.shape)}" + ("" if dy is None else f", dy {tuple(dy.shape)}")
+            f"b {None if b is None else tuple(b.shape)}"
+            + ("" if dy is None else f", dy {tuple(dy.shape)}")
         )
     if not all(t.is_contiguous() for t in ts):
         raise ValueError(f"{what} kernel takes contiguous tensors")
@@ -339,8 +341,9 @@ def launch_fwd(entry: str, what: str, x, w, b, mode: str, mode_arg: bool = True)
     """The forward kernel ``entry`` on CUDA tensors → y (N, O, T) in x's
     dtype, with the f32 scratch that :func:`conv_plan` asks for
     (:func:`scratch_numel`; or null) and the split weights where it takes
-    the f32 core (:func:`wsplit_numel`; or null).  ``mode_arg`` False: the entry point
-    takes no mode (the generator's, which is in_relu only)."""
+    the f32 core (:func:`wsplit_numel`; or null).  b None: no bias (the
+    conv kernels add none for a null bias).  ``mode_arg`` False: the entry
+    point takes no mode (the generator's, which is in_relu only)."""
     check_inputs(what, x, w, b)
     n, cin, t = x.shape
     o = w.shape[0]
@@ -352,9 +355,8 @@ def launch_fwd(entry: str, what: str, x, w, b, mode: str, mode_arg: bool = True)
     extra = (MODE_CODE[mode],) if mode_arg else ()
     with torch.cuda.device(x.device):
         err = getattr(_build.library(), entry)(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-            *(None if v is None else v.data_ptr() for v in (c, ws)), n, cin, o, t, *extra,
-            DTYPE_CODE[x.dtype], _stream(x),
+            *(None if v is None else v.data_ptr() for v in (x, w, b, y, c, ws)), n, cin, o, t,
+            *extra, DTYPE_CODE[x.dtype], _stream(x),
         )
     _build.check(err, what)
     count_launches(plan, n)
@@ -362,13 +364,19 @@ def launch_fwd(entry: str, what: str, x, w, b, mode: str, mode_arg: bool = True)
 
 
 def launch_bwd(entry: str, what: str, x, w, b, dy, mode: str, need_dx: bool, need_dw: bool,
-               mode_arg: bool = True):
+               mode_arg: bool = True, keep: bool = False):
     """The backward kernel ``entry`` on CUDA tensors → ``(dx, dw, db)`` as
     :func:`layer_bwd_plain` gives them.  The f32 scratch for dc (N, O, T),
     for dw's per-split partial sums (:func:`dw_plan`) and for the split
-    weights (:func:`bwd_wsplit_numel`) is allocated here.  ``mode_arg`` as
-    for :func:`launch_fwd`."""
+    weights (:func:`bwd_wsplit_numel`) is allocated here.  ``mode_arg``
+    False: the entry point takes no mode and keeps nothing (the
+    generator's).  ``keep`` (relu and in_relu): ``(dx, dw, db, c, dc,
+    stats)``, with what the dc pass made kept for the GP's second order: c
+    (N, O, T) f32, dc (N, O, T) f32 and, in the in_relu mode, each row's
+    (mean, E[c²] − mean²) before the clamp, (N, O, 2) f32 (None in relu)."""
     check_inputs(what, x, w, b, dy, need_dw)
+    if keep and (mode == "linear" or not mode_arg):
+        raise ValueError(f"{what}: keep takes the critic's relu or in_relu mode, got {mode!r}")
     n, cin, t = x.shape
     o = w.shape[0]
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -382,9 +390,12 @@ def launch_bwd(entry: str, what: str, x, w, b, dy, mode: str, need_dx: bool, nee
         part = torch.empty(plan.part_shape, **f32)
     ws_numel = bwd_wsplit_numel(n, cin, o, t, mode, need_dx, x.dtype)
     ws = torch.empty(ws_numel, **f32) if ws_numel else None
+    c = torch.empty((n, o, t), **f32) if keep else None
+    stats = torch.empty((n, o, 2), **f32) if keep and mode == "in_relu" else None
     extra = (MODE_CODE[mode],) if mode_arg else ()
+    keep_args = (c, stats) if mode_arg else ()
     ptrs = [None if v is None else v.data_ptr()
-            for v in (x, w, b, dy, dx, dw, db, dc, part, ws)]
+            for v in (x, w, b, dy, dx, dw, db, dc, part, ws, *keep_args)]
     with torch.cuda.device(x.device):
         err = getattr(_build.library(), entry)(
             *ptrs, n, cin, o, t, *extra, plan.nsplit, DTYPE_CODE[x.dtype], _stream(x)
@@ -393,7 +404,7 @@ def launch_bwd(entry: str, what: str, x, w, b, dy, mode: str, need_dx: bool, nee
     count_launches(conv_plan(n, cin, o, t, mode, "dc", x.dtype), n)
     if need_dx:
         count_launches(conv_plan(n, cin, o, t, mode, "dx", x.dtype), n)
-    return dx, dw, db
+    return (dx, dw, db, c, dc, stats) if keep else (dx, dw, db)
 
 
 def on_cpu(x, what: str) -> bool:

@@ -348,7 +348,9 @@ def launches_per_step(cfg: TrainConfig) -> dict[str, int]:
     update runs one forward and backward (14 K1f, 14 K1b; K1f also runs in
     each critic iteration unless ``reuse_pred``) and one critic forward
     with the critic frozen, whose backward (5 K2dx) runs only under
-    ``fix_g_adversarial``.
+    ``fix_g_adversarial``.  The GP's second order runs K2dx's closed-form
+    vjp (``critic_layer_bwd_dx_vjp``) once per K2dx of its input gradient,
+    5 per critic iteration, except in bf16, which takes the plain vjp.
     """
     n = cfg.n_critic
     fwd, dx, dw = {"off": (15, 5 + 8 + 3, 10 + 4), "2b": (10, 5 + 4 + 3, 5 + 4),
@@ -359,4 +361,5 @@ def launches_per_step(cfg: TrainConfig) -> dict[str, int]:
         "critic_layer": fwd * n + 5,
         "critic_layer_bwd_dx": dx * n + (5 if cfg.fix_g_adversarial else 0),
         "critic_layer_bwd_dwdb": dw * n,
+        "critic_layer_bwd_dx_vjp": 0 if cfg.compute_dtype == "bfloat16" else 5 * n,
     }

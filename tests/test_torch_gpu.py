@@ -16,7 +16,8 @@ the flat count are exact, the other tests away from their thresholds), the
 normalized windows within 1e-6 (the plain version's exact f32
 operations), NaN in the same places, at any T.
 
-The backward kernels (K1b, K2dx, K2dw) and the critic's forward (K2f) are
+The backward kernels (K1b, K2dx, K2dw, and K2dx's closed-form vjp, the
+gradient penalty's second order) and the critic's forward (K2f) are
 held by the relative L2 error ``|got - want| / |want|``: 1e-4 for forward
 outputs in f32; 1e-3 for backward outputs in f32, where a relu mask can
 flip at an x̂ within f32 rounding of 0 and move one dc element by
@@ -484,13 +485,14 @@ def test_generator_backward_reaches_every_parameter(cuda):
 def test_critic_gradient_penalty_matches_float64_plain(cuda):
     """The GP and its parameter gradient (second order through BwdDx) on the
     kernels, in f32, against the same critic through the plain formulas in
-    float64 on the card, on the kernel path's relu masks: K2f's for the
-    layers and their first-order gradients, the plain f32 version's for the
-    second order (the vjp that BwdDx differentiates).  A mask that flips
-    between f32 and float64 moves these gradients by about 2e-3 (on an
-    H100 the f32 plain path sat 2.4e-3 from float64's own masks, one flip
-    at 256 -> 512), so the kernel path is held on its own masks, and its
-    masks to float64's own within MASK_FLIP_SHARE."""
+    float64 on the card, on the kernel path's relu masks: K2f's, which
+    K2dx's dc pass recomputes bit for bit, for the layers, their first-order
+    gradients and the second order (BwdDx's closed-form vjp differentiates
+    the masks K2dx applied).  A mask that flips between f32 and float64
+    moves these gradients by about 2e-3 (on an H100 the f32 plain path sat
+    2.4e-3 from float64's own masks, one flip at 256 -> 512), so the kernel
+    path is held on its own masks, and its masks to float64's own within
+    MASK_FLIP_SHARE."""
     critic = Critic(4, torch.Generator().manual_seed(7)).to(cuda)
     g = torch.Generator().manual_seed(8)
     scg, rhc, pred = (torch.rand(4, c, 750, generator=g).to(cuda) for c in (4, 1, 1))
@@ -510,20 +512,23 @@ def test_critic_gradient_penalty_matches_float64_plain(cuda):
     c64 = Critic(4, torch.Generator().manual_seed(7)).to(cuda, torch.float64)
     # the interpolant as gradient_penalty_from_eps forms it, through each path
     x = torch.cat((scg, eps * rhc + (1.0 - eps) * pred), dim=1)
-    masks, plain_masks, h, h64 = [], [], x, x.double()
+    masks, h, h64 = [], x, x.double()
     with torch.no_grad():
         for conv, conv64, mode in zip(critic.model.values(), c64.model.values(), LAYER_MODES):
             y = k2.critic_layer(h, conv.weight, conv.bias, mode)
             y64 = k2.critic_layer_plain(h64, conv64.weight, conv64.bias, mode)
             masks.append(y > 0)
-            plain_masks.append(k2.critic_layer_plain(h, conv.weight, conv.bias, mode) > 0)
             if mode != "linear":
                 _masks_agree(y, y64)
             h, h64 = y, y64
-    gp_p, grads_p = gp_and_grads(c64, _critic_f64_on_masks(c64, masks, plain_masks),
+    gp_p, grads_p = gp_and_grads(c64, _critic_f64_on_masks(c64, masks),
                                  *(v.double() for v in (scg, rhc, pred, eps)))
     assert abs(gp_k - gp_p) <= FWD_TOL * abs(gp_p)
-    _grads_close(grads_k, grads_p, [n for n, _ in critic.named_parameters()])
+    names = [n for n, _ in critic.named_parameters()]
+    rels = {n: _rel(g, r) for n, g, r in zip(names, grads_k, grads_p) if g.dim() > 1}
+    print(f"critic weight gradients of the GP against float64: worst "
+          f"{max(rels.items(), key=lambda kv: kv[1])}")
+    _grads_close(grads_k, grads_p, names)
 
 
 def _layer_f64_with_mask(x, w, b, mode, mask):
@@ -539,25 +544,25 @@ def _layer_f64_with_mask(x, w, b, mode, mask):
 
 class _BwdDxF64(torch.autograd.Function):
     """BwdDx in float64: the input gradient on the masks ``mask`` (K2dx's:
-    K2f's), and its own gradient on ``plain_mask`` (the plain f32
-    version's, which BwdDx's vjp of critic_layer_bwd_dx_plain recomputes)."""
+    K2f's), and its own gradient on the same masks (those BwdDx's
+    closed-form vjp differentiates)."""
 
     @staticmethod
-    def forward(ctx, x, w, b, dy, mode, mask, plain_mask):
+    def forward(ctx, x, w, b, dy, mode, mask):
         ctx.save_for_backward(x, w, b, dy)
-        ctx.mode, ctx.plain_mask = mode, plain_mask
+        ctx.mode, ctx.mask = mode, mask
         return _bwd_f64_with_masks(x, w, b, dy, mode, mask)[1]
 
     @staticmethod
     def backward(ctx, ct):
         with torch.enable_grad():
             ins = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-            out = _bwd_f64_with_masks(*ins, ctx.mode, ctx.plain_mask)[1]
+            out = _bwd_f64_with_masks(*ins, ctx.mode, ctx.mask)[1]
             grads = torch.autograd.grad(out, ins, ct, allow_unused=True)
-        return (*grads, None, None, None)
+        return (*grads, None, None)
 
 
-def _critic_f64_on_masks(c64, masks, plain_masks):
+def _critic_f64_on_masks(c64, masks):
     """A critic function (as Critic.forward with ``ct``) for the float64
     critic ``c64`` on the relu masks of each layer."""
 
@@ -568,9 +573,8 @@ def _critic_f64_on_masks(c64, masks, plain_masks):
             inputs.append(h)
             h = _layer_f64_with_mask(h, conv.weight, conv.bias, mode, mask)
         g = ct
-        for (conv, mode), h_in, mask, plain_mask in reversed(
-                list(zip(layers, inputs, masks, plain_masks))):
-            g = _BwdDxF64.apply(h_in, conv.weight, conv.bias, g, mode, mask, plain_mask)
+        for (conv, mode), h_in, mask in reversed(list(zip(layers, inputs, masks))):
+            g = _BwdDxF64.apply(h_in, conv.weight, conv.bias, g, mode, mask)
         return h, g
 
     return forward
@@ -716,6 +720,79 @@ def _dwdb_f64_with_masks(x, w, b, dy, mode, mask):
     dc, _ = _bwd_f64_with_masks(x, w, b, dy, mode, mask)
     dw = torch.nn.grad.conv1d_weight(x.double(), w.shape, dc.to(x.dtype).double(), padding=1)
     return dw, dc.sum(dim=(0, 2))
+
+
+@pytest.mark.parametrize("ci,o,mode", CRITIC_LAYERS)
+def test_bwd_dx_vjp_against_float64(cuda, ci, o, mode):
+    """BwdDx's backward, K2dx's closed-form vjp (the GP's second order), on
+    the card at the critic's layers, T = 750, against the vjp of the plain
+    input gradient in float64 on the kernels' own relu masks (K2f's, which
+    K2dx's dc pass recomputes bit for bit): each gradient within BWD_TOL,
+    an in_relu bias gradient over |Σ_{n,t} |d_c|| (it sums to zero), None
+    where the gradient is zero (x and b outside in_relu); one launch of the
+    vjp a node, no cuDNN conv, and the same bits on a repeat."""
+    import torch.nn.functional as F
+
+    from scgrhc_torch.ops.kernels import conv3
+
+    x, w, b, dy = _bwd_inputs(cuda, 4, ci, o, 750, seed=ci + o)
+    u = torch.from_numpy(np.random.default_rng(ci + 7).standard_normal(x.shape)
+                         .astype(np.float32)).to(cuda)
+
+    def vjp():
+        ins = [t.clone().requires_grad_() for t in (x, w, b, dy)]
+        return torch.autograd.grad(k2.fused_layer_bwd_dx(*ins, mode), ins, u,
+                                   allow_unused=True)
+
+    before = (k2.critic_layer_bwd_dx.launches, k2.critic_layer_bwd_dx_vjp.launches)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = vjp()
+        torch.cuda.synchronize()
+    assert (k2.critic_layer_bwd_dx.launches, k2.critic_layer_bwd_dx_vjp.launches) == (
+        before[0] + 1, before[1] + 1)
+    names = [e.key for e in prof.key_averages()]
+    assert any("dw_" in n for n in names), names  # the profiler saw the kernels
+    assert not [n for n in names if "xmma" in n or "cudnn" in n], names
+    y = k2.critic_layer(x, w, b, mode)
+    if mode != "linear":
+        _masks_agree(y, k2.critic_layer_plain(x, w, b, mode))
+    ins64 = [t.double().requires_grad_() for t in (x, w, b, dy)]
+    want = torch.autograd.grad(_bwd_f64_with_masks(*ins64, mode, y > 0)[1], ins64,
+                               u.double(), allow_unused=True)
+    floor = 1e-30
+    if mode == "in_relu":
+        x64, w64, b64, dy64 = (t.detach() for t in ins64)
+        c64 = conv3.conv(x64, w64, b64)
+        v64 = F.conv1d(u.double(), w64, padding=1)
+        d_c = k2.dx_vjp_row_plain(c64, k2.row_stats_plain(c64), dy64, v64, mode)[1]
+        floor = float(d_c.abs().sum(dim=(0, 2)).norm())
+    for name, g, r in zip(("x", "w", "b", "dy"), got, want):
+        assert (g is None) == (r is None) == (mode != "in_relu" and name in "xb"), name
+        if g is not None:
+            assert g.dtype == torch.float32 and g.shape == r.shape, name
+            rel = _rel(g, r, floor if name == "b" else 1e-30)
+            assert rel <= BWD_TOL, (name, rel)
+    again = vjp()
+    assert all(a is None if g is None else torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("mode", k2.MODES)
+def test_bwd_dx_bf16_keeps_the_plain_vjp(cuda, mode):
+    """In bf16 BwdDx's backward is the plain version's vjp (``_plain_vjp``),
+    chosen by the dtype: the same bits as calling it, and no launch of the
+    f32 closed form."""
+    import types
+
+    x, w, b, dy = _bwd_inputs(cuda, 4, 128, 256, 750, dtype=torch.bfloat16)
+    u = torch.randn(x.shape, generator=torch.Generator().manual_seed(3)).to(cuda, torch.bfloat16)
+    ins = [t.clone().requires_grad_() for t in (x, w, b, dy)]
+    before = k2.critic_layer_bwd_dx_vjp.launches
+    got = torch.autograd.grad(k2.fused_layer_bwd_dx(*ins, mode), ins, u, allow_unused=True)
+    assert k2.critic_layer_bwd_dx_vjp.launches == before
+    ctx = types.SimpleNamespace(saved_tensors=(x, w, b, dy), needs_input_grad=(True,) * 4,
+                                mode=mode)
+    want = k2._plain_vjp(ctx, k2.critic_layer_bwd_dx_plain, (u,))[:4]
+    assert all(g is None if r is None else torch.equal(g, r) for g, r in zip(got, want))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
