@@ -118,7 +118,11 @@ It also checks the build: tensor-core instructions (HMMA, and HGMMA in the
 f32 core's warpgroup-MMA instances) in every conv core instance of both
 layers' sources, and no kernel of the FMA conv core that the tensor-core
 core replaced; the training phase prints the conv launches by path
-(``conv3.path_launches``) and fails if an f32 one took mma.sync.
+(``conv3.path_launches``) and fails if an f32 one took mma.sync, and the
+dw launches by path (``conv3.dw_path_launches``), failing unless every
+f32 dw from 16 output channels took the warpgroup MMA, and those by how
+they copied their rows (``conv3.dw_copy_launches``), failing if one took
+cp.async where a tensor map fits but was not made.
 
 Any failure exits non-zero before the result lines; without a CUDA device,
 or without the package beside it, it exits non-zero at once.
@@ -284,8 +288,10 @@ def _kernel_label(kernel: str, args: str) -> str:
     """A short name for a conv3.cuh kernel instance from its mangled
     template arguments."""
     dtype = "bf16" if "nv_bfloat16" in args else "f32"
-    if kernel == "dw_mma_kernel":
-        return f"<{dtype}, {8 if 'Lb1E' in args else 4}-byte copies>"
+    if kernel == "dw_mma_kernel" and "DwWgTile" in args:
+        return "<f32, wgmma>"
+    if kernel == "dw_mma_kernel":  # DwTile: bf16 only
+        return f"<bf16, {8 if 'Lb1E' in args else 4}-byte copies>"
     if kernel == "conv_mma_kernel" and "WgTile" in args:
         bn, mw, stages, pw = re.search(r"WgTileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", args).groups()
         return (f"<f32, wgmma, {bn} cols x {128 * int(mw)} steps, {stages} stages, {pw} "
@@ -321,11 +327,11 @@ def fma_core_left(smoke: Smoke, *texts: str) -> list[str]:
 def sass_hmma(smoke: Smoke, lib_path) -> tuple[dict | None, str]:
     """Tensor-core instructions in the built library's SASS (``cuobjdump
     -sass``): HMMA (mma.sync) and HGMMA (the warpgroup MMA of the f32
-    conv core), per instance of the dw stage's and the conv core's
-    kernels, in the generator's and the critic's sources; every
+    conv core and dw stage), per instance of the dw stage's and the conv
+    core's kernels, in the generator's and the critic's sources; every
     dw_mma_kernel and conv_mma_kernel instance must hold some, and each
-    source must hold conv_mma_kernel instances on HGMMA.  None (and no
-    SASS) when the toolkit has no cuobjdump."""
+    source must hold conv_mma_kernel and dw_mma_kernel instances on HGMMA.
+    None (and no SASS) when the toolkit has no cuobjdump."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     tool = tool if os.path.isfile(tool) else shutil.which("cuobjdump")
     if tool is None:
@@ -337,7 +343,7 @@ def sass_hmma(smoke: Smoke, lib_path) -> tuple[dict | None, str]:
     for line in sass.splitlines():
         if "Function :" in line:
             m = re.search(r"(dw_mma_kernel|dw_stream_kernel|conv_mma_kernel|conv_stream_kernel|"
-                          r"dx_stream_kernel)I(\w*?)EvPK", line)
+                          r"dx_stream_kernel)I(\w*?)Ev(?:PK|\d+CUtensorMap)", line)
             name = None
             if m:
                 tu = "critic_layer" if "critic_layer" in line else "conv_in_relu"
@@ -349,9 +355,10 @@ def sass_hmma(smoke: Smoke, lib_path) -> tuple[dict | None, str]:
     for tu in ("conv_in_relu", "critic_layer"):
         smoke.check(any(k.startswith("conv_mma_kernel") and k.endswith(f"({tu})") for k in tc),
                     f"sass: no conv_mma_kernel instance from {tu}.cu in the library")
-        smoke.check(any(k.startswith("conv_mma_kernel<f32, wgmma") and k.endswith(f"({tu})")
-                        for k in tc),
-                    f"sass: no warpgroup-MMA conv_mma_kernel instance from {tu}.cu")
+        for kernel in ("conv_mma_kernel", "dw_mma_kernel"):
+            smoke.check(any(k.startswith(f"{kernel}<f32, wgmma") and k.endswith(f"({tu})")
+                            for k in tc),
+                        f"sass: no warpgroup-MMA {kernel} instance from {tu}.cu")
     smoke.check(all(v > 0 for v in tc.values()),
                 f"sass: tensor-core kernel instances without HMMA or HGMMA: "
                 f"{ {k: v for k, v in tc.items() if v == 0} }")
@@ -367,13 +374,13 @@ ROW_MODES = ("in_relu fwd", "relu fwd", "in_relu dc", "relu dc")  # conv3.cuh: R
 
 
 def ptxas_lines(log: str) -> dict:
-    """Registers and spill bytes per kernel instance of the conv core, in
-    the generator's and the critic's sources, from the build's ``-Xptxas
-    -v`` lines."""
+    """Registers and spill bytes per kernel instance of the conv core and
+    the dw stage's tensor-core paths, in the generator's and the critic's
+    sources, from the build's ``-Xptxas -v`` lines."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?(conv_mma_kernel|conv_stream_kernel|"
-                      r"dx_stream_kernel|row_kernel)I(\w*?)EEv\w*'", line)
+                      r"dx_stream_kernel|row_kernel|dw_mma_kernel)I(\w*?)EEv\w*'", line)
         if "Compiling entry function" in line:
             name = None
             tu = next((u for u in ("conv_in_relu", "critic_layer") if u in line), None)
@@ -1014,7 +1021,8 @@ def check_critic_layers(torch, smoke: Smoke) -> dict:
             "critic_layer_bwd_dwdb": {core: conv_flops * recompute},
         }
         dwdb = units["critic_layer_bwd_dwdb"]
-        dwdb[dw_path] = dwdb.get(dw_path, 0.0) + conv_flops
+        dw_unit = "mma" if dw_path == "wgmma" else dw_path  # both on the tensor cores
+        dwdb[dw_unit] = dwdb.get(dw_unit, 0.0) + conv_flops
         dwdb["fma"] = dwdb.get("fma", 0.0) + N_TRAIN * o * T
         for name, (kern, plain, floors, flops, nbytes, lib, kind) in cases.items():
             what = f"{name} {mode} {cin}x{o}x{T}"
@@ -1226,12 +1234,16 @@ def train_end_to_end(torch, smoke: Smoke, root: str, card: str) -> dict:
 
     loader, n_windows = write_train_data(root)
     fns = {k: fn for k, fn in _kernel_counters().items() if k in TRAIN_KERNELS}
+    copies0 = {}  # conv3.dw_copy_launches() as the last drive began
 
     def drive(params):
         for fn in fns.values():
             fn.launches = 0
         for path in conv3.path_launches:
             conv3.path_launches[path] = 0
+        for path in conv3.dw_path_launches:
+            conv3.dw_path_launches[path] = 0
+        copies0.update(conv3.dw_copy_launches())
         t0 = time.perf_counter()
         stats = train_run.run(params, plot=False)
         torch.cuda.synchronize()
@@ -1256,8 +1268,25 @@ def train_end_to_end(torch, smoke: Smoke, root: str, card: str) -> dict:
                 f"f32 training's conv launches by path {paths}")
     print(f"train: conv launches by path (conv3.path_launches) {paths}, a step "
           + ", ".join(f"{k} {v / steps:g}" for k, v in paths.items()), flush=True)
+    # every f32 dw from 16 output channels on the warpgroup MMA, the score
+    # layer's (three per critic update) on the stream, none on mma.sync
+    dw_paths = dict(conv3.dw_path_launches)
+    want_dw = {"mma": 0, "stream": steps * 3 * N_CRITIC}
+    smoke.check(dw_paths["wgmma"] > 0 and all(dw_paths[k] == v for k, v in want_dw.items()),
+                f"f32 training's dw launches by path {dw_paths}, expected {want_dw} and wgmma")
+    print(f"train: dw launches by path (conv3.dw_path_launches) {dw_paths}, a step "
+          + ", ".join(f"{k} {v / steps:g}" for k, v in dw_paths.items()), flush=True)
+    # each of them copied its rows by tensor maps or, where the shape or the
+    # alignment gives none, by cp.async; never by cp.async for want of a map
+    # that fits (less than half the rate)
+    copies = {k: v - copies0[k] for k, v in conv3.dw_copy_launches().items()}
+    smoke.check(sum(copies.values()) == dw_paths["wgmma"] and copies["tma"] > 0
+                and copies["cp.async, no map made"] == 0,
+                f"f32 training's warpgroup-MMA dw launches by copy {copies}")
+    print(f"train: warpgroup-MMA dw launches by copy (conv3.dw_copy_launches) {copies}, a step "
+          + ", ".join(f"{k} {v / steps:g}" for k, v in copies.items()), flush=True)
     report.update(launches=launches, steps=steps, wall_s=wall, epochs=stats["epochs"],
-                  path_launches=paths)
+                  path_launches=paths, dw_path_launches=dw_paths, dw_copy_launches=copies)
     keys = {"format", "start_time", "epoch", "g_losses", "d_losses", "g_state_dict",
             "d_state_dict", "g_optimizer_state_dict", "d_optimizer_state_dict"}
     for e in (0, 1):
@@ -4149,7 +4178,8 @@ def main() -> int:
           f"{max(spills, default=0)} bytes); full log in {OUT_DIR}/chip_smoke.json", flush=True)
 
     core = ptxas_lines(build.log)
-    for kernel in ("conv_mma_kernel", "conv_stream_kernel", "dx_stream_kernel", "row_kernel"):
+    for kernel in ("conv_mma_kernel", "conv_stream_kernel", "dx_stream_kernel", "row_kernel",
+                   "dw_mma_kernel"):
         for tu in ("conv_in_relu", "critic_layer"):
             recs = {k: v for k, v in core.items() if k.startswith(kernel) and k.endswith(f"({tu})")}
             regs = [v["registers"] for v in recs.values()]

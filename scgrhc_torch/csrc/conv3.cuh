@@ -44,13 +44,25 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 #include <type_traits>
 
 namespace scgrhc {
+
+// The f32 dw stage's launches by how its rows were copied, over every
+// source of the library (critic_layer.cu: scgrhc_dw_copy_launches): by
+// the TMA unit's boxes; by cp.async where no tensor map fits the shape
+// or the alignment (odd T, an odd channel count with row pairs, tensors
+// not 16-byte aligned); by cp.async where a map fits but could not be
+// made (the driver gave no cuTensorMapEncodeTiled, or it failed).
+enum DwCopy { kDwCopyTma = 0, kDwCopyRows = 1, kDwCopyNoMap = 2 };
+inline std::atomic<long long> dw_copy_launches[3];
+
 namespace {  // internal linkage: each including source has its own copy
 
 constexpr int kThreads = 256;
@@ -91,33 +103,73 @@ __global__ void dc_linear_kernel(const T* __restrict__ dy, float* __restrict__ d
 // with M = O, N = 3 * C_in and K = N * T, both operands contiguous along
 // K.  Stage 1 writes per-split partial sums part[z][o][j], j = i * 3 + k
 // (dw's layout), over the samples [n*z/nsplit, n*(z+1)/nsplit); stage 2
-// (dw_reduce_kernel) adds the splits in split order.  Two stage-1 paths:
+// (dw_reduce_kernel) adds the splits in split order.  Three stage-1 paths,
+// chosen by dw_plan (conv3.py's dw_plan mirrors it) from the dtype and
+// the number of output channels:
 //
-// O >= kDwStreamBelow (every generator layer; the critic's 5->64 ...
-// 256->512): dw_mma_kernel, the product on tensor cores with mma.sync.
-//   Bound: operations.  256->512 at N=32, T=750 is 18.9 GFLOP against 74 MB
-//   of dc and x: 0.11 ms at the 3xTF32 rate (495/3 TFLOP/s), 0.02 ms of
-//   bytes.  The f32 FMA kernel it replaces ran at 11 % of the f32 peak,
-//   held back by scalar shared loads, a gathered im2col (x fetched three
-//   times) and no overlap of loads and math.
+// f32 from kDwStreamBelow output channels (every generator layer; the
+// critic's 4->64 .. 256->512 and the linear dw of K2dx's vjp):
+// dw_mma_kernel<DwWgTile>, the product on Hopper's warpgroup MMA (wgmma
+// m64n64k8, TF32).
+//   Bound: operations.  A train.w06 step (B 64, T 750) runs 720 GFLOP of
+//   dw, 4.36 ms at the 3xTF32 rate (495/3 TFLOP/s); 256->512 at N = 64 is
+//   37.7 GFLOP against 147 MB of dc and x: 0.229 ms against 0.044.
+//   Design (its note is above DwWgTile): a block of three consumer
+//   warpgroups (one a tap: A = x at the tap's shift, from registers, split
+//   once into big + small) and a producer warpgroup (the TMA unit copies a
+//   stage's 64 x rows and 64 dc rows as 2-D boxes of tensor maps; the
+//   producers split dc into its big and small planes in wgmma's layout);
+//   tiles of 64 x 64 channels, stages of 64 steps, 3 a ring, summed in two
+//   batches of 32 steps that the stage's sums carry (from zero; 64 steps
+//   on the tensor cores at most), then added in f32; a persistent grid of
+//   one block an SM over (tile, split) items; setmaxnreg gives the
+//   consumers 136 registers (the producers keep 104).
+//   Timed on an H100 (bench/dw_tiles.cu, N = 64, ms with the reduce, %
+//   of the 3xTF32 rate; in brackets DwMain, the f32 mma.sync tiling this
+//   replaced): 256->512 at T = 744 0.433 (52 %; 1.044, 22 %), at T = 750
+//   0.448 (51 %; 1.040); 512->512 0.825 (55 %; 2.068); 512->256 0.447 (51
+//   %; 1.043); 256->256 0.236 (48 %; 0.527); 128->256 0.129 (44 %; 0.271);
+//   128->128 0.069 (41 %; 0.145); 64->128 0.044 (32 %; 0.083); 64->64
+//   0.043 (17 %; 0.050: one tile, 64 blocks).  At N = 32: 256->512 0.222
+//   (51 %; 0.531), 512->512 0.425 (54 %; 1.028), 128->128 0.042 (34 %;
+//   0.081), 64->128 0.038 (19 %; 0.049).  The first layers (3 * C_in = 9
+//   to 15 of a tile's 192 columns) at T = 750: 4->64 0.037 (0.042); 3->64
+//   and 5->64 0.062 (0.042), an odd channel count giving no row pairs and
+//   so cp.async rows.  A train.w06 step runs 3->64 once and 4->64 eight
+//   times: 0.02 ms less than on mma.sync, so f32 takes no second path.
+//   Tilings timed against this one and left out: the registers split
+//   evenly (128 a thread, no setmaxnreg) 9-15 % slower; a stage's 8 k8
+//   steps in one batch (152 registers) 4-5 %; stages of 32 steps 14-17 %;
+//   with 32-step stages, one copy a row a stage (by the TMA unit or by
+//   cp.async) in place of the maps' boxes held the kernel at 25-31 %; this
+//   tiling with cp.async rows (tensors not 16-byte aligned) 20-25 %.  Of
+//   the two maps of the product first timed (both with cp.async rows), dc
+//   from registers with x's three shifted images in shared memory (N = 96
+//   columns: 32 channels x 3 taps) ran at 25 % where this one ran at 23 %;
+//   with the copies left out (their cost measured so) this one ran at 52
+//   % against 47 %, its producers making two planes a stage where the
+//   other makes six.
+//
+// bf16 from kDwStreamBelow output channels: dw_mma_kernel<DwTile>, the
+// product on tensor cores with mma.sync (m16n8k16 on dc rounded to bf16,
+// the contract's rounding, and x; f32 accumulation).
+//   Bound: operations.  The f32 FMA kernel it first replaced ran at 11 % of
+//   the f32 peak, held back by scalar shared loads, a gathered im2col (x
+//   fetched three times) and no overlap of loads and math.
 //   Design (DwMain): a block owns 64 output channels x 32 input channels x
 //   3 taps, 8 warps of 32 rows x 8 channels x 3 taps.  64 rows: the O = 64
-//   layers would leave half of a 128-row tile empty.  Timed on an H100
-//   (bench/dw_tiles.cu): the fastest of five tilings at 64->128, where the
-//   larger tiles give too few blocks (1.6-2.7x slower); at 256->512 and
-//   512->512, 64 x 64 is 11 % faster and 128 x 64 (253 registers, one
-//   block an SM) 20 %.  Per slice of 64 steps it stages dc (64 x 64) and
-//   an x slab (32 x 68, with its zero halo) once, and the three taps read
-//   the slab at offsets 0, 1 and 2, so each value comes from device memory
-//   once per block.  A 3-stage cp.async ring (78 KB, two blocks an SM) keeps two
-//   slices in flight under the mma of a third, in 8-byte copies where T is
-//   even.
-//   f32: m16n8k8 TF32 with the 3xTF32 split (v = big + small; big*big +
-//   big*small + small*big), within f32 rounding of the f32 product; one
-//   TF32 pass would lose about three decimal digits; each slice's sums are
-//   added in f32 outside the tensor cores.  bf16: m16n8k16 on dc
-//   rounded to bf16 (the contract's rounding) and x; f32 accumulation.
-//   db comes from db_kernel, one more pass over dc.
+//   layers would leave half of a 128-row tile empty.  Timed on an H100 in
+//   f32 (bench/dw_tiles.cu before the warpgroup MMA): the fastest of five
+//   tilings at 64->128, where the larger tiles give too few blocks
+//   (1.6-2.7x slower); at 256->512 and 512->512, 64 x 64 is 11 % faster
+//   and 128 x 64 (253 registers, one block an SM) 20 %.  Per slice of 64
+//   steps it stages dc (64 x 64) and an x slab (32 x 68, with its zero
+//   halo) once, and the three taps read the slab at offsets 0, 1 and 2, so
+//   each value comes from device memory once per block.  A 3-stage
+//   cp.async ring (78 KB, two blocks an SM) keeps two slices in flight
+//   under the mma of a third, dc in 8-byte copies where T is even.
+//
+// On both tensor-core paths db comes from db_kernel, one more pass over dc.
 //
 // O < kDwStreamBelow (the critic's 512 -> 1 score layer): dw_stream_kernel.
 //   Bound: bytes.  x is 49 MB at N=32, T=750 against 3 FMAs per value:
@@ -134,7 +186,7 @@ __global__ void dc_linear_kernel(const T* __restrict__ dy, float* __restrict__ d
 constexpr int kDwStreamBelow = 16;  // O below this takes the streaming path
 constexpr int kDwStreamC = 32;      // input channels of a streaming block
 
-// The tensor-core path's tiling: a block of kThreads owns BM output
+// The bf16 mma.sync path's tiling: a block of kThreads owns BM output
 // channels x BC input channels (x 3 taps) and walks slices of BK steps
 // through a ring of STAGES buffers; WROWS warps split the rows, the rest
 // the channels.  A stage holds a[m][kk] = dc[s, o0 + m, t0 + kk] and
@@ -186,15 +238,6 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&v);
 }
 
-// c += a (16 x 8, row) * b (8 x 8, col), TF32 in, f32 accumulate
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 // c += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
                                          unsigned b1) {
@@ -206,13 +249,13 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
 }
 
 // Stage slice (sample s, steps t0 ..) of dc and x into the stage at st.
-// PAIRS (T even, pointers 8-byte aligned): dc, and x in f32, go in 8-byte
-// copies, each pair wholly inside or outside [0, T) as t0 is even.  bf16 x
-// is converted on its way in, with plain loads: cp.async cannot convert.
-template <typename Tile, typename T, bool PAIRS>
+// PAIRS (T even, pointers 8-byte aligned): dc goes in 8-byte copies, each
+// pair wholly inside or outside [0, T) as t0 is even.  bf16 x is converted
+// on its way in, with plain loads: cp.async cannot convert.
+template <typename Tile, bool PAIRS>
 __device__ __forceinline__ void dw_fill(float* st, const float* __restrict__ dc,
-                                        const T* __restrict__ x, int s, int t0, int o0,
-                                        int c0, int cin, int cout, int len) {
+                                        const __nv_bfloat16* __restrict__ x, int s, int t0,
+                                        int o0, int c0, int cin, int cout, int len) {
   constexpr int kLd = Tile::kLd, W = PAIRS ? 2 : 1;
   const float* dcs = dc + (size_t)s * cout * len;
 #pragma unroll
@@ -226,21 +269,12 @@ __device__ __forceinline__ void dw_fill(float* st, const float* __restrict__ dc,
       cp_async4(st + m * kLd + kk, src, in);
   }
   float* xs = st + Tile::BM * kLd;
-  const T* xn = x + (size_t)s * cin * len;
-  constexpr bool kF32 = std::is_same<T, float>::value;
-  constexpr int WX = kF32 ? W : 1;
+  const __nv_bfloat16* xn = x + (size_t)s * cin * len;
 #pragma unroll
-  for (int e = threadIdx.x; e < Tile::BC * kLd / WX; e += kThreads) {
-    const int c = e / (kLd / WX), j = e % (kLd / WX) * WX;
-    const int t = t0 - 2 + j;
+  for (int e = threadIdx.x; e < Tile::BC * kLd; e += kThreads) {
+    const int c = e / kLd, j = e % kLd, t = t0 - 2 + j;
     const bool in = c0 + c < cin && t >= 0 && t < len;
-    const T* src = in ? xn + (size_t)(c0 + c) * len + t : x;
-    if constexpr (!kF32)
-      xs[c * kLd + j] = in ? to_f32(*src) : 0.f;
-    else if constexpr (PAIRS)
-      cp_async8(xs + c * kLd + j, src, in);
-    else
-      cp_async4(xs + c * kLd + j, src, in);
+    xs[c * kLd + j] = in ? to_f32(xn[(size_t)(c0 + c) * len + t]) : 0.f;
   }
 }
 
@@ -248,79 +282,49 @@ __device__ __forceinline__ void dw_fill(float* st, const float* __restrict__ dc,
 // (wr * kMI + mi) * 16 .., channels (wc * kNI + ni) * 8 .., three taps.
 // g = lane / 4 and q = lane % 4 index the fragments as the PTX ISA lays
 // them out.
-template <typename Tile, typename T>
+template <typename Tile>
 __device__ __forceinline__ void dw_mma_slice(const float* st, int wr, int wc, int g, int q,
                                              float (&acc)[Tile::kMI][Tile::kNI][3][4]) {
   constexpr int kLd = Tile::kLd, kMI = Tile::kMI, kNI = Tile::kNI;
   const float* A = st + (wr * kMI * 16 + g) * kLd;
   // column j of x is step t0 - 2 + j: tap k of step t0 + kk reads kk + k + 1
   const float* X = st + (Tile::BM + wc * kNI * 8 + g) * kLd + 1;
-  if constexpr (std::is_same<T, float>::value) {
 #pragma unroll
-    for (int kk = 0; kk < Tile::BK; kk += 8) {
-      unsigned ab[kMI][4], as[kMI][4];
+  for (int kk = 0; kk < Tile::BK; kk += 16) {
+    unsigned a[kMI][4];
 #pragma unroll
-      for (int mi = 0; mi < kMI; ++mi) {
-        const float* r = A + mi * 16 * kLd + kk + q;
-        split_tf32(r[0], ab[mi][0], as[mi][0]);
-        split_tf32(r[8 * kLd], ab[mi][1], as[mi][1]);
-        split_tf32(r[4], ab[mi][2], as[mi][2]);
-        split_tf32(r[8 * kLd + 4], ab[mi][3], as[mi][3]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < kNI; ++ni) {
-#pragma unroll
-        for (int tap = 0; tap < 3; ++tap) {
-          const float* xr = X + ni * 8 * kLd + kk + q + tap;
-          unsigned b0, b0s, b1, b1s;
-          split_tf32(xr[0], b0, b0s);
-          split_tf32(xr[4], b1, b1s);
-#pragma unroll
-          for (int mi = 0; mi < kMI; ++mi) {
-            mma_tf32(acc[mi][ni][tap], as[mi], b0, b1);
-            mma_tf32(acc[mi][ni][tap], ab[mi], b0s, b1s);
-            mma_tf32(acc[mi][ni][tap], ab[mi], b0, b1);
-          }
-        }
-      }
+    for (int mi = 0; mi < kMI; ++mi) {
+      const float* r = A + mi * 16 * kLd + kk + 2 * q;
+      a[mi][0] = pack_bf16(r[0], r[1]);
+      a[mi][1] = pack_bf16(r[8 * kLd], r[8 * kLd + 1]);
+      a[mi][2] = pack_bf16(r[8], r[9]);
+      a[mi][3] = pack_bf16(r[8 * kLd + 8], r[8 * kLd + 9]);
     }
-  } else {
 #pragma unroll
-    for (int kk = 0; kk < Tile::BK; kk += 16) {
-      unsigned a[kMI][4];
+    for (int ni = 0; ni < kNI; ++ni) {
 #pragma unroll
-      for (int mi = 0; mi < kMI; ++mi) {
-        const float* r = A + mi * 16 * kLd + kk + 2 * q;
-        a[mi][0] = pack_bf16(r[0], r[1]);
-        a[mi][1] = pack_bf16(r[8 * kLd], r[8 * kLd + 1]);
-        a[mi][2] = pack_bf16(r[8], r[9]);
-        a[mi][3] = pack_bf16(r[8 * kLd + 8], r[8 * kLd + 9]);
-      }
+      for (int tap = 0; tap < 3; ++tap) {
+        const float* xr = X + ni * 8 * kLd + kk + 2 * q + tap;
+        const unsigned b0 = pack_bf16(xr[0], xr[1]);
+        const unsigned b1 = pack_bf16(xr[8], xr[9]);
 #pragma unroll
-      for (int ni = 0; ni < kNI; ++ni) {
-#pragma unroll
-        for (int tap = 0; tap < 3; ++tap) {
-          const float* xr = X + ni * 8 * kLd + kk + 2 * q + tap;
-          const unsigned b0 = pack_bf16(xr[0], xr[1]);
-          const unsigned b1 = pack_bf16(xr[8], xr[9]);
-#pragma unroll
-          for (int mi = 0; mi < kMI; ++mi) mma_bf16(acc[mi][ni][tap], a[mi], b0, b1);
-        }
+        for (int mi = 0; mi < kMI; ++mi) mma_bf16(acc[mi][ni][tap], a[mi], b0, b1);
       }
     }
   }
 }
 
-// Stage 1, tensor-core path: one block per (BM output channels, BC input
-// channels, sample split), walking the split's (sample, slice) pairs in
-// order through the cp.async ring.  Each slice's products sum from zero in
-// the tensor cores and are added to the block's sums with an f32 add: the
-// tensor cores' own accumulation rounds less finely than f32 (one running
-// sum over 5952 steps read 1.4e-5 from the f32 product at 512 -> 512).
-template <typename Tile, typename T, bool PAIRS>
+// Stage 1 in bf16 on mma.sync: one block per (BM output channels, BC
+// input channels, sample split), walking the split's (sample, slice) pairs
+// in order through the cp.async ring.  Each slice's products sum from zero
+// in the tensor cores and are added to the block's sums with an f32 add:
+// the tensor cores' own accumulation rounds less finely than f32 (one
+// running sum over 5952 steps read 1.4e-5 from the f32 product at 512 ->
+// 512).
+template <typename Tile, bool PAIRS>
 __global__ void __launch_bounds__(kThreads, Tile::MINB)
-dw_mma_kernel(const float* __restrict__ dc, const T* __restrict__ x, float* __restrict__ part,
-              int n, int cin, int cout, int len, int nsplit) {
+dw_mma_kernel(const float* __restrict__ dc, const __nv_bfloat16* __restrict__ x,
+              float* __restrict__ part, int n, int cin, int cout, int len, int nsplit) {
   extern __shared__ __align__(16) float dw_smem[];
   constexpr int kMI = Tile::kMI, kNI = Tile::kNI, S = Tile::STAGES;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -336,8 +340,8 @@ dw_mma_kernel(const float* __restrict__ dc, const T* __restrict__ x, float* __re
 #pragma unroll
   for (int st = 0; st < S - 1; ++st) {
     if (st < nq)
-      dw_fill<Tile, T, PAIRS>(dw_smem + st * Tile::kStage, dc, x, s0 + st / slices,
-                              st % slices * Tile::BK, o0, c0, cin, cout, len);
+      dw_fill<Tile, PAIRS>(dw_smem + st * Tile::kStage, dc, x, s0 + st / slices,
+                           st % slices * Tile::BK, o0, c0, cin, cout, len);
     cp_async_commit();
   }
   for (int i = 0; i < nq; ++i) {
@@ -345,11 +349,11 @@ dw_mma_kernel(const float* __restrict__ dc, const T* __restrict__ x, float* __re
     __syncthreads();         // ... for every thread; slice i-1's stage is free
     const int next = i + S - 1;
     if (next < nq)
-      dw_fill<Tile, T, PAIRS>(dw_smem + next % S * Tile::kStage, dc, x, s0 + next / slices,
-                              next % slices * Tile::BK, o0, c0, cin, cout, len);
+      dw_fill<Tile, PAIRS>(dw_smem + next % S * Tile::kStage, dc, x, s0 + next / slices,
+                           next % slices * Tile::BK, o0, c0, cin, cout, len);
     cp_async_commit();
     float sl[kMI][kNI][3][4] = {};
-    dw_mma_slice<Tile, T>(dw_smem + i % S * Tile::kStage, wr, wc, g, q, sl);
+    dw_mma_slice<Tile>(dw_smem + i % S * Tile::kStage, wr, wc, g, q, sl);
 #pragma unroll
     for (int mi = 0; mi < kMI; ++mi)
 #pragma unroll
@@ -392,14 +396,15 @@ cudaError_t launch_dw_stage1(void (*kernel)(const float*, const T*, float*, int,
   return cudaGetLastError();
 }
 
-// Stage 1 on the tensor-core path with the tiling Tile.
-template <typename Tile, typename T>
-cudaError_t launch_dw_mma(const float* dc, const T* x, float* part, int n, int cin, int cout,
-                          int len, int nsplit, cudaStream_t stream) {
+// Stage 1 in bf16 on mma.sync with the tiling Tile.
+template <typename Tile>
+cudaError_t launch_dw_mma(const float* dc, const __nv_bfloat16* x, float* part, int n, int cin,
+                          int cout, int len, int nsplit, cudaStream_t stream) {
+  using T = __nv_bfloat16;
   const dim3 grid((cout + Tile::BM - 1) / Tile::BM, (cin + Tile::BC - 1) / Tile::BC, nsplit);
   const bool pairs = len % 2 == 0 && reinterpret_cast<uintptr_t>(dc) % 8 == 0 &&
                      reinterpret_cast<uintptr_t>(x) % 8 == 0;
-  const auto kernel = pairs ? &dw_mma_kernel<Tile, T, true> : &dw_mma_kernel<Tile, T, false>;
+  const auto kernel = pairs ? &dw_mma_kernel<Tile, true> : &dw_mma_kernel<Tile, false>;
   return launch_dw_stage1<T>(kernel, grid, Tile::kSmemBytes, dc, x, part, n, cin, cout, len,
                              nsplit, stream);
 }
@@ -1022,6 +1027,448 @@ conv_mma_kernel(const float* __restrict__ src, const float* __restrict__ ws,
   }
 }
 
+// ---- dw's f32 stage 1 on the warpgroup MMA ----
+//
+// (The note above the dw pass says why and what was timed.)  The product
+// dw[o, i, k] = sum_t dc[o, t] * x[i, t + k - 1] on wgmma m64n64k8 (TF32,
+// K = steps): A = x at the tap's shift, from registers (M = 64 input
+// channels), B = dc's big and small planes in shared memory (N = 64 output
+// channels); three consumer warpgroups, one a tap, share each stage's dc.
+//
+// The TMA unit copies a stage's 64 rows of x and of dc as 2-D boxes of a
+// tensor map.  A map's row stride must be a multiple of 16 bytes, which T
+// = 750 or 746 steps (3000, 2984 bytes) is not, so where T = 2 (mod 4)
+// the map's rows are row pairs (2 T steps, the even row then the odd) and
+// a stage takes two boxes a tensor, the even rows and the odd rows; T = 0
+// (mod 4) takes one box of plain rows (fold 1 row a map row, or 2).  A
+// box must also start at a multiple of 4 steps of its map row, so x's box
+// starts at t0 - 4, and an odd row's boxes 2 steps early.  A box reads
+// zeros outside the map, but a paired row's neighbour inside it: the
+// producers zero those values of x (at a sample's first and last steps)
+// and mask dc's past T.  Where a map cannot serve (T odd, an odd channel
+// count with fold 2, tensors not 16-byte aligned) the rows go by cp.async,
+// zero-filled, in the fold 1 layout.
+
+// The tiling of the f32 dw stage (conv3.py: DW_WG_TILE_O, DW_WG_TILE_C):
+// 64 output channels x 64 input channels (x 3 taps) a tile, 3 stages of
+// 64 steps filled by 4 producer warps, each stage's products issued in
+// two batches of 4 k8 steps (the A fragments of a batch live in registers
+// until its wgmma complete), 136 registers a consumer thread by setmaxnreg
+// (the producers keep the rest).  A stage holds B's big and small planes
+// (kPlane floats each; k8 step kb's 64 x 8 block at kb * 512, in wgmma's
+// K-major core matrices: element (n, c) at (n / 8) * 64 + (c / 4) * 32 +
+// (n % 8) * 4 + c % 4), then x (64 rows of kXCols floats: steps t0 - 4 +
+// j, an odd row of fold 2 t0 - 2 + j) and dc (64 rows of kDCols: steps t0
+// + j, an odd row of fold 2 t0 - 2 + j), each as fold boxes of 64 / fold
+// rows (row r in box r % fold).  kXCols = 12 (mod 32) puts an A
+// fragment's 32 lanes on 32 banks: with fold 2 the fragment's rows g (+
+// 8) hold the even (odd) input channels, one box each.  Every box starts
+// at a 128-byte boundary.
+struct DwWgTile {
+  static constexpr int BK = 64, STAGES = 3;
+  static constexpr int NC = 3, PW = 4;  // consumer warpgroups (a tap each), producer warps
+  static constexpr int kThreads = 128 * NC + 32 * PW;
+  static constexpr int BO = 64, BI = 64, BN = 64;  // output, input channels; B's columns
+  static constexpr int kKB = BK / 8;               // k8 steps a stage
+  static constexpr int kKC = 4;                    // k8 steps a batch of wgmma
+  // registers a consumer thread takes by setmaxnreg, and a producer thread
+  // keeps (the rest of the 65,536)
+  static constexpr int kRegs = 136;
+  static constexpr int kProducerRegs = (65536 - 128 * NC * kRegs) / (32 * PW) / 8 * 8;
+  static constexpr int kXCols = BK + 12, kDCols = BK + 4;
+  static constexpr int kPlane = BK * BN;
+  static constexpr int kX = 2 * kPlane, kDc = kX + BI * kXCols;  // x's and dc's offsets
+  static constexpr int kStage = kDc + BO * kDCols;
+  static constexpr int kSmemBytes = (int)sizeof(float) * STAGES * kStage + 24 * STAGES;
+  static_assert(kKB % kKC == 0 && kXCols % 32 == 12 && (kStage * 4) % 128 == 0 &&
+                    (kX * 4) % 128 == 0 && (kDc * 4) % 128 == 0 &&
+                    (BI / 2 * kXCols * 4) % 128 == 0 && (BO / 2 * kDCols * 4) % 128 == 0 &&
+                    kSmemBytes <= 232448 && kRegs % 8 == 0 && kProducerRegs >= 24,
+                "DwWgTile: bad shape");
+};
+
+// A 2-D box copy of the tensor map at tmap, (column c0, map row c1) on,
+// by the TMA unit into shared memory at dst, completing on bar.
+__device__ __forceinline__ void tma_load_2d(unsigned dst, const void* tmap, int c0, int c1,
+                                            unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// Producer thread p's cp.async share of one stage's rows r0 + r (r < 64)
+// of sample s: x (X; steps t0 - 4 + j, j < kXCols) or dc (steps t0 + j, j
+// < kDCols), zero outside the tensor, in the fold 1 layout.  PAIRS: 8-byte
+// copies (T even, both tensors 8-byte aligned; t0 is even).
+template <typename Tile, bool X, bool PAIRS>
+__device__ __forceinline__ void dw_wg_fill(float* dst, const float* __restrict__ src, int s,
+                                           int r0, int nrows, int t0, int len, int p) {
+  constexpr int W = PAIRS ? 2 : 1, kCols = X ? Tile::kXCols : Tile::kDCols, kRow = kCols / W;
+  const float* base = src + (size_t)s * nrows * len;
+  for (int e = p; e < 64 * kRow; e += 32 * Tile::PW) {
+    const int r = e / kRow, j = (e - r * kRow) * W, t = (X ? t0 - 4 : t0) + j;
+    const bool in = r0 + r < nrows && t >= 0 && t < len;
+    const float* g = in ? base + (size_t)(r0 + r) * len + t : src;
+    if constexpr (PAIRS)
+      cp_async8(dst + r * kCols + j, g, in);
+    else
+      cp_async4(dst + r * kCols + j, g, in);
+  }
+}
+
+// The stage at st once its copies have landed, producer thread p's share:
+// with fold 2, x's values that a paired row's neighbour filled (the odd
+// rows' steps before 0, the even rows' from T on) set to 0; then B's
+// planes from dc: row n's 4 values at steps t0 + c .. t0 + c + 3 (0 from
+// T on), split v = big + small.  A warp takes 32 rows at one c, thread j
+// of each 8 consecutive threads row 8 nb + j: its loads hit distinct banks
+// (dc's rows of kDCols = 4 (mod 32) floats; with fold 2 the even and the
+// odd rows 2 floats apart), and its stores fill one core matrix's 128
+// bytes.
+template <typename Tile>
+__device__ __forceinline__ void dw_wg_expand(float* st, int t0, int len, int fold, int p) {
+  constexpr int BK = Tile::BK, BN = Tile::BN, kXCols = Tile::kXCols, kDCols = Tile::kDCols;
+  constexpr int kNp = 32 * Tile::PW;
+  static_assert(BN * BK / 4 % kNp == 0, "dw_wg_expand: ragged share");
+  if (fold == 2) {
+    float* xs = st + Tile::kX;
+    if (t0 == 0)  // the odd rows' steps -2 and -1 (columns 0 and 1)
+      for (int e = p; e < Tile::BI; e += kNp) xs[(Tile::BI / 2 + e / 2) * kXCols + e % 2] = 0.f;
+    const int j0 = len - t0 + 4, nj = kXCols - j0;  // the even rows' columns from step T on
+    for (int e = p; e < Tile::BI / 2 * nj; e += kNp) xs[e / nj * kXCols + j0 + e % nj] = 0.f;
+  }
+  const float* dcs = st + Tile::kDc;
+  const bool tail = t0 + BK > len;  // steps from T on: 0
+#pragma unroll
+  for (int k = 0; k < BN * BK / 4 / kNp; ++k) {
+    const int e = p + k * kNp;
+    const int j = e & 7, nb = (e >> 3) % (BN / 8), cg = (e >> 3) / (BN / 8);
+    const int n = nb * 8 + j, c = cg * 4, kb = cg / 2, h = cg % 2;
+    float v[4];
+    if (fold == 2) {  // an odd row starts 2 steps early
+      const int b = n % 2;
+      const float* r = dcs + b * (BN / 2) * kDCols + n / 2 * kDCols + c + 2 * b;
+      const float2 r01 = *reinterpret_cast<const float2*>(r);
+      const float2 r23 = *reinterpret_cast<const float2*>(r + 2);
+      v[0] = r01.x, v[1] = r01.y, v[2] = r23.x, v[3] = r23.y;
+    } else {
+      const float4 r = *reinterpret_cast<const float4*>(dcs + n * kDCols + c);
+      v[0] = r.x, v[1] = r.y, v[2] = r.z, v[3] = r.w;
+    }
+    unsigned big[4], small[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) split_tf32(tail && t0 + c + u >= len ? 0.f : v[u], big[u], small[u]);
+    float* dst = st + kb * BN * 8 + nb * 64 + h * 32 + j * 4;
+    *reinterpret_cast<float4*>(dst) = make_float4(__uint_as_float(big[0]), __uint_as_float(big[1]),
+                                                  __uint_as_float(big[2]), __uint_as_float(big[3]));
+    *reinterpret_cast<float4*>(dst + Tile::kPlane) =
+        make_float4(__uint_as_float(small[0]), __uint_as_float(small[1]),
+                    __uint_as_float(small[2]), __uint_as_float(small[3]));
+  }
+}
+
+// The tiles of the f32 dw stage for cin input and cout output channels.
+template <typename Tile>
+__host__ __device__ int dw_wg_tiles(int cin, int cout) {
+  return (cout + Tile::BO - 1) / Tile::BO * ((cin + Tile::BI - 1) / Tile::BI);
+}
+
+// A block's walk over its items (tile, split) and each item's (sample,
+// slice) pairs, in order: the fills of its stages.
+struct DwWalk {
+  int item, qi, nq, s0, o0, i0, z;
+};
+
+template <typename Tile>
+__device__ __forceinline__ void dw_walk_item(DwWalk& w, int n, int cin, int cout, int nsplit,
+                                             int slices) {
+  const int tiles = dw_wg_tiles<Tile>(cin, cout), nto = (cout + Tile::BO - 1) / Tile::BO;
+  for (; w.item < tiles * nsplit; w.item += gridDim.x) {
+    w.z = w.item / tiles;
+    const int tile = w.item - w.z * tiles;
+    w.o0 = tile % nto * Tile::BO, w.i0 = tile / nto * Tile::BI;
+    w.s0 = (int)((long long)n * w.z / nsplit);
+    w.nq = ((int)((long long)n * (w.z + 1) / nsplit) - w.s0) * slices;
+    w.qi = 0;
+    if (w.nq > 0) return;
+  }
+}
+
+// Stage 1, f32 on the warpgroup MMA: part[z][o][i * 3 + k] over the samples
+// of split z.  Items (tile, split), the output-channel tile fastest, then
+// the input-channel tile, then the split; block b takes items b, b +
+// gridDim.x, ...  Each item walks its (sample, slice) pairs in order
+// through the ring; each stage's products (BK steps) sum from zero in the
+// tensor cores and are added to the item's sums in f32 outside them.
+// fold: 1 or 2, the tensor maps tx and tdc serve (rows of fold T steps);
+// 0, they do not, and the rows go by cp.async (pairs: 8-byte copies).  A
+// stage goes through three mbarriers: landed (the copies: every producer
+// thread arrives, the first with the TMA unit's bytes), full (x patched
+// and the planes made: every producer thread) and empty (every consumer
+// warp).
+template <typename Tile>
+__global__ void __launch_bounds__(Tile::kThreads, 1)
+dw_mma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tdc,
+              const float* __restrict__ dc, const float* __restrict__ x, float* __restrict__ part,
+              int n, int cin, int cout, int len, int nsplit, int fold, int pairs) {
+  extern __shared__ __align__(128) float dwg_smem[];
+  constexpr int S = Tile::STAGES, BK = Tile::BK, KB = Tile::kKB, KC = Tile::kKC;
+  constexpr int BN = Tile::BN, R = BN / 2, kXCols = Tile::kXCols;
+  // the producers keep kLag stages of copies in flight and finish the
+  // oldest; two stages stay full ahead of the consumers
+  constexpr int kLag = S - 2;
+  const unsigned full0 = smem_addr(dwg_smem + S * Tile::kStage), empty0 = full0 + 8 * S;
+  const unsigned landed0 = empty0 + 8 * S;
+  const int slices = (len + BK - 1) / BK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full0 + 8 * s, 32 * Tile::PW);
+      mbar_init(empty0 + 8 * s, 4 * Tile::NC);
+      mbar_init(landed0 + 8 * s, 32 * Tile::PW);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int xf = fold == 2 ? 2 : 1;  // the smem layout's rows a box
+  int stage = 0;
+  unsigned phase = 0;
+
+  if (warp >= 4 * Tile::NC) {  // a producer: its share of each stage's copies, then of the rest
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(Tile::kProducerRegs));
+    const int p = threadIdx.x - 128 * Tile::NC;
+    DwWalk f{(int)blockIdx.x}, g{(int)blockIdx.x};  // the next fill, and the next to finish
+    dw_walk_item<Tile>(f, n, cin, cout, nsplit, slices);
+    dw_walk_item<Tile>(g, n, cin, cout, nsplit, slices);
+    // finish the fill g in ring slot at, its landed phase par
+    const auto finish = [&](int at, unsigned par) {
+      mbar_wait(landed0 + 8 * at, par);
+      dw_wg_expand<Tile>(dwg_smem + at * Tile::kStage, g.qi % slices * BK, len, fold, p);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(full0 + 8 * at);
+      if (++g.qi == g.nq) {
+        g.item += gridDim.x;
+        dw_walk_item<Tile>(g, n, cin, cout, nsplit, slices);
+      }
+    };
+    int filled = 0;  // stages filled; the last kLag of them not yet finished
+    while (f.item < dw_wg_tiles<Tile>(cin, cout) * nsplit) {
+      const int s = f.s0 + f.qi / slices, t0 = f.qi % slices * BK;
+      mbar_wait(empty0 + 8 * stage, phase ^ 1);
+      float* st = dwg_smem + stage * Tile::kStage;
+      const unsigned landed = landed0 + 8 * stage;
+      if (fold != 0) {
+        if (p == 0) {
+          mbar_expect_tx(landed, 4 * (Tile::BI * kXCols + Tile::BO * Tile::kDCols));
+          for (int b = 0; b < fold; ++b) {  // b: the odd rows' box
+            tma_load_2d(smem_addr(st + Tile::kX + b * (Tile::BI / 2) * kXCols), &tx,
+                        t0 - 4 + b * (len + 2), (s * cin + f.i0) / fold, landed);
+            tma_load_2d(smem_addr(st + Tile::kDc + b * (Tile::BO / 2) * Tile::kDCols), &tdc,
+                        b * (len - 2) + t0, (s * cout + f.o0) / fold, landed);
+          }
+        } else {
+          mbar_arrive(landed);
+        }
+      } else {
+        if (pairs) {
+          dw_wg_fill<Tile, true, true>(st + Tile::kX, x, s, f.i0, cin, t0, len, p);
+          dw_wg_fill<Tile, false, true>(st + Tile::kDc, dc, s, f.o0, cout, t0, len, p);
+        } else {
+          dw_wg_fill<Tile, true, false>(st + Tile::kX, x, s, f.i0, cin, t0, len, p);
+          dw_wg_fill<Tile, false, false>(st + Tile::kDc, dc, s, f.o0, cout, t0, len, p);
+        }
+        cp_async_arrive(landed);
+      }
+      if (++filled > kLag) finish((stage + S - kLag) % S, stage >= kLag ? phase : phase ^ 1);
+      if (++stage == S) {
+        stage = 0;
+        phase ^= 1;
+      }
+      if (++f.qi == f.nq) {
+        f.item += gridDim.x;
+        dw_walk_item<Tile>(f, n, cin, cout, nsplit, slices);
+      }
+    }
+    for (int r = filled < kLag ? filled : kLag; r > 0; --r)
+      finish((stage + S - r) % S, stage >= r ? phase : phase ^ 1);
+    // every stage released before the warp leaves
+    for (int i = 0; i < S; ++i) {
+      mbar_wait(empty0 + 8 * stage, phase ^ 1);
+      if (++stage == S) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(Tile::kRegs));
+  // a consumer: warp wq = warp % 4 of warpgroup wg (tap wg) holds 16 input
+  // channels of its m64 tile, i0 + wq * 16 on: its fragments' rows g and g
+  // + 8 are the channels g and g + 8 of them, with fold 2 the channels 2g
+  // and 2g + 1 (the even and the odd rows' boxes).  Tap wg of step t0 + c
+  // reads x's column c + wg + 3 of a row (of an odd row of fold 2, c + wg +
+  // 1).
+  const int wg = warp >> 2, g = lane >> 2, q = lane & 3, wq = warp & 3;
+  const float* const x0 = dwg_smem + Tile::kX + wg + q;
+  const int a_lo = xf == 2 ? (wq * 8 + g) * kXCols + 3
+                           : (wq * 16 + g) * kXCols + 3;  // row g's offset from x0
+  const int a_hi = xf == 2 ? (Tile::BI / 2 + wq * 8 + g) * kXCols + 1
+                           : (wq * 16 + g + 8) * kXCols + 3;  // row g + 8's
+  const int ch_lo = xf == 2 ? wq * 16 + 2 * g : wq * 16 + g;  // their channels in the tile
+  const int ch_hi = xf == 2 ? ch_lo + 1 : ch_lo + 8;
+  float acc[R], sl[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) sl[i] = 0.f;
+  DwWalk w{(int)blockIdx.x};
+  for (dw_walk_item<Tile>(w, n, cin, cout, nsplit, slices);
+       w.item < dw_wg_tiles<Tile>(cin, cout) * nsplit;) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[i] = 0.f;
+    for (int qi = 0; qi < w.nq; ++qi) {
+      mbar_wait(full0 + 8 * stage, phase);
+      const unsigned wb = smem_addr(dwg_smem + stage * Tile::kStage);
+      const float* lo = x0 + stage * Tile::kStage + a_lo;
+      const float* hi = x0 + stage * Tile::kStage + a_hi;
+#pragma unroll
+      for (int k0 = 0; k0 < KB; k0 += KC) {  // a batch of KC k8 steps
+        unsigned ab[KC][4], as[KC][4];
+#pragma unroll
+        for (int kc = 0; kc < KC; ++kc) {
+          const int c = (k0 + kc) * 8;
+          split_tf32(lo[c], ab[kc][0], as[kc][0]);
+          split_tf32(hi[c], ab[kc][1], as[kc][1]);
+          split_tf32(lo[c + 4], ab[kc][2], as[kc][2]);
+          split_tf32(hi[c + 4], ab[kc][3], as[kc][3]);
+        }
+        wg_fence();
+#pragma unroll
+        for (int kc = 0; kc < KC; ++kc) {
+          const int kb = k0 + kc;
+          const uint64_t big = wg_desc(wb + kb * BN * 8 * 4);
+          const uint64_t small = wg_desc(wb + (Tile::kPlane + kb * BN * 8) * 4);
+          Wgmma<BN>::mma(sl, as[kc], big, kb > 0);  // the stage's sums start at 0
+          Wgmma<BN>::mma(sl, ab[kc], small, 1);
+          Wgmma<BN>::mma(sl, ab[kc], big, 1);
+        }
+        wg_commit();
+        wg_wait();
+#pragma unroll
+        for (int i = 0; i < R; ++i) wg_hold(sl[i]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * stage);  // the stage is free
+#pragma unroll
+      for (int i = 0; i < R; ++i) acc[i] += sl[i];
+      if (++stage == S) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    // d[4j + e]: fragment row g (+ 8 for e >= 2), output channel o0 + 8j +
+    // 2q + (e & 1)
+    const int ncols = 3 * cin;
+    float* pz = part + (size_t)w.z * cout * ncols;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = w.i0 + (e >> 1 ? ch_hi : ch_lo), o = w.o0 + 8 * j + 2 * q + (e & 1);
+        if (i < cin && o < cout) pz[(size_t)o * ncols + i * 3 + wg] = acc[4 * j + e];
+      }
+    w.item += gridDim.x;
+    dw_walk_item<Tile>(w, n, cin, cout, nsplit, slices);
+  }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link to
+// libcuda): null if the driver has none.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The map of an f32 (rows, len) tensor at src as rows of fold * len steps,
+// boxes of cols steps x 64 / fold rows; false if it cannot be made.
+bool dw_tensor_map(CUtensorMap* map, const float* src, long long rows, int len, int fold,
+                   int cols) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)fold * len, (cuuint64_t)(rows / fold)};
+  const cuuint64_t stride[1] = {(cuuint64_t)fold * len * sizeof(float)};
+  const cuuint32_t box[2] = {(cuuint32_t)cols, (cuuint32_t)(64 / fold)};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(src), dims, stride,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Lets the kernel K take smem bytes of dynamic shared memory (past 48 KB)
+// on the current device; the attribute is set on a device's first call
+// only, which keeps the host call off the launch path (and out of a CUDA
+// graph's capture).  Devices past the 64th set it on every call.
+template <auto K>
+cudaError_t allow_smem(int smem) {
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  const unsigned long long bit = dev < 64 ? 1ULL << dev : 0;
+  if (err != cudaSuccess || (done.load(std::memory_order_relaxed) & bit) != 0) return err;
+  err = cudaFuncSetAttribute(K, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return err;
+}
+
+// Stage 1 of dw in f32 on the warpgroup MMA with the tiling Tile: a
+// persistent grid of at most kWgBlocks blocks over the tiles x nsplit
+// items, the rows copied by the TMA unit where the tensor maps serve
+// (counted in dw_copy_launches).
+template <typename Tile>
+cudaError_t launch_dw_wgmma(const float* dc, const float* x, float* part, int n, int cin,
+                            int cout, int len, int nsplit, cudaStream_t stream) {
+  using Kernel = void (*)(CUtensorMap, CUtensorMap, const float*, const float*, float*, int, int,
+                          int, int, int, int, int);
+  constexpr Kernel kernel = dw_mma_kernel<Tile>;
+  const long long items = (long long)dw_wg_tiles<Tile>(cin, cout) * nsplit;
+  const uintptr_t a = reinterpret_cast<uintptr_t>(dc) | reinterpret_cast<uintptr_t>(x);
+  const int pairs = len % 2 == 0 && a % 8 == 0;
+  int fold = len % 4 == 0 ? 1 : 2;
+  if (len % 2 != 0 || a % 16 != 0 || (fold == 2 && (cin % 2 != 0 || cout % 2 != 0)) ||
+      (long long)n * (cin > cout ? cin : cout) >= (1LL << 31))
+    fold = 0;
+  CUtensorMap tx{}, tdc{};
+  DwCopy copy = fold != 0 ? kDwCopyTma : kDwCopyRows;
+  if (fold != 0 && !(dw_tensor_map(&tx, x, (long long)n * cin, len, fold, Tile::kXCols) &&
+                     dw_tensor_map(&tdc, dc, (long long)n * cout, len, fold, Tile::kDCols)))
+    fold = 0, copy = kDwCopyNoMap;
+  const cudaError_t e = allow_smem<kernel>(Tile::kSmemBytes);
+  if (e != cudaSuccess) return e;
+  kernel<<<(int)(items < kWgBlocks ? items : kWgBlocks), Tile::kThreads, Tile::kSmemBytes,
+           stream>>>(tx, tdc, dc, x, part, n, cin, cout, len, nsplit, fold, pairs);
+  dw_copy_launches[copy].fetch_add(1, std::memory_order_relaxed);
+  return cudaGetLastError();
+}
+
 // ---- bf16: mma.sync ----
 
 // The bf16 core's tiling (conv3.py: MMA_TILE_M, MMA_TILE_N): a block of
@@ -1537,8 +1984,39 @@ cudaError_t over_samples(int n, F f) {
   return cudaSuccess;
 }
 
-// The tiling of the tensor-core path (conv3.py: DW_TILE_O, DW_TILE_C).
+unsigned cdiv(long long a, long long b) { return (unsigned)((a + b - 1) / b); }
+
+template <typename T>
+constexpr bool kIsF32 = std::is_same<T, float>::value;
+
+// The tiling of the bf16 path on mma.sync (conv3.py: DW_TILE_O, DW_TILE_C).
 using DwMain = DwTile<64, 32, 64, 3, 2, 2>;
+
+enum ConvPath { kPathNone = 0, kPathMma = 1, kPathStream = 2, kPathWgmma = 3 };
+
+// dw's first stage for n samples (conv3.py's dw_plan mirrors it): its path
+// (below kDwStreamBelow output channels the stream; else f32 on the
+// warpgroup MMA, bf16 on mma.sync) and the sample splits that keep one
+// wave of blocks: four stream blocks an SM, one warpgroup-MMA block, two
+// DwMain blocks, as many as the samples allow.
+struct DwPlan {
+  int path;
+  int nsplit;
+};
+
+DwPlan dw_plan(int n, int cin, int cout, bool f32) {
+  int path, tiles, blocks;
+  if (cout < kDwStreamBelow) {
+    path = kPathStream, tiles = (int)cdiv(cin, kDwStreamC), blocks = 4 * kWgBlocks;
+  } else if (f32) {
+    path = kPathWgmma, tiles = dw_wg_tiles<DwWgTile>(cin, cout), blocks = kWgBlocks;
+  } else {
+    path = kPathMma, tiles = (int)(cdiv(cout, DwMain::BM) * cdiv(cin, DwMain::BC));
+    blocks = 2 * kWgBlocks;
+  }
+  const int nsplit = blocks / tiles < n ? blocks / tiles : n;
+  return {path, nsplit < 1 ? 1 : nsplit};
+}
 
 // Stage 1 of dw on the streaming path, with the vector width that x's
 // alignment and len allow (16 bytes at most).
@@ -1588,7 +2066,10 @@ cudaError_t launch_dw(const float* dcp, const T* xp, void* dw, void* db, void* p
               : launch_dw_stream<T, kDwStreamBelow - 1>(dcp, xp, partp, n, cin, cout, len,
                                                          nsplit, stream);
   } else {
-    err = launch_dw_mma<DwMain, T>(dcp, xp, partp, n, cin, cout, len, nsplit, stream);
+    if constexpr (kIsF32<T>)
+      err = launch_dw_wgmma<DwWgTile>(dcp, xp, partp, n, cin, cout, len, nsplit, stream);
+    else
+      err = launch_dw_mma<DwMain>(dcp, xp, partp, n, cin, cout, len, nsplit, stream);
     if (err != cudaSuccess) return err;
     db_kernel<<<cout, kThreads, 0, stream>>>(dcp, static_cast<float*>(db), n, cout, len);
     err = cudaGetLastError();
@@ -1605,7 +2086,6 @@ cudaError_t launch_dw(const float* dcp, const T* xp, void* dw, void* db, void* p
 // The conv passes of a layer: the forward (K1f, K2f), the recompute of c
 // at the head of the dc pass (K1b, K2dx, K2dw), and dx (K1b, K2dx).
 enum ConvPass { kPassFwd = 0, kPassDc = 1, kPassDx = 2 };
-enum ConvPath { kPathNone = 0, kPathMma = 1, kPathStream = 2, kPathWgmma = 3 };
 
 // A pass's launch plan for n samples (conv3.py's conv_plan mirrors it; the
 // launchers take the plan of each chunk of samples): the conv kernel's
@@ -1627,8 +2107,6 @@ struct ConvPlan {
   int row_parts;
   bool scratch;
 };
-
-unsigned cdiv(long long a, long long b) { return (unsigned)((a + b - 1) / b); }
 
 ConvPlan conv_plan(int n, int cin, int cout, int len, int mode, int pass, bool f32) {
   ConvPlan p{kPathNone, dim3(0, 0, 0), dim3(0, 0, 0), 0, 0, false};
@@ -1665,16 +2143,6 @@ ConvPlan conv_plan(int n, int cin, int cout, int len, int mode, int pass, bool f
 long long wsplit_numel(int kdim, int cols) {
   const int bn = wg_tile_n(cols);
   return (long long)cdiv(cols, bn) * cdiv(kdim, kWgBC) * 2 * 3 * bn * kWgBC;
-}
-
-// Lets the kernel K take smem bytes of dynamic shared memory (past 48 KB);
-// the attribute is set on the first call only, which keeps the host call
-// off the launch path (and out of a CUDA graph's capture).
-template <auto K>
-cudaError_t allow_smem(int smem) {
-  static const cudaError_t err =
-      cudaFuncSetAttribute(K, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  return err;
 }
 
 template <int BN>
@@ -1843,9 +2311,6 @@ cudaError_t launch_row_apply(const float* c, int ld, const float2* sums, T* y, i
       c, ld, sums, y, len, (float)count);
   return cudaGetLastError();
 }
-
-template <typename T>
-constexpr bool kIsF32 = std::is_same<T, float>::value;
 
 // The layer's forward (K1f: the in_relu mode; K2f): y (n, cout, len) in
 // T; c is the f32 scratch (n, cout, len) where conv_plan asks for one,

@@ -15,8 +15,9 @@
 // H100's ridge point; the backward does three times that (recompute, dx,
 // dw).  Every product runs on the tensor cores (3xTF32 for f32, which
 // keeps f32's accuracy, or bf16): the conv and dx on the conv core (f32 on
-// Hopper's warpgroup MMA, bf16 on mma.sync), dw on the dw stage
-// (mma.sync; conv3.cuh, above conv_mma_kernel and dw_mma_kernel).
+// Hopper's warpgroup MMA, bf16 on mma.sync), dw on the dw stage (f32 on
+// the warpgroup MMA, bf16 on mma.sync; conv3.cuh, above conv_mma_kernel
+// and dw_mma_kernel).
 //
 // Design: the TPU kernel held a whole (C_in, T) sample in VMEM; a 512 x 750
 // f32 sample is 1.5 MB, far over a block's shared memory.  Here the core

@@ -19,8 +19,9 @@
 // Hopper's warpgroup MMA, bf16 on mma.sync), with a
 // row pass for the instance norm and the dc formulas; below 16 output
 // channels the forward streams over x and dx over dc, each at the byte
-// bound.  K2dw's dw product runs on the tensor cores, or for the score
-// layer as a stream over x (conv3.cuh, above dw_mma_kernel).
+// bound.  K2dw's dw product runs on the tensor cores (f32 on Hopper's
+// warpgroup MMA, bf16 on mma.sync), or for the score layer as a stream
+// over x (conv3.cuh, above dw_mma_kernel).
 // The gradient penalty's second order (the vjp of K2dx, critic_fused.py:
 // BwdDx.backward) runs on the same launchers in f32: the forward core for
 // v = conv(u, w), the dw product twice, dx, and between them one row pass
@@ -227,5 +228,27 @@ extern "C" int scgrhc_critic_plan(int n, int cin, int cout, int len, int mode, i
   out[9] = (int)p.tiles.z;
   out[10] = (int)wsplit_numel(cin, cout);
   out[11] = (int)wsplit_numel(cout, cin);
+  return 0;
+}
+
+// The plan of the dw stage for n samples in the dtype (0 float32, 1
+// bfloat16), as launch_dw takes it: out[0] = path (1 mma, 2 stream, 3
+// wgmma), out[1] = the sample splits, out[2] = part's columns (3 * cin,
+// and db's one more on the stream).  conv3.py's dw_plan mirrors it.
+// Returns 0.
+extern "C" int scgrhc_dw_plan(int n, int cin, int cout, int dtype, int* out) {
+  const DwPlan p = dw_plan(n, cin, cout, dtype == 0);
+  out[0] = p.path;
+  out[1] = p.nsplit;
+  out[2] = 3 * cin + (p.path == kPathStream ? 1 : 0);
+  return 0;
+}
+
+// The f32 dw stage's launches since the library was loaded, by how its
+// rows were copied (conv3.cuh: dw_copy_launches): out[0] by the TMA unit,
+// out[1] by cp.async where no tensor map fits, out[2] by cp.async where a
+// map fits but could not be made.  conv3.py: dw_copy_launches.  Returns 0.
+extern "C" int scgrhc_dw_copy_launches(long long* out) {
+  for (int i = 0; i < 3; ++i) out[i] = dw_copy_launches[i].load();
   return 0;
 }

@@ -47,6 +47,10 @@ _SIGNATURES = {
     "scgrhc_critic_layer_dx_vjp": (_P,) * 5 + (_I,) * 4 + (_P,),
     # n, cin, cout, len, mode, pass, dtype, out (int[12])
     "scgrhc_critic_plan": (_I,) * 7 + (_P,),
+    # n, cin, cout, dtype, out (int[3])
+    "scgrhc_dw_plan": (_I,) * 4 + (_P,),
+    # out (long long[3])
+    "scgrhc_dw_copy_launches": (_P,),
     # w, out, n, m, stream
     "scgrhc_normalize_windows": (_P, _P, _I, _I, _P),
     # scg, rhc, scg_out, rhc_out, keep, mm_scg, mm_rhc, n, c, t, win, min_rhc, stream

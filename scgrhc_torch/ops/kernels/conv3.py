@@ -22,9 +22,10 @@ second-order gradient can differentiate it.
 Both layers run one set of kernels: the conv passes (forward, the dc
 pass's recompute of c, dx) follow :func:`conv_plan`, the dw stage
 :func:`dw_plan`.  :data:`path_launches` counts the conv kernels' launches
-by path.  The kernels take any non-empty shape, but for one limit
-that :func:`check_inputs` states: below 16 output channels, dw holds one
-sample's dc in a block's shared memory (:func:`dw_stream_max_len`).
+by path, :data:`dw_path_launches` the dw stage's.  The kernels take any
+non-empty shape, but for one limit that :func:`check_inputs` states: below
+16 output channels, dw holds one sample's dc in a block's shared memory
+(:func:`dw_stream_max_len`).
 """
 
 from __future__ import annotations
@@ -42,17 +43,22 @@ MODES = ("linear", "relu", "in_relu")
 MODE_CODE = {m: i for i, m in enumerate(MODES)}
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# dw's first stage (csrc/conv3.cuh) takes one of two paths by O: the
-# tensor-core product, a block per DW_TILE_O output channels x DW_TILE_C
-# input channels (x 3 taps); below DW_STREAM_BELOW output channels (the
-# critic's 512 -> 1 score layer), a stream over x, a block per DW_STREAM_C
-# input channels, with db's partial sums in one more column of the scratch.
-# Each splits the samples so that at most DW_BLOCKS (two per SM of an H100:
-# one wave) or DW_STREAM_BLOCKS (four per SM, to keep loads in flight)
-# blocks run, as many as the samples allow.
+# dw's first stage (csrc/conv3.cuh: dw_plan) takes one of three paths by
+# dtype and shape.  Below DW_STREAM_BELOW output channels (the critic's
+# 512 -> 1 score layer), a stream over x ("stream"), a block per
+# DW_STREAM_C input channels, with db's partial sums in one more column of
+# the scratch.  Else in f32 the product on Hopper's warpgroup MMA
+# ("wgmma"), a block per DW_WG_TILE_O output channels x DW_WG_TILE_C input
+# channels (x 3 taps); in bf16 the product on mma.sync ("mma"), a block
+# per DW_TILE_O x DW_TILE_C.  Each splits the samples so that at most
+# DW_STREAM_BLOCKS (four per SM of an H100, to keep loads in flight),
+# DW_WG_BLOCKS (one per SM) or DW_BLOCKS (two per SM) blocks run, one
+# wave, as many as the samples allow.
 DW_STREAM_BELOW = 16
 DW_TILE_O, DW_TILE_C, DW_STREAM_C = 64, 32, 32
-DW_BLOCKS, DW_STREAM_BLOCKS = 264, 528
+DW_WG_TILE_O, DW_WG_TILE_C = 64, 64
+DW_BLOCKS, DW_STREAM_BLOCKS, DW_WG_BLOCKS = 264, 528, 132
+DW_PATHS = ("mma", "stream", "wgmma")
 
 
 # The conv passes of both layers (csrc/conv3.cuh: conv_plan).  The forward
@@ -179,6 +185,28 @@ def count_launches(plan: ConvPlan, n: int) -> None:
         path_launches[plan.path] += _cdiv(n, SAMPLE_CHUNK)
 
 
+# The dw stage's launches by path (DW_PATHS), one a backward with dw, as
+# the wrappers make them: a run can show that every f32 dw from
+# DW_STREAM_BELOW output channels went through the warpgroup MMA.
+dw_path_launches = {"wgmma": 0, "mma": 0, "stream": 0}
+
+# How the warpgroup-MMA dw stage's launches copied their rows
+# (dw_copy_launches): by the TMA unit's tensor-map boxes; by cp.async where
+# no map fits (odd T, an odd channel count where T = 2 mod 4, tensors not
+# 16-byte aligned); by cp.async where a map fits but the driver could not
+# make it, which runs at less than half the rate.
+DW_COPIES = ("tma", "cp.async", "cp.async, no map made")
+
+
+def dw_copy_launches() -> dict[str, int]:
+    """The warpgroup-MMA dw stage's launches since the library was loaded,
+    by how their rows were copied (DW_COPIES), as the C launchers count
+    them (``scgrhc_dw_copy_launches``)."""
+    out = (ctypes.c_longlong * len(DW_COPIES))()
+    _build.library().scgrhc_dw_copy_launches(out)
+    return dict(zip(DW_COPIES, out))
+
+
 def scratch_numel(plan: ConvPlan) -> int:
     """The f32 elements of the forward's scratch: c, then, where the row
     pass runs in pieces, two partial sums a piece from the next even
@@ -204,7 +232,7 @@ def c_plan(n: int, cin: int, cout: int, t: int, mode: str, pass_: str = "fwd",
 
 @dataclass(frozen=True)
 class DwPlan:
-    path: str  # "mma" or "stream"
+    path: str  # one of DW_PATHS
     nsplit: int  # the kernels' sample splits, 1 <= nsplit <= N
     part_shape: tuple[int, int, int]  # the f32 scratch of per-split partial sums
 
@@ -267,16 +295,31 @@ def layer_bwd_plain(x, w, b, dy, mode: str, need_dx: bool = True, need_dw: bool 
     return dx, dw, db
 
 
-def dw_plan(n: int, cin: int, cout: int) -> DwPlan:
+def dw_plan(n: int, cin: int, cout: int, dtype=torch.float32) -> DwPlan:
     """The path, sample splits and scratch shape of dw's first stage for x
-    (n, cin, T) and cout output channels, as the kernels take them."""
+    (n, cin, T) in ``dtype`` and cout output channels, as the kernels take
+    them."""
+    if dtype not in DTYPE_CODE:
+        raise ValueError(f"dw_plan: dtype {dtype}")
     if cout < DW_STREAM_BELOW:
         path, tiles, blocks, cols = "stream", -(-cin // DW_STREAM_C), DW_STREAM_BLOCKS, 3 * cin + 1
+    elif dtype == torch.float32:
+        path, blocks, cols = "wgmma", DW_WG_BLOCKS, 3 * cin
+        tiles = -(-cout // DW_WG_TILE_O) * -(-cin // DW_WG_TILE_C)
     else:
         path, blocks, cols = "mma", DW_BLOCKS, 3 * cin
         tiles = -(-cout // DW_TILE_O) * -(-cin // DW_TILE_C)
     nsplit = max(1, min(n, blocks // tiles))
     return DwPlan(path, nsplit, (nsplit, cout, cols))
+
+
+def c_dw_plan(n: int, cin: int, cout: int, dtype=torch.float32) -> DwPlan:
+    """The C launchers' own dw plan (``scgrhc_dw_plan``), for holding
+    :func:`dw_plan` to it."""
+    out = (ctypes.c_int * 3)()
+    _build.library().scgrhc_dw_plan(n, cin, cout, DTYPE_CODE[dtype], out)
+    path, nsplit, cols = out
+    return DwPlan(PATHS[path], nsplit, (nsplit, cout, cols))
 
 
 def dw_split_bounds(n: int, nsplit: int) -> list[tuple[int, int]]:
@@ -383,7 +426,7 @@ def launch_bwd(entry: str, what: str, x, w, b, dy, mode: str, need_dx: bool, nee
     dc = torch.empty((n, o, t), **f32)
     dx = torch.empty_like(x) if need_dx else None
     dw = db = part = None
-    plan = dw_plan(n, cin, o)
+    plan = dw_plan(n, cin, o, x.dtype)
     if need_dw:
         dw = torch.empty((o, cin, 3), **f32)
         db = torch.empty((o,), **f32)
@@ -404,6 +447,8 @@ def launch_bwd(entry: str, what: str, x, w, b, dy, mode: str, need_dx: bool, nee
     count_launches(conv_plan(n, cin, o, t, mode, "dc", x.dtype), n)
     if need_dx:
         count_launches(conv_plan(n, cin, o, t, mode, "dx", x.dtype), n)
+    if need_dw:
+        dw_path_launches[plan.path] += 1
     return (dx, dw, db, c, dc, stats) if keep else (dx, dw, db)
 
 

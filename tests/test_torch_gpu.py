@@ -658,6 +658,101 @@ def test_dw_bf16_at_widest_critic_layer(cuda):
         assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1]), name
 
 
+# Every dw launch of a train.w06 step at its N = 64: the generator's 11
+# distinct layer shapes (K1b, in_relu) and its first layer at train.w06's
+# 3 SCG channels, the critic's four from 16 output channels (K2dw in their
+# modes) and its first layer at 4 channels, and the linear dw of K2dx's
+# closed-form vjp at 64 -> 128, 128 -> 256 and 256 -> 512 (K2dw, linear);
+# in f32 each takes the warpgroup MMA (conv3.dw_plan).
+STEP_DW = ([("K1b", ci, o, t, "in_relu") for ci, o, t in [(3, 64, 750)] + GENERATOR_LAYERS]
+           + [("K2dw", ci, o, 750, mode)
+              for ci, o, mode in [(4, 64, "relu")] + CRITIC_LAYERS if o >= 16]
+           + [("K2dw", ci, o, 750, "linear") for ci, o in ((64, 128), (128, 256), (256, 512))])
+
+
+def _dw_counts(fn):
+    """fn(), the dw launches it made by path (conv3.dw_path_launches) and
+    the warpgroup-MMA launches by how their rows were copied
+    (conv3.dw_copy_launches), each without the zero counts."""
+    from scgrhc_torch.ops.kernels import conv3
+
+    paths, copies = dict(conv3.dw_path_launches), conv3.dw_copy_launches()
+    out = fn()
+    new_copies = conv3.dw_copy_launches()
+    return (out,
+            {k: v - paths[k] for k, v in conv3.dw_path_launches.items() if v != paths[k]},
+            {k: v - copies[k] for k, v in new_copies.items() if v != copies[k]})
+
+
+def _dw_copy(ci, o, t):
+    """How the warpgroup-MMA dw stage copies its rows for x (N, ci, t) and
+    dc (N, o, t), both 16-byte aligned: tensor-map boxes where T is even
+    and, with T = 2 (mod 4), the row pairs hold whole channels."""
+    tma = t % 4 == 0 or (t % 2 == 0 and ci % 2 == 0 and o % 2 == 0)
+    return "tma" if tma else "cp.async"
+
+
+@pytest.mark.parametrize("path,ci,o,t,mode", STEP_DW)
+def test_dw_f32_at_every_step_shape_n64(cuda, path, ci, o, t, mode):
+    """The f32 dw stage at the main path's batch, N = 64, on each shape a
+    step runs: within DW_F32_TOL of float64 on the kernels' relu masks,
+    the same bits on a repeat, on the warpgroup MMA, its rows copied as
+    the shape allows."""
+    from scgrhc_torch.ops.kernels import conv3
+
+    ins = _bwd_inputs(cuda, 64, ci, o, t)
+    _, paths, copies = _dw_counts(lambda: _hold_dw(*ins, mode, paths=(path,)))
+    assert conv3.dw_plan(64, ci, o).path == "wgmma"
+    assert paths == {"wgmma": 2}  # the kernel and its repeat
+    assert copies == {_dw_copy(ci, o, t): 2}
+
+
+# Ragged cases of the warpgroup-MMA dw stage, K2dw in the linear mode (dc
+# = dy): odd T (4-byte copies), T past and short of a 32-step stage, N not
+# divisible by the splits (63 at 256 -> 512: 4 splits), N = 1 (one split),
+# N = 65 at 64 -> 64 (65 splits of one tile), more tiles than the
+# persistent grid has blocks (1040 -> 1100: 306), and C_in and O that fill
+# part of a 64 x 64 tile (16, 17, 100, 129, 200).  Row pairs (T = 2 mod
+# 4, even channel counts): a partial channel tile whose boxes read into
+# the next sample's rows (100 -> 70, 64 -> 130, 18 -> 66), T shorter than
+# a stage (6) and than two (130), N the splits do not divide (63, 3, 5).
+@pytest.mark.parametrize("n,ci,o,t", [
+    (64, 256, 512, 745), (63, 256, 512, 744), (1, 512, 512, 744), (1, 16, 16, 1),
+    (65, 64, 64, 33), (2, 1040, 1100, 40), (5, 17, 129, 7), (33, 100, 24, 1024),
+    (3, 200, 70, 1500), (2, 64, 128, 31), (64, 128, 256, 749),
+    (63, 100, 70, 746), (3, 200, 24, 6), (2, 64, 130, 130), (5, 18, 66, 750)])
+def test_dw_wgmma_ragged(cuda, n, ci, o, t):
+    from scgrhc_torch.ops.kernels import conv3
+
+    ins = _bwd_inputs(cuda, n, ci, o, t)
+    _, paths, copies = _dw_counts(lambda: _hold_dw(*ins, "linear", paths=("K2dw",)))
+    assert conv3.dw_plan(n, ci, o).path == "wgmma" and paths == {"wgmma": 2}
+    assert copies == {_dw_copy(ci, o, t): 2}
+
+
+@pytest.mark.parametrize("ci,o", [(256, 512), (64, 64)])
+def test_dw_wgmma_propagates_nan(cuda, ci, o):
+    """A NaN in dc reaches every dw entry of its output channel and no
+    other; db likewise."""
+    x, w, b, dy = _bwd_inputs(cuda, 8, ci, o, 750)
+    dy[5, 3, 100] = float("nan")
+    dw, db = k2.critic_layer_bwd_dwdb(x, w, b, dy, "linear")
+    assert torch.isnan(dw[3]).all() and not torch.isnan(dw[torch.arange(o) != 3]).any()
+    assert torch.isnan(db[3]) and not torch.isnan(db[torch.arange(o) != 3]).any()
+
+
+def test_dw_plan_mirrors_the_c_launcher(cuda):
+    """conv3.dw_plan against the C launchers' own (scgrhc_dw_plan), at every
+    step shape and N = 1, 3, 32, 64, in both dtypes."""
+    from scgrhc_torch.ops.kernels import conv3
+
+    shapes = {(ci, o) for _, ci, o, _, _ in STEP_DW} | {(4, 64), (5, 64), (512, 1), (17, 129)}
+    for n in (1, 3, 32, 64):
+        for ci, o in sorted(shapes):
+            for dtype in (torch.float32, torch.bfloat16):
+                assert conv3.c_dw_plan(n, ci, o, dtype) == conv3.dw_plan(n, ci, o, dtype)
+
+
 # The critic's conv passes (K2f, K2dx): (N, C_in, O, T).  The five critic
 # layers, and the first at waveform_06's 4 channels (a 4-column dx); a tiny
 # case for the fragment layouts (one tile, one channel stage, one step
@@ -1385,3 +1480,28 @@ def test_step_phases_timed_on_the_card(cuda):
     share = sum(tot[n]["device_ms"] for n in top) / tot["train_step"]["device_ms"]
     print({k: round(v["device_ms"] / 3, 3) for k, v in tot.items()}, f"share {share:.4f}")
     assert 0.95 <= share <= 1.01, tot
+
+
+def test_train_step_dw_launches_by_path(cuda):
+    """One f32 WGAN-GP step at B 64, T 750 with 3 SCG channels (train.w06's
+    shapes), n_critic 2: every dw launch from 16 output channels takes the
+    warpgroup MMA (``conv3.dw_path_launches``) and the score layer streams
+    (K2dw twice and its vjp's dw once per update).  The warpgroup MMA
+    copies its rows by tensor maps but at the generator's first layer,
+    whose 3 input channels give no row pairs (``conv3.dw_copy_launches``)."""
+    from scgrhc_torch.ops.kernels import conv3
+    from scgrhc_torch.parallel.dp import DataParallelTrainer
+    from scgrhc_torch.parallel.mesh import make_mesh
+
+    cfg = wgan.TrainConfig(n_critic=2)
+    st = wgan.init_state(0, 3, cfg, cuda)
+    g = torch.Generator(cuda).manual_seed(5)
+    scg, rhc = (torch.rand(64, 3, 750, device=cuda, generator=g),
+                torch.rand(64, 1, 750, device=cuda, generator=g))
+    trainer = DataParallelTrainer(make_mesh())
+    idx = torch.arange(64, device=cuda)
+    _, paths, copies = _dw_counts(
+        lambda: trainer.step(st, scg, rhc, idx, wgan.step_rng(0, 0, 0, cuda), cfg))
+    n = cfg.n_critic
+    assert paths == {"wgmma": 14 + 19 * n, "stream": 3 * n}
+    assert copies == {"tma": 13 + 19 * n, "cp.async": 1}

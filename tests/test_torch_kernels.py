@@ -105,17 +105,17 @@ DW_SHAPES = [(32, 5, 64), (32, 64, 128), (32, 128, 256), (32, 256, 512), (32, 51
 
 @pytest.mark.parametrize("n,cin,cout", DW_SHAPES)
 def test_dw_plan_path_and_scratch(n, cin, cout):
-    plan = conv3.dw_plan(n, cin, cout)
+    plan = conv3.dw_plan(n, cin, cout)  # f32
     stream = cout < conv3.DW_STREAM_BELOW
-    assert plan.path == ("stream" if stream else "mma")
+    assert plan.path == ("stream" if stream else "wgmma")
     assert 1 <= plan.nsplit <= n
     # the streaming path carries db's partial sums in one more column
     assert plan.part_shape == (plan.nsplit, cout, 3 * cin + stream)
     if stream:
         tiles, blocks = -(-cin // conv3.DW_STREAM_C), conv3.DW_STREAM_BLOCKS
     else:
-        tiles = -(-cout // conv3.DW_TILE_O) * -(-cin // conv3.DW_TILE_C)
-        blocks = conv3.DW_BLOCKS
+        tiles = -(-cout // conv3.DW_WG_TILE_O) * -(-cin // conv3.DW_WG_TILE_C)
+        blocks = conv3.DW_WG_BLOCKS
     # one wave of blocks, as full as the samples allow
     assert tiles * plan.nsplit <= blocks or plan.nsplit == 1
     assert tiles * (plan.nsplit + 1) > blocks or plan.nsplit == n
@@ -124,9 +124,89 @@ def test_dw_plan_path_and_scratch(n, cin, cout):
 
 def test_dw_plan_main_path():
     # the score layer streams one sample a block; the widest critic layer
-    # splits its 32 samples four ways over 64 tiles (256 blocks)
+    # splits its 32 samples four ways over 32 warpgroup-MMA tiles (128
+    # blocks), and in bf16 four ways over 64 mma.sync tiles (256 blocks)
     assert conv3.dw_plan(32, 512, 1) == conv3.DwPlan("stream", 32, (32, 1, 1537))
-    assert conv3.dw_plan(32, 256, 512) == conv3.DwPlan("mma", 4, (4, 512, 768))
+    assert conv3.dw_plan(32, 256, 512) == conv3.DwPlan("wgmma", 4, (4, 512, 768))
+    assert conv3.dw_plan(32, 256, 512, torch.bfloat16) == conv3.DwPlan("mma", 4, (4, 512, 768))
+
+
+# (C_in, O) of every dw launch of a WGAN-GP step of waveform_06 (3 SCG
+# channels): the generator's 14 layers (K1b), the critic's five (K2dw) and
+# the linear dw of K2dx's closed-form vjp (64 -> 128, 128 -> 256, 256 -> 512)
+def _step_dw_shapes(in_channels=3):
+    from scgrhc_torch.models.critic import LAYER_MODES, NDF
+    from scgrhc_torch.models.generator import BLOCKS
+
+    gen = []
+    for _, cin, cout in BLOCKS:
+        cin = in_channels if cin is None else cin
+        gen += [(cin, cout), (cout, cout)]
+    widths = [in_channels + 1, NDF, 2 * NDF, 4 * NDF, 8 * NDF, 1]
+    critic = [(widths[i], widths[i + 1]) for i in range(len(LAYER_MODES))]
+    return gen + critic + [(64, 128), (128, 256), (256, 512)]
+
+
+STEP_DW_SHAPES = _step_dw_shapes()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout", sorted(set(STEP_DW_SHAPES)))
+def test_dw_plan_path_by_dtype_and_shape(cin, cout, dtype):
+    """At training's N = 64: f32 takes the warpgroup MMA at every layer
+    shape of both models, the first layers' 3 and 4 input channels too,
+    but the score layer (the stream); bf16 keeps mma.sync, and the stream
+    at the score layer."""
+    plan = conv3.dw_plan(64, cin, cout, dtype)
+    if cout == 1:
+        want = "stream"
+    elif dtype == torch.float32:
+        want = "wgmma"
+    else:
+        want = "mma"
+    assert plan.path == want
+    assert plan.path in conv3.DW_PATHS
+
+
+@pytest.mark.parametrize("n,cin,cout,dtype,want", [
+    # the widest critic layer and the generator's widest at N = 64: 32 and
+    # 64 tiles of 64 x 64, four and two splits (128 blocks each)
+    (64, 256, 512, torch.float32, conv3.DwPlan("wgmma", 4, (4, 512, 768))),
+    (64, 512, 512, torch.float32, conv3.DwPlan("wgmma", 2, (2, 512, 1536))),
+    # one tile at 64 -> 64: a split a sample; two at 64 -> 128
+    (64, 64, 64, torch.float32, conv3.DwPlan("wgmma", 64, (64, 64, 192))),
+    (64, 64, 128, torch.float32, conv3.DwPlan("wgmma", 64, (64, 128, 192))),
+    # the first layers, one tile: a split a sample; bf16 on mma.sync at
+    # 256 -> 512 (64 tiles of 64 x 32) and at 4 -> 64
+    (64, 3, 64, torch.float32, conv3.DwPlan("wgmma", 64, (64, 64, 9))),
+    (64, 4, 64, torch.float32, conv3.DwPlan("wgmma", 64, (64, 64, 12))),
+    (64, 256, 512, torch.bfloat16, conv3.DwPlan("mma", 4, (4, 512, 768))),
+    (64, 4, 64, torch.bfloat16, conv3.DwPlan("mma", 64, (64, 64, 12))),
+    # fewer samples than a wave would split: every sample its own split
+    (3, 256, 512, torch.float32, conv3.DwPlan("wgmma", 3, (3, 512, 768))),
+    (1, 512, 512, torch.float32, conv3.DwPlan("wgmma", 1, (1, 512, 1536))),
+    # past one wave of tiles (1024 -> 1024: 256 tiles): one split
+    (64, 1024, 1024, torch.float32, conv3.DwPlan("wgmma", 1, (1, 1024, 3072))),
+])
+def test_dw_plan_nsplit_and_scratch(n, cin, cout, dtype, want):
+    assert conv3.dw_plan(n, cin, cout, dtype) == want
+
+
+def test_dw_plan_rejects_other_dtypes():
+    with pytest.raises(ValueError, match="dtype"):
+        conv3.dw_plan(4, 64, 64, torch.float64)
+
+
+def test_dw_path_launches_keys_and_cpu_dispatch():
+    """The dw counter has one key a path; the CPU's plain versions count
+    nothing."""
+    from scgrhc_torch.ops.kernels import critic_fused as k2
+
+    assert set(conv3.dw_path_launches) == set(conv3.DW_PATHS) == {"wgmma", "mma", "stream"}
+    before = dict(conv3.dw_path_launches)
+    x, w, b = (torch.randn(s) for s in ((2, 16, 8), (16, 16, 3), (16,)))
+    k2.critic_layer_bwd_dwdb(x, w, b, torch.randn(2, 16, 8), "relu")
+    assert conv3.dw_path_launches == before
 
 
 @pytest.mark.parametrize("n", [1, 2, 5, 32, 33, 1000])
