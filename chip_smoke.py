@@ -28,8 +28,6 @@ model's full width, counting kernel launches from 0 just before each:
     third in step mode, in this process and in a new one
     (``python -m scgrhc_torch train``), each held bit for bit to an
     uninterrupted 3-epoch run; one bfloat16 epoch beside the f32 losses;
-    the step's gradients and losses cross-checked against the same step
-    on the CPU with the same dropout masks and eps;
   * the experiment pipeline, ``python -m scgrhc_torch <dir>`` in a new
     process (data with K3 → train 2 epochs → test valid all → select →
     test test best) on a synthetic database of 4 records x 1800 s, its
@@ -87,9 +85,8 @@ Then more phases:
     device), against the pipeline phase's run at world size 1 (the loader
     files and record log equal, rank 1 writing nothing, each rank's kernel
     launches, the weights after 2 epochs within a bound, both wall times:
-    two ranks sharing one card is no scaling figure); DP steps over NCCL
-    in a world of one rank, equal bit for bit to the steps with no process
-    group; ``predict <dir> LONG030 last --mesh`` (1200 windows) at world
+    two ranks sharing one card is no scaling figure); ``predict <dir>
+    LONG030 last --mesh`` (1200 windows) at world
     size 2 over gloo against world size 1, both timed;
   * Orbax checkpoints (the ``orbax`` phase): ``python -m scgrhc_torch
     <dir>`` with ``checkpoint_backend: "orbax"`` on the pipeline phase's
@@ -103,11 +100,7 @@ Then more phases:
     and 1 K4 a chunk) and ``export`` from the best ``.orbax``, and one full
     checkpoint saved (blocking and in the background) and loaded by each
     backend, timed, with its bytes on disk; its figures on a
-    ``{"orbax": ...}`` line before the record read's;
-  * the port's bench: each mode of ``python -m scgrhc_torch.bench`` as a
-    process of its own (and ``--dtype int8`` in the inference and eval
-    modes, ``--continuous`` in the stream mode), its one JSON line held
-    and printed.
+    ``{"orbax": ...}`` line before the record read's.
 
 K3 is also held at T = 12,289 and timed at N = 37, 300, 2,400 and 19,200
 beside an empty kernel on its grid (the launch floor); the data stage's
@@ -115,9 +108,8 @@ device backend is split, for one interval, into host framing, upload, K3
 and the download of ``keep``.
 
 It also checks the build: tensor-core instructions (HMMA, and HGMMA in the
-f32 core's warpgroup-MMA instances) in every conv core instance of both
-layers' sources, and no kernel of the FMA conv core that the tensor-core
-core replaced; the training phase prints the conv launches by path
+f32 core's warpgroup-MMA instances) in every conv core and dw instance of
+the layer's source (``csrc/conv_layer.cu``); the training phase prints the conv launches by path
 (``conv3.path_launches``) and fails if an f32 one took mma.sync, and the
 dw launches by path (``conv3.dw_path_launches``), failing unless every
 f32 dw from 16 output channels took the warpgroup MMA, and those by how
@@ -192,25 +184,6 @@ TOL_TRAIN = {"fwd": 1e-4, "bwd": 1e-3, "bf16": 3e-2}
 # cores sits within f32 rounding of the plain product; one TF32 pass would
 # read about 5e-4, inside TOL_TRAIN["bwd"].
 TOL_DW_F32 = 1e-5
-# One WGAN-GP step on the card against the same step on the CPU (same
-# weights, masks, eps; cross_check_step).  Gradients, as Adam's first
-# moments after one step, by relative L2: a gradient of the wrong sign
-# reads 2, a zero one 1.  The f32 envelope is set by the relu masks: where
-# an x̂ sits within rounding of 0, its mask can flip on one device and not
-# on the other, and the critic's input gradient, small beside its terms,
-# moves by a few 1e-3 per flip (readings 3.6e-3 for G, 4.1e-3 for D on
-# an H100; the CPU's f32 step against its f64 step, printed beside, reads
-# 1.7e-3 for G and flipped no critic mask).
-TOL_STEP_MOMENTS = 1e-2
-# The first critic loss is a forward value; the gradient penalty in it
-# moves with the same mask flips (reading 3.8e-4).
-TOL_STEP_LOSS0 = 2e-3  # relative
-# The losses after the first critic update: Adam's first steps move every
-# weight by about alpha, whatever the size of its gradient, so a gradient
-# within rounding of 0 moves a weight the other way on the other device
-# (reading 5.6e-3).  The same step with the critic's updates reversed is
-# read beside it (0.49) and must fall outside.
-TOL_STEP_LOSSES = 2e-2  # relative
 N_CRITIC = 5
 ALPHA = 1e-4
 # The short record served on the card, served on the CPU, and the float64
@@ -309,34 +282,28 @@ def _kernel_label(kernel: str, args: str) -> str:
 
 
 TC_KERNELS = ("dw_mma_kernel", "conv_mma_kernel")  # every instance must hold HMMA or HGMMA
-# The FMA conv core that the tensor-core core replaced; none may be left.
-# Matched in the mangled names with their length prefixes (10fwd_kernelI).
-FMA_CORE = re.compile(r"(?:10fwd_kernel|9dc_kernel|9dx_kernel)I")
+# The one source of the library that includes conv3.cuh (csrc/conv_layer.cu):
+# its kernel instances carry the name in their anonymous namespace.
+LAYER_SOURCE = "conv_layer"
 
 
-def fma_core_left(smoke: Smoke, *texts: str) -> list[str]:
-    """The FMA core's kernel instances named in the build's ptxas lines or
-    the SASS; fails the run if there is any."""
-    found = sorted({m.group(0) for text in texts for m in FMA_CORE.finditer(text)})
-    smoke.check(not found, f"FMA conv core kernels still in the library: {found}")
-    print(f"library: FMA conv core kernels (fwd_kernel, dc_kernel, dx_kernel) left: "
-          f"{found or 'none'}", flush=True)
-    return found
+def _source(line: str) -> str:
+    return LAYER_SOURCE if LAYER_SOURCE in line else "another source"
 
 
-def sass_hmma(smoke: Smoke, lib_path) -> tuple[dict | None, str]:
+def sass_hmma(smoke: Smoke, lib_path) -> dict | None:
     """Tensor-core instructions in the built library's SASS (``cuobjdump
     -sass``): HMMA (mma.sync) and HGMMA (the warpgroup MMA of the f32
     conv core and dw stage), per instance of the dw stage's and the conv
-    core's kernels, in the generator's and the critic's sources; every
-    dw_mma_kernel and conv_mma_kernel instance must hold some, and each
-    source must hold conv_mma_kernel and dw_mma_kernel instances on HGMMA.
-    None (and no SASS) when the toolkit has no cuobjdump."""
+    core's kernels, by source; every dw_mma_kernel and conv_mma_kernel
+    instance must hold some, and the layer's source must hold
+    conv_mma_kernel and dw_mma_kernel instances on HGMMA.  None when the
+    toolkit has no cuobjdump."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     tool = tool if os.path.isfile(tool) else shutil.which("cuobjdump")
     if tool is None:
         print("sass: no cuobjdump; HMMA count not measured", flush=True)
-        return None, ""
+        return None
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
                           timeout=300).stdout
     counts, name = {}, None
@@ -346,19 +313,15 @@ def sass_hmma(smoke: Smoke, lib_path) -> tuple[dict | None, str]:
                           r"dx_stream_kernel)I(\w*?)Ev(?:PK|\d+CUtensorMap)", line)
             name = None
             if m:
-                tu = "critic_layer" if "critic_layer" in line else "conv_in_relu"
-                name = f"{m.group(1)}{_kernel_label(m.group(1), m.group(2))} ({tu})"
+                name = f"{m.group(1)}{_kernel_label(m.group(1), m.group(2))} ({_source(line)})"
                 counts[name] = 0
         elif name and re.search(r"\bH(?:G)?MMA\.", line):
             counts[name] += 1
     tc = {k: v for k, v in counts.items() if k.startswith(TC_KERNELS)}
-    for tu in ("conv_in_relu", "critic_layer"):
-        smoke.check(any(k.startswith("conv_mma_kernel") and k.endswith(f"({tu})") for k in tc),
-                    f"sass: no conv_mma_kernel instance from {tu}.cu in the library")
-        for kernel in ("conv_mma_kernel", "dw_mma_kernel"):
-            smoke.check(any(k.startswith(f"{kernel}<f32, wgmma") and k.endswith(f"({tu})")
-                            for k in tc),
-                        f"sass: no warpgroup-MMA {kernel} instance from {tu}.cu")
+    for kernel in ("conv_mma_kernel", "dw_mma_kernel"):
+        smoke.check(any(k.startswith(f"{kernel}<f32, wgmma") and k.endswith(f"({LAYER_SOURCE})")
+                        for k in tc),
+                    f"sass: no warpgroup-MMA {kernel} instance from {LAYER_SOURCE}.cu")
     smoke.check(all(v > 0 for v in tc.values()),
                 f"sass: tensor-core kernel instances without HMMA or HGMMA: "
                 f"{ {k: v for k, v in tc.items() if v == 0} }")
@@ -367,7 +330,7 @@ def sass_hmma(smoke: Smoke, lib_path) -> tuple[dict | None, str]:
         print(f"sass: HMMA and HGMMA instructions per {kernel} instance "
               f"{ {k[len(kernel):]: v for k, v in counts.items() if k.startswith(kernel)} }",
               flush=True)
-    return counts, sass
+    return counts
 
 
 ROW_MODES = ("in_relu fwd", "relu fwd", "in_relu dc", "relu dc")  # conv3.cuh: RowMode
@@ -375,23 +338,22 @@ ROW_MODES = ("in_relu fwd", "relu fwd", "in_relu dc", "relu dc")  # conv3.cuh: R
 
 def ptxas_lines(log: str) -> dict:
     """Registers and spill bytes per kernel instance of the conv core and
-    the dw stage's tensor-core paths, in the generator's and the critic's
-    sources, from the build's ``-Xptxas -v`` lines."""
+    the dw stage's tensor-core paths, by source, from the build's ``-Xptxas
+    -v`` lines."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?(conv_mma_kernel|conv_stream_kernel|"
                       r"dx_stream_kernel|row_kernel|dw_mma_kernel)I(\w*?)EEv\w*'", line)
         if "Compiling entry function" in line:
             name = None
-            tu = next((u for u in ("conv_in_relu", "critic_layer") if u in line), None)
-            if m and tu:
+            if m:
                 if m.group(1) == "row_kernel":
                     mode = int(re.search(r"Li(\d)E", m.group(2)).group(1))
                     label = (f"<{'bf16' if 'nv_bfloat16' in m.group(2) else 'f32'}, "
                              f"{ROW_MODES[mode]}>")
                 else:
                     label = _kernel_label(m.group(1), m.group(2))
-                name = f"{m.group(1)}{label} ({tu})"
+                name = f"{m.group(1)}{label} ({_source(line)})"
                 out[name] = {"registers": 0, "spill_bytes": 0}
         elif name and "spill stores" in line:
             out[name]["spill_bytes"] = int(re.search(r"(\d+) bytes spill stores", line).group(1))
@@ -1249,7 +1211,7 @@ def train_end_to_end(torch, smoke: Smoke, root: str, card: str) -> dict:
         torch.cuda.synchronize()
         return stats, time.perf_counter() - t0, {k: fn.launches for k, fn in fns.items()}
 
-    report = cross_check_step(torch, smoke)
+    report = {}
 
     # the main path, the process's first training run: 2 epochs in epoch
     # mode, then resumed to 3 in step mode
@@ -1367,133 +1329,6 @@ def train_end_to_end(torch, smoke: Smoke, root: str, card: str) -> dict:
                   bf16_g_loss_max_rel_diff=g_rel, bf16_epoch_s=stats16["epochs"][0]["seconds"])
     return report
 
-
-# Biases that feed an instance norm: their gradient is zero up to rounding,
-# so its sign, and Adam's first move of them, is noise.
-IN_BIASES = frozenset(
-    {f"{blk}.{i}.bias" for blk in ("enc1", "enc2", "enc3", "bottleneck", "dec3", "dec2", "dec1")
-     for i in (0, 3)}
-    | {f"{a}.{s}.0.bias" for a in ("att3", "att2", "att1") for s in ("W_x", "W_g", "psi")}
-    | {f"d.model.{i}.bias" for i in (2, 5, 8)}
-)
-
-
-def _pinned_step(torch, dev, dtype, inputs, n_critic: int, reverse_critic: bool = False):
-    """One WGAN-GP step from seed-7 weights on ``dev`` in ``dtype``, the
-    dropout masks and eps pinned through the seams.  ``reverse_critic``
-    applies each critic update against its gradient: a wrong update, to
-    read what the checks must catch.  Returns the losses, the Adam first
-    moments by parameter name (critic's prefixed ``d.``) and the seconds."""
-    from scgrhc_torch.models import generator as gen_mod
-    from scgrhc_torch.train import wgan
-
-    scg, rhc, eps = inputs
-    cfg = wgan.TrainConfig(n_critic=n_critic, alpha=ALPHA)
-    draws = {"mask": 0, "eps": 0}
-
-    def dropout(x, rate, rng_, train):
-        draws["mask"] += 1
-        m = np.random.default_rng(1000 + draws["mask"]).random(tuple(x.shape)) < 1.0 - rate
-        return x * torch.from_numpy(m).to(x) / (1.0 - rate)
-
-    def draw_eps(rng_, n, device):
-        draws["eps"] += 1
-        return torch.from_numpy(eps[draws["eps"] - 1]).to(device)
-
-    state = wgan.init_state(7, len(CHANNELS), cfg, dev)
-    state.generator.to(dtype)
-    state.critic.to(dtype)
-
-    def apply(opt, params, loss, grad_span, reduce=None):
-        sign = -1.0 if reverse_critic and opt is state.d_opt else 1.0
-        for p, g in zip(params, torch.autograd.grad(loss, params)):
-            p.grad = sign * g
-        opt.step()
-        return loss.detach()
-
-    seams = (gen_mod.dropout, wgan._draw_eps, wgan._apply)
-    gen_mod.dropout, wgan._draw_eps, wgan._apply = dropout, draw_eps, apply
-    try:
-        t0 = time.perf_counter()
-        d, g = wgan.train_step(state, torch.from_numpy(scg).to(dev, dtype),
-                               torch.from_numpy(rhc).to(dev, dtype), None, cfg)
-        losses = np.append(d.cpu().double().numpy(), float(g))
-        seconds = time.perf_counter() - t0
-    finally:
-        gen_mod.dropout, wgan._draw_eps, wgan._apply = seams
-    moments = {}
-    for prefix, module, opt in (("", state.generator, state.g_opt),
-                                ("d.", state.critic, state.d_opt)):
-        for name, p in module.named_parameters():
-            moments[prefix + name] = opt.state[p]["exp_avg"].detach().cpu().double().numpy()
-    return losses, moments, seconds
-
-
-def _moments_rel(a: dict, b: dict, critic: bool) -> float:
-    """Relative L2 distance of one module's first moments, the biases that
-    feed an instance norm left out."""
-    keys = [k for k in b if k.startswith("d.") == critic and k not in IN_BIASES]
-    x, y = (np.concatenate([m[k].ravel() for k in keys]) for m in (a, b))
-    return float(np.linalg.norm(x - y) / np.linalg.norm(y))
-
-
-def cross_check_step(torch, smoke: Smoke) -> dict:
-    """The WGAN-GP step at full width (B = 4) on the card against the same
-    step on the CPU, same weights, dropout masks and eps:
-
-      * the gradients, as Adam's first moments after a step with n_critic 1
-        (exp_avg = (1 - beta1)·g at the starting weights: the critic's at
-        init, the generator's too, as its adversarial term scores the real
-        rhc), and the float64 CPU step beside them for the f32 envelope;
-      * the losses of a full step (n_critic 5), and beside them the same
-        step on the CPU with the critic's updates reversed.
-    """
-    rng = np.random.default_rng(11)
-    b = 4
-    scg = rng.random((b, len(CHANNELS), T)).astype(np.float32)
-    rhc = rng.random((b, 1, T)).astype(np.float32)
-    eps = [rng.random((b, 1, 1)).astype(np.float32) for _ in range(N_CRITIC)]
-    inputs = (scg, rhc, eps)
-    f32, f64 = torch.float32, torch.float64
-
-    _, m_card, _ = _pinned_step(torch, "cuda", f32, inputs, 1)
-    _, m_cpu, _ = _pinned_step(torch, "cpu", f32, inputs, 1)
-    _, m_64, _ = _pinned_step(torch, "cpu", f64, inputs, 1)
-    mom = {f"{who}_{mod}": _moments_rel(x, y, mod == "d")
-           for who, (x, y) in (("card_vs_cpu", (m_card, m_cpu)), ("card_vs_f64", (m_card, m_64)),
-                               ("cpu_vs_f64", (m_cpu, m_64)))
-           for mod in ("g", "d")}
-
-    l_card, _, s_card = _pinned_step(torch, "cuda", f32, inputs, N_CRITIC)
-    l_cpu, _, s_cpu = _pinned_step(torch, "cpu", f32, inputs, N_CRITIC)
-    l_rev, _, _ = _pinned_step(torch, "cpu", f32, inputs, N_CRITIC, reverse_critic=True)
-    rel = np.abs(l_card - l_cpu) / np.abs(l_cpu)
-    rel_rev = np.abs(l_rev - l_cpu) / np.abs(l_cpu)
-    # the critic losses after the first update (the generator's loss, last,
-    # is taken before its own update and moves little with the critic's)
-    later, later_rev = float(rel[1:N_CRITIC].max()), float(rel_rev[1:N_CRITIC].max())
-    print(f"train step cross-check (B={b}, full width): first moments, relative L2 without "
-          f"the biases before an instance norm (tol {TOL_STEP_MOMENTS:g}): G card vs cpu "
-          f"{mom['card_vs_cpu_g']:.3g}, D card vs cpu {mom['card_vs_cpu_d']:.3g}; card vs f64 "
-          f"G {mom['card_vs_f64_g']:.3g} D {mom['card_vs_f64_d']:.3g}; cpu f32 vs f64 G "
-          f"{mom['cpu_vs_f64_g']:.3g} D {mom['cpu_vs_f64_d']:.3g}", flush=True)
-    print(f"train step cross-check losses (n_critic {N_CRITIC}), card vs cpu relative: first "
-          f"critic loss {rel[0]:.3g} (tol {TOL_STEP_LOSS0:g}), later critic losses max "
-          f"{later:.3g} (tol {TOL_STEP_LOSSES:g}), generator loss {rel[-1]:.3g} (tol "
-          f"{TOL_STEP_LOSSES:g}); the critic's updates reversed, on the cpu: later critic "
-          f"losses max {later_rev:.3g}; cpu step {s_cpu:.1f} s, card step {s_card:.2f} s",
-          flush=True)
-    for mod in ("g", "d"):
-        smoke.check(mom[f"card_vs_cpu_{mod}"] <= TOL_STEP_MOMENTS,
-                    f"step cross-check {mod} first moments {mom[f'card_vs_cpu_{mod}']}")
-    smoke.check(rel[0] <= TOL_STEP_LOSS0, f"step cross-check first loss {rel[0]}")
-    smoke.check(max(later, rel[-1]) <= TOL_STEP_LOSSES, f"step cross-check losses {rel}")
-    smoke.check(later_rev > TOL_STEP_LOSSES,
-                f"step cross-check: a reversed critic update reads {later_rev}, inside the "
-                f"loss tolerance {TOL_STEP_LOSSES}")
-    return {"step_cross_check": {"loss_rel_diffs": rel.tolist(),
-                                 "reversed_critic_loss_rel_diffs": rel_rev.tolist(),
-                                 "first_moment_rel_l2": mom}}
 
 # ---- windows of 3 s ----------------------------------------------------------
 
@@ -2213,59 +2048,6 @@ def trace_training(torch, smoke: Smoke, root: str, card: str, loader: str,
               f"{k} {v:.2f}" for k, v in sorted(per_node.items(), key=lambda kv: -kv[1])[:10]),
           flush=True)
     return report
-
-
-# ---- the port's bench ---------------------------------------------------------
-
-# Each mode of ``python -m scgrhc_torch.bench`` in its own process, at the
-# root bench.py's defaults: (mode, metric, unit).
-BENCH_RUNS = (
-    (["inference"], "generator_inference_throughput", "segments/s/chip"),
-    (["inference", "--dtype", "int8"], "generator_inference_throughput", "segments/s/chip"),
-    (["train"], "wgan_train_throughput", "segments/s/chip"),
-    (["train-torch"], "wgan_train_torch_cpu_baseline", "segments/s"),
-    (["eval"], "eval_all_throughput", "segment-evals/s/chip"),
-    (["eval", "--dtype", "int8"], "eval_all_throughput", "segment-evals/s/chip"),
-    (["stream"], "stream_infer_xrealtime", "x_realtime/chip"),
-    (["stream", "--continuous"], "stream_infer_xrealtime", "x_realtime/chip"),
-    (["data"], "data_stage_throughput", "signal-seconds/s"),
-    (["kernels"], "cuda_gate_normalize", "windows/s/chip"),
-)
-
-
-def bench_modes(smoke: Smoke, card: str, kind: str) -> dict:
-    """Run each bench mode as a user would, and hold its one line: the
-    mode's metric and unit, a finite positive value, and the card named."""
-    limit = card.rsplit(",", 1)[-1].strip()
-    lines = {}
-    for args, metric, unit in BENCH_RUNS:
-        mode = " ".join(args)
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "scgrhc_torch.bench", "--mode", *args],
-                              cwd=os.path.dirname(os.path.abspath(__file__)),
-                              capture_output=True, text=True, timeout=600)
-        secs = time.perf_counter() - t0
-        out = [ln for ln in proc.stdout.splitlines() if ln.strip()]
-        if not smoke.check(proc.returncode == 0 and len(out) == 1,
-                           f"bench --mode {mode}: rc {proc.returncode}, {len(out)} lines\n"
-                           f"{proc.stdout[-1000:]}{proc.stderr[-2000:]}"):
-            continue
-        try:
-            line = json.loads(out[0])
-        except json.JSONDecodeError:
-            smoke.check(False, f"bench --mode {mode}: not JSON: {out[0][:300]}")
-            continue
-        value = line.get("value")
-        smoke.check(line.get("metric") == metric and line.get("unit") == unit,
-                    f"bench --mode {mode}: metric {line.get('metric')} unit {line.get('unit')}")
-        smoke.check(isinstance(value, float) and math.isfinite(value) and value > 0,
-                    f"bench --mode {mode}: value {value}")
-        smoke.check(line.get("device") == kind and line.get("power_limit") == limit,
-                    f"bench --mode {mode}: device {line.get('device')}, power limit "
-                    f"{line.get('power_limit')}")
-        lines[mode] = {**line, "process_s": secs}
-        print(f"bench: --mode {mode} ({secs:.1f} s with process start): {out[0]}", flush=True)
-    return lines
 
 
 # ---- the reference's loader artifacts -------------------------------------------
@@ -3040,7 +2822,7 @@ def cli_end_to_end(torch, smoke: Smoke, root: str, card: str) -> dict:
     return report
 
 
-# ---- the data axis: two ranks on one card, and NCCL at world size 1 ------------
+# ---- the data axis: two ranks on one card ---------------------------------------
 
 # One rank of a world of two on this card (launched by torchrun, or by
 # _ranks with the environment torchrun gives): each argv of <runs> through
@@ -3095,7 +2877,6 @@ TOL_DIST_LOSS0 = 1e-5  # relative
 # update and the WGAN dynamics amplify it.  Reading 6.7e-3 on an H100 (the
 # first critic loss equal); the bound is 3x.
 TOL_DIST_WEIGHTS = 2e-2
-DIST_STEPS = 3  # the steps held bit for bit over NCCL at world size 1
 
 
 def _torchrun(root: str, name: str, exp: str, argv: list[str], env: dict,
@@ -3201,118 +2982,6 @@ def _loader_counts(params) -> dict:
 
     return {k: load_dataloader(getattr(params, f"{k}_path")).dataset.record_names
             for k in ("train", "valid", "test")}
-
-
-def nccl_world_one(torch, smoke: Smoke, root: str, card: str) -> dict:
-    """DIST_STEPS training steps at B = 32 through ``DataParallelTrainer`` in
-    a world of one rank over NCCL (its collectives on the card), held bit
-    for bit to the same steps with no process group, run before (a warm-up)
-    and after (timed beside them); the comm helpers' collectives on CUDA
-    tensors."""
-    from scgrhc_torch.parallel import comm
-    from scgrhc_torch.parallel.dp import DataParallelTrainer
-    from scgrhc_torch.parallel.mesh import make_mesh
-    from scgrhc_torch.train.wgan import (TrainConfig, init_state, launches_per_step, step_rng,
-                                         train_step)
-
-    cfg = TrainConfig(n_critic=N_CRITIC, alpha=ALPHA)
-    rng = np.random.default_rng(5)
-    scg = torch.from_numpy(rng.random((N_TRAIN, len(CHANNELS), T), dtype=np.float32)).cuda()
-    rhc = torch.from_numpy(rng.random((N_TRAIN, 1, T), dtype=np.float32)).cuda()
-    rows = torch.arange(N_TRAIN, device="cuda")
-    fns = _kernel_counters()
-
-    def steps(trainer):
-        state = init_state(0, len(CHANNELS), cfg, "cuda")
-        if trainer is not None:
-            trainer.place_state(state)
-        for fn in fns.values():
-            fn.launches = 0
-        losses = []
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(DIST_STEPS):
-            g = step_rng(0, 0, i, "cuda")
-            d, gl = (train_step(state, scg, rhc, g, cfg) if trainer is None
-                     else trainer.step(state, scg, rhc, rows, g, cfg))
-            losses.append(torch.cat((d, gl[None])))
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) / DIST_STEPS * 1e3
-        tensors = [*state.generator.parameters(), *state.critic.parameters()]
-        for opt in (state.g_opt, state.d_opt):
-            tensors += [v for s in opt.state.values() for v in s.values() if torch.is_tensor(v)]
-        return tensors, torch.stack(losses), ms, {k: fn.launches for k, fn in fns.items()}
-
-    plain, plain_losses, _, _ = steps(None)
-    comm.init_distributed(f"file://{os.path.join(root, 'nccl_store')}", 1, 0)
-    try:
-        backend = torch.distributed.get_backend()
-        x = torch.arange(6.0, device="cuda")
-        gathered = comm.all_gather(x.clone())
-        collectives = (torch.equal(gathered, x) and torch.equal(comm.all_reduce_sum(x.clone()), x)
-                       and torch.equal(comm.broadcast(x.clone()), x)
-                       and comm.on_primary("x", lambda: 1) == 1)
-        comm.barrier("nccl")
-        dp, dp_losses, dp_ms, launches = steps(DataParallelTrainer(make_mesh()))
-        cp = _cp_world_one(torch, smoke, card)
-    finally:
-        comm.destroy()
-    again, again_losses, plain_ms, _ = steps(None)
-    same = all(len(x) == len(plain) and all(torch.equal(a, b) for a, b in zip(x, plain))
-               and torch.equal(losses, plain_losses)
-               for x, losses in ((dp, dp_losses), (again, again_losses)))
-    want = {k: v * DIST_STEPS for k, v in launches_per_step(cfg).items()}
-    smoke.check(backend == "nccl", f"world of one: backend {backend}")
-    smoke.check(collectives, "NCCL at world size 1: a collective changed its input")
-    smoke.check(same, "DP steps over NCCL at world size 1 differ from the steps with no group")
-    smoke.check(all(launches[k] == v for k, v in want.items()),
-                f"DP steps over NCCL: launches {launches}, expected {want}")
-    print(f"nccl: {DIST_STEPS} DP steps at B = {N_TRAIN} in a world of one rank over {backend}, "
-          f"{'equal' if same else 'NOT equal'} bit for bit (weights, Adam state, losses) to the "
-          f"same steps with no process group; {dp_ms:.1f} ms a step against {plain_ms:.1f}; "
-          f"launches {launches}; NCCL at two or more cards: unverified (one card here); "
-          f"on {card}", flush=True)
-    return {"backend": backend, "equal": same, "ms_per_step": dp_ms,
-            "plain_ms_per_step": plain_ms, "launches": launches, "apply_cp": cp}
-
-
-def _cp_world_one(torch, smoke: Smoke, card: str) -> dict:
-    """Inside a world of one rank over NCCL: ``apply_cp`` on a 600-s record
-    (300,000 steps, random weights, inputs uniform in [0, 1) like the
-    normalized record) against ``apply_continuous``, bit for bit (the
-    phases run the one-launch layer's row kernels, and one rank's sums are
-    the whole record's), 14 launches of each phase; both timed warm."""
-    from scgrhc_torch.models.cp import apply_continuous, apply_cp
-    from scgrhc_torch.models.generator import Generator
-    from scgrhc_torch.parallel.mesh import TIME_AXIS, make_mesh
-
-    gen = Generator(len(CHANNELS), torch.Generator().manual_seed(1234)).cuda().eval()
-    n = int(RECORDS[0][1] * 500)
-    x = torch.rand(len(CHANNELS), n, device="cuda",
-                   generator=torch.Generator("cuda").manual_seed(9))
-    mesh = make_mesh(axis=TIME_AXIS)
-    fns = _kernel_counters()
-    with torch.inference_mode():
-        want = apply_continuous(gen, x[None])
-        for fn in fns.values():
-            fn.launches = 0
-        got = apply_cp(gen, x, mesh)
-        torch.cuda.synchronize()
-        launches = {k: fn.launches for k, fn in fns.items() if fn.launches}
-        cp_ms = _time_ms(torch, lambda: apply_cp(gen, x, mesh), reps=2, warmup=0)
-        cont_ms = _time_ms(torch, lambda: apply_continuous(gen, x[None]), reps=2, warmup=0)
-    same = bool(torch.equal(got, want))
-    err = float((got - want).abs().max())
-    smoke.check(same, f"apply_cp over NCCL at world size 1 differs from apply_continuous: "
-                      f"max-abs {err}")
-    smoke.check(launches == {"conv_in_relu_part": 14, "conv_in_relu_apply": 14},
-                f"apply_cp at world size 1: launches {launches}")
-    print(f"nccl apply_cp: a 600-s record ({n} steps) time-sharded over a world of one rank "
-          f"(NCCL), {'equal' if same else 'NOT equal'} bit for bit to apply_continuous "
-          f"(max-abs {err:.3g}); {cp_ms:.1f} ms against {cont_ms:.1f} ms; launches {launches}; "
-          f"on {card}", flush=True)
-    return {"equal": same, "max_abs_err": err, "ms": cp_ms, "continuous_ms": cont_ms,
-            "launches": launches}
 
 
 DIST_PREDICT_RUNS = 4  # the first cold, the others warm: their spread
@@ -3761,14 +3430,12 @@ def dist_pp_tp(torch, smoke: Smoke, root: str, card: str) -> dict:
 def dist_end_to_end(torch, smoke: Smoke, root: str, card: str, world_one: dict,
                     serve_exp: str) -> dict:
     """The parallel tier on one card (module doc): the pipeline and
-    ``predict --mesh`` at world size 2 over gloo, DP steps and ``apply_cp``
-    over NCCL at world size 1; K1f's time-sharded phases against their
-    plain versions; continuous prediction and the ``serve --mesh`` daemon
-    at world size 2; ``pipeline_infer`` and the tensor-parallel forward at
-    world size 2."""
+    ``predict --mesh`` at world size 2 over gloo; K1f's time-sharded phases
+    against their plain versions; continuous prediction and the ``serve
+    --mesh`` daemon at world size 2; ``pipeline_infer`` and the
+    tensor-parallel forward at world size 2."""
     t0 = time.perf_counter()
     out = {"pipeline": dist_pipeline(torch, smoke, root, card, world_one),
-           "nccl": nccl_world_one(torch, smoke, root, card),
            "predict": dist_predict(torch, smoke, root, card, serve_exp),
            "time_sharded_k1f": check_time_sharded_k1f(torch, smoke),
            "cp_serve": dist_cp_serve(torch, smoke, root, card, serve_exp),
@@ -3786,8 +3453,8 @@ def _time_sharded_entry(dist: dict) -> dict:
     k = dist.get("time_sharded_k1f", {})
     runs = dist.get("cp_serve", {}).get("launches", [[{}]])[0]
     main_path = runs[CP_RUNS - 1] if len(runs) >= CP_RUNS else {}
-    return {"sources": ["scgrhc_torch/csrc/conv_in_relu.cu:scgrhc_conv_in_relu_part",
-                        "scgrhc_torch/csrc/conv_in_relu.cu:scgrhc_conv_in_relu_apply"],
+    return {"sources": ["scgrhc_torch/csrc/conv_layer.cu:scgrhc_conv_in_relu_part",
+                        "scgrhc_torch/csrc/conv_layer.cu:scgrhc_conv_in_relu_apply"],
             "launches_part": main_path.get("conv_in_relu_part", 0),
             "launches_apply": main_path.get("conv_in_relu_apply", 0),
             **{key: k.get(key) for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -4180,24 +3847,22 @@ def main() -> int:
     core = ptxas_lines(build.log)
     for kernel in ("conv_mma_kernel", "conv_stream_kernel", "dx_stream_kernel", "row_kernel",
                    "dw_mma_kernel"):
-        for tu in ("conv_in_relu", "critic_layer"):
-            recs = {k: v for k, v in core.items() if k.startswith(kernel) and k.endswith(f"({tu})")}
-            regs = [v["registers"] for v in recs.values()]
-            spills = {k[len(kernel):]: v["spill_bytes"] for k, v in recs.items()
-                      if v["spill_bytes"]}
-            print(f"ptxas: {kernel} ({tu}.cu): {len(recs)} instances, registers "
-                  f"{min(regs, default=0)}-{max(regs, default=0)}, spill stores "
-                  f"{spills or 'none'}", flush=True)
+        recs = {k: v for k, v in core.items()
+                if k.startswith(kernel) and k.endswith(f"({LAYER_SOURCE})")}
+        regs = [v["registers"] for v in recs.values()]
+        spills = {k[len(kernel):]: v["spill_bytes"] for k, v in recs.items() if v["spill_bytes"]}
+        print(f"ptxas: {kernel} ({LAYER_SOURCE}.cu): {len(recs)} instances, registers "
+              f"{min(regs, default=0)}-{max(regs, default=0)}, spill stores "
+              f"{spills or 'none'}", flush=True)
     # the ptxas lines come with a fresh build only (build.log is empty on reuse)
     smoke.check(not build.log or any(k.startswith("conv_mma_kernel") and
-                                     k.endswith("(conv_in_relu)") for k in core),
-                "ptxas: no conv_mma_kernel instance from conv_in_relu.cu")
+                                     k.endswith(f"({LAYER_SOURCE})") for k in core),
+                f"ptxas: no conv_mma_kernel instance from {LAYER_SOURCE}.cu")
     t0 = time.perf_counter()
     wfdb_build = native.build()
     print(f"build: {wfdb_build.path.name} (the C WFDB decoder, host compiler) in "
           f"{wfdb_build.seconds:.2f} s ({time.perf_counter() - t0:.2f} s with load)", flush=True)
-    sass, sass_text = sass_hmma(smoke, build.path)
-    fma_core_left(smoke, build.log, sass_text)
+    sass = sass_hmma(smoke, build.path)
     k1f = check_conv_in_relu(torch, smoke)
     k4 = check_normalize_windows(torch, smoke)
     k3 = check_gate_normalize(torch, smoke, card)
@@ -4231,11 +3896,10 @@ def main() -> int:
         orbax = orbax_end_to_end(torch, smoke, os.path.join(root, "pipeline"), card, pipeline)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    bench = bench_modes(smoke, card, kind)
 
     kernels = [
         {"name": "conv_in_relu", "route": "cuda",
-         "source": "scgrhc_torch/csrc/conv_in_relu.cu",
+         "source": "scgrhc_torch/csrc/conv_layer.cu",
          "replaces": "scgrhc/ops/pallas/conv_block.py:75",
          "launches": serve["launches"]["conv_in_relu"],
          "max_abs_err": k1f["max_abs_err"], "ms": k1f["ms"],
@@ -4254,7 +3918,7 @@ def main() -> int:
          "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
          "bound_by": k4["bound_by"], "library_ms": None},
         {"name": "conv_in_relu_bwd", "route": "cuda",
-         "source": "scgrhc_torch/csrc/conv_in_relu.cu",
+         "source": "scgrhc_torch/csrc/conv_layer.cu",
          "replaces": "scgrhc/ops/pallas/conv_block.py:82", "launches":
          train["launches"]["conv_in_relu_bwd"], "max_abs_err": k1b["max_abs_err"],
          "ms": k1b["ms"], "plain_ms": k1b["plain_ms"], "bound_ms": k1b["bound_ms"],
@@ -4269,7 +3933,7 @@ def main() -> int:
         rec = k2[name]
         lin = next(r for r in rec["per_shape"].values() if r["mode"] == "linear")
         kernels.append({
-            "name": name, "route": "cuda", "source": "scgrhc_torch/csrc/critic_layer.cu",
+            "name": name, "route": "cuda", "source": "scgrhc_torch/csrc/conv_layer.cu",
             "replaces": f"scgrhc/ops/pallas/critic_fused.py:{line}",
             "launches": train["launches"][name], "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
@@ -4299,7 +3963,7 @@ def main() -> int:
                    "ptxas_conv_core": core,
                    "serve": serve, "continuous": whole, "calibrate": calibrated, "int8": int8,
                    "train": train, "pipeline": pipeline, "long_windows": long,
-                   "loader_artifacts": artifacts, "trace": traced, "bench": bench,
+                   "loader_artifacts": artifacts, "trace": traced,
                    "cli": cli_phase, "dist": dist, "record_read": read, "orbax": orbax,
                    "errors": smoke.errors}, f, indent=1)
     if smoke.errors:

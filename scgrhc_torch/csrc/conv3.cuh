@@ -1,7 +1,6 @@
-// Device code shared by the conv1d(k=3, padding=1) layer kernels: the
-// generator's conv + InstanceNorm + ReLU layer (conv_in_relu.cu: K1f, K1b)
-// and the critic's layer in its three modes (critic_layer.cu: K2f, K2dx,
-// K2dw).  Layouts are PyTorch's: x (N, C, T), w (O, C, 3), b (O,).
+// Device code of the conv1d(k=3, padding=1) layer kernels (conv_layer.cu):
+// the generator's conv + InstanceNorm + ReLU layer (K1f, K1b) and the
+// critic's layer in its three modes (K2f, K2dx, K2dw).  Layouts are PyTorch's: x (N, C, T), w (O, C, 3), b (O,).
 //
 // Modes, for c = conv1d(x, w, padding=1) + b:
 //   linear   y = c
@@ -55,7 +54,7 @@
 namespace scgrhc {
 
 // The f32 dw stage's launches by how its rows were copied, over every
-// source of the library (critic_layer.cu: scgrhc_dw_copy_launches): by
+// source of the library (conv_layer.cu: scgrhc_dw_copy_launches): by
 // the TMA unit's boxes; by cp.async where no tensor map fits the shape
 // or the alignment (odd T, an odd channel count with row pairs, tensors
 // not 16-byte aligned); by cp.async where a map fits but could not be
@@ -1792,7 +1791,7 @@ dx_stream_kernel(const float* __restrict__ dc, const T* __restrict__ w, T* __res
 // overwrites c, or goes to dc where that is given: then c stays, and stats
 // (where given) takes each row's (mean, E[c^2] - mean^2 before the clamp),
 // which the GP's second order reads to differentiate this very dc
-// (critic_layer.cu: dx_vjp_row_kernel).
+// (conv_layer.cu: dx_vjp_row_kernel).
 enum RowMode { kRowInReluFwd = 0, kRowReluFwd = 1, kRowInReluDc = 2, kRowReluDc = 3 };
 
 // One warp per (n, o) row of c (n * cout rows of len); each lane sums its

@@ -1,32 +1,77 @@
-// The critic's layer: conv1d(k=3, p=1) + bias, then relu, in_relu or
-// linear, with its two backward halves.
+// The conv layer: conv1d(k=3, p=1) + bias, then linear, relu or in_relu,
+// with its two backward halves.  The generator's layer is the in_relu mode
+// (K1f, K1b); the critic's takes all three (K2f, K2dx, K2dw).  Both reach
+// the device code of conv3.cuh through the same entry points:
+// scgrhc_layer_fwd and scgrhc_layer_bwd.
 //
-// Replaces scgrhc/ops/pallas/critic_fused.py: K2f its _fwd_kernel, K2dx
-// its _bwd_dx_kernel (the input gradient: every critic backward and the
-// gradient penalty's input-gradient pass), K2dw its _bwd_dwdb_kernel (the
-// parameter gradients).  The device code is conv3.cuh's in the layer's mode.
-// The TPU kernels worked in a flat (C, B*T^) layout padded to 128-column
-// tiles, a constraint of Mosaic's lane tiling and not of the math; here the
-// layout stays (N, C, T), so a layer with padding=1 needs no pad columns.
-// The TPU's dx is unmasked at its pad columns and those values never reach a
+// K1f replaces scgrhc/ops/pallas/conv_block.py::_fwd_kernel and K1b its
+// _bwd_kernel (the custom_vjp's _cir_bwd); K2f, K2dx and K2dw replace
+// scgrhc/ops/pallas/critic_fused.py's _fwd_kernel, _bwd_dx_kernel (the
+// input gradient: every critic backward and the gradient penalty's
+// input-gradient pass) and _bwd_dwdb_kernel (the parameter gradients).
+// The in_relu mode:
+//   c[t] = b[o] + sum_i w[o,i,0]*x[i,t-1] + w[o,i,1]*x[i,t] + w[o,i,2]*x[i,t+1]
+//   y[t] = max((c[t] - mean) * rsqrt(var + 1e-5), 0), stored in x's dtype;
+// the backward recomputes c, then dx (skipped when the wrapper passes no
+// dx), dw and db summed over samples in f32.  The critic's TPU kernels
+// worked in a flat (C, B*T^) layout padded to 128-column tiles, a
+// constraint of Mosaic's lane tiling and not of the math; here the layout
+// stays (N, C, T), so a layer with padding=1 needs no pad columns.  The
+// TPU's dx is unmasked at its pad columns and those values never reach a
 // result, so the two agree on every real column.
 //
-// What bounds it: operations at the critic's widths (6*C*O*T FLOPs per
-// sample for the conv; K2dx and K2dw add a recompute of c except in the
-// linear mode), except the 512 -> 1 linear layer, where reading x
-// dominates.  The conv of the forward, of the dc pass's recompute and of
-// dx runs on the tensor cores (conv3.cuh, above conv_mma_kernel: f32 on
-// Hopper's warpgroup MMA, bf16 on mma.sync), with a
-// row pass for the instance norm and the dc formulas; below 16 output
-// channels the forward streams over x and dx over dc, each at the byte
-// bound.  K2dw's dw product runs on the tensor cores (f32 on Hopper's
-// warpgroup MMA, bf16 on mma.sync), or for the score layer as a stream
-// over x (conv3.cuh, above dw_mma_kernel).
+// What bounds it: operations.  A layer does 6*C_in*O*T FLOPs per sample in
+// the forward on (C_in + O)*T elements of traffic (the generator's
+// bottleneck layer: 1.17 GFLOP against 3 MB per window), far above the
+// H100's ridge point; the backward adds a recompute of c (but in the linear
+// mode), dx and dw.  The exception is the critic's 512 -> 1 score layer,
+// where reading x dominates.  Every product runs on the tensor cores
+// (3xTF32 for f32, which keeps f32's accuracy, or bf16): the conv, the dc
+// pass's recompute and dx on the conv core (f32 on Hopper's warpgroup MMA,
+// bf16 on mma.sync; conv3.cuh, above conv_mma_kernel), dw on the dw stage
+// (the same split; conv3.cuh, above dw_mma_kernel).  Below 16 output
+// channels the forward streams over x, dx over dc and dw over x, each at
+// the byte bound.
+//
+// Design: the TPU kernel held a whole (C_in, T) sample in VMEM; a 512 x 750
+// f32 sample is 1.5 MB, far over a block's shared memory.  Here the core
+// tiles (T, O) (f32: 128 steps x up to 128 channels on Hopper's warpgroup
+// MMA, with the weights split once a launch into a scratch the wrapper
+// allocates) and, in the modes with a row pass, writes c to an f32 scratch
+// (N, O, T) that the wrapper allocates (780 MB at N = 512, O = 512,
+// T = 744); row_kernel, a warp per (n, o) row, takes the instance norm's
+// statistics over T in a fixed order and writes y.  Rows past 8192 steps
+// (the continuous mode's whole record) are cut into pieces of a block
+// each, their partial sums added in a fixed order (row_part_kernel,
+// row_sum_kernel, row_apply_kernel).  The round trip of c costs bytes the
+// operations dwarf, and no pass holds a whole row, so T has no limit.  The
+// backward recomputes c into the dc scratch and turns it into dc in place;
+// the TPU kernel's cross-sample dw sum ran down a sequential grid, here it
+// is a two-stage reduction in a fixed order.
+//
 // The gradient penalty's second order (the vjp of K2dx, critic_fused.py:
 // BwdDx.backward) runs on the same launchers in f32: the forward core for
 // v = conv(u, w), the dw product twice, dx, and between them one row pass
 // of its own, dx_vjp_row_kernel below, on the c and row statistics that
 // K2dx's dc pass kept.
+//
+// Time-sharded (models/cp.py's apply_cp: a record split along time over
+// ranks, which scgrhc/models/cp.py runs as an XLA conv with
+// _instance_norm_global): a row's statistics span every rank's block, so
+// the generator's layer runs in two entry points with a cross-rank sum of
+// the (s, q) pairs between them (the wrapper's all-reduce).
+// scgrhc_conv_in_relu_part takes the block with its neighbours' edge
+// columns, x (n, cin, len + 2), and launches the unchanged conv core over
+// those len + 2 steps (zero padding at the halo'd block's own ends, as at
+// any layer); the row passes then read c's columns 1 .. len.  The other
+// way, teaching the core to read a halo column at each end of its slab,
+// would touch the staging of every layer of both models for 2 of len + 2
+// columns a row (at a 600-s record over two ranks, 150,002 steps: 0.001 %
+// of the work), and the wrapper's copy of the halo'd block costs bytes the
+// operations dwarf.  The phases run the one-launch path's row kernels
+// (row_part_kernel and row_sum_kernel, then row_apply_kernel), so one
+// rank's block gives the whole-record layer's bits;
+// scgrhc_conv_in_relu_apply normalizes with the record's length.
 
 #include "conv3.cuh"
 
@@ -132,17 +177,18 @@ dx_vjp_row_kernel(const float* __restrict__ c, const float2* __restrict__ stats,
 
 }  // namespace critic
 
-// mode: 0 = linear, 1 = relu, 2 = in_relu; dtype: 0 = float32,
-// 1 = bfloat16.  x (n, cin, len), w (cout, cin, 3), b (cout,), y (n, cout,
-// len), all contiguous; c an f32 scratch of n*cout*len (and the row
-// pieces' partial sums after it: conv3.py's scratch_numel) where the plan
-// (scgrhc_critic_plan, pass 0) asks for one, else null; ws an f32 scratch
+// The layer's forward (K1f in the in_relu mode, K2f).  mode: 0 = linear,
+// 1 = relu, 2 = in_relu; dtype: 0 = float32, 1 = bfloat16.  x (n, cin,
+// len), w (cout, cin, 3), b (cout,) or null, y (n, cout, len), all
+// contiguous; c an f32 scratch of n*cout*len (and the row pieces' partial
+// sums after it: conv3.py's scratch_numel) where the plan
+// (scgrhc_layer_plan, pass 0) asks for one, else null; ws an f32 scratch
 // of wsplit_numel(cin, cout) for the f32 core's split weights where the
 // plan takes it, else null.  Returns the launch's cudaError_t; no
 // synchronise.
-extern "C" int scgrhc_critic_layer_fwd(const void* x, const void* w, const void* b, void* y,
-                                       void* c, void* ws, int n, int cin, int cout, int len,
-                                       int mode, int dtype, void* stream) {
+extern "C" int scgrhc_layer_fwd(const void* x, const void* w, const void* b, void* y, void* c,
+                                void* ws, int n, int cin, int cout, int len, int mode,
+                                int dtype, void* stream) {
   if (!shape_ok(n, cin, cout, len, false)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)fwd<float>(mode, x, w, b, y, c, ws, n, cin, cout, len, s);
@@ -150,9 +196,10 @@ extern "C" int scgrhc_critic_layer_fwd(const void* x, const void* w, const void*
   return (int)cudaErrorInvalidValue;
 }
 
-// The layer's backward for the output cotangent dy (n, cout, len): dx
-// (n, cin, len) in the dtype unless dx is null (K2dx); dw (cout, cin, 3) and
-// db (cout,) in float32 unless dw is null (K2dw).  dc is an f32 scratch of
+// The layer's backward (K1b in the in_relu mode, K2dx, K2dw) for the
+// output cotangent dy (n, cout, len): dx (n, cin, len) in the dtype unless
+// dx is null (K2dx; K1b for an input that needs no gradient); dw (cout,
+// cin, 3) and db (cout,) in float32 unless dw is null (K2dw, K1b).  dc is an f32 scratch of
 // n*cout*len; part one of nsplit*cout*(3*cin + (cout < 16)) when dw is
 // wanted (conv3.py's dw_plan); ws one for the split weights of the f32
 // core's passes, or null where none takes it (conv3.py:
@@ -160,11 +207,10 @@ extern "C" int scgrhc_critic_layer_fwd(const void* x, const void* w, const void*
 // the GP's second order (relu and in_relu; stats in_relu only): c in an f32
 // keep of n*cout*len, dc then in dc, and each row's (mean, var) in n*cout
 // float2 (launch_layer_bwd).
-extern "C" int scgrhc_critic_layer_bwd(const void* x, const void* w, const void* b,
-                                       const void* dy, void* dx, void* dw, void* db,
-                                       void* dc, void* part, void* ws, void* keep, void* stats,
-                                       int n, int cin, int cout, int len, int mode, int nsplit,
-                                       int dtype, void* stream) {
+extern "C" int scgrhc_layer_bwd(const void* x, const void* w, const void* b, const void* dy,
+                                void* dx, void* dw, void* db, void* dc, void* part, void* ws,
+                                void* keep, void* stats, int n, int cin, int cout, int len,
+                                int mode, int nsplit, int dtype, void* stream) {
   if (!shape_ok(n, cin, cout, len, dw != nullptr) || (dx == nullptr && dw == nullptr) ||
       (dw != nullptr && (db == nullptr || nsplit < 1 || nsplit > n)))
     return (int)cudaErrorInvalidValue;
@@ -205,6 +251,37 @@ extern "C" int scgrhc_critic_layer_dx_vjp(const void* c, const void* stats, cons
   return (int)cudaGetLastError();
 }
 
+// The time-sharded forward's first phase: x (n, cin, len + 2) the block
+// with its halo columns, c an f32 scratch of n*cout*(len + 2), part one of
+// n*cout*ceil(len / 8192) float2, sums (n*cout) float2 out: each row's
+// (sum, sum of squares) of c over the block's len steps; ws as for
+// scgrhc_layer_fwd.
+extern "C" int scgrhc_conv_in_relu_part(const void* x, const void* w, const void* b, void* c,
+                                        void* part, void* sums, void* ws, int n, int cin,
+                                        int cout, int len, int dtype, void* stream) {
+  if (!shape_ok(n, cin, cout, len + 2, false) || len < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_layer_part<float>(x, w, b, c, part, sums, ws, n, cin, cout, len, s);
+  if (dtype == 1)
+    return (int)launch_layer_part<__nv_bfloat16>(x, w, b, c, part, sums, ws, n, cin, cout, len,
+                                                 s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Its second phase: y (n, cout, len) in the dtype from c and the sums
+// (summed over the ranks), normalized over count steps (the record's
+// length, count >= len).
+extern "C" int scgrhc_conv_in_relu_apply(const void* c, const void* sums, void* y, int n,
+                                         int cout, int len, int count, int dtype,
+                                         void* stream) {
+  if (n < 1 || cout < 1 || len < 1 || count < len) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch_layer_apply<float>(c, sums, y, n, cout, len, count, s);
+  if (dtype == 1) return (int)launch_layer_apply<__nv_bfloat16>(c, sums, y, n, cout, len, count, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 // The launch plan of a conv pass (0 forward, 1 the dc pass's recompute,
 // 2 dx) for n samples in the dtype (0 float32, 1 bfloat16), as the
 // launchers take it for each chunk of samples: out[0..9] = path (0 none,
@@ -213,8 +290,8 @@ extern "C" int scgrhc_critic_layer_dx_vjp(const void* c, const void* stats, cons
 // and the tiles' x, y, z.  conv3.py's conv_plan mirrors it.  out[10] is
 // wsplit_numel(cin, cout) (the forward's and the recompute's split
 // weights) and out[11] wsplit_numel(cout, cin) (dx's).  Returns 0.
-extern "C" int scgrhc_critic_plan(int n, int cin, int cout, int len, int mode, int pass,
-                                  int dtype, int* out) {
+extern "C" int scgrhc_layer_plan(int n, int cin, int cout, int len, int mode, int pass,
+                                 int dtype, int* out) {
   const ConvPlan p = conv_plan(n, cin, cout, len, mode, pass, dtype == 0);
   out[0] = p.path;
   out[1] = (int)p.grid.x;

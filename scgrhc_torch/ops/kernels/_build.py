@@ -30,23 +30,19 @@ NVCC_FLAGS = (
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # x, w, b, y, c, ws, n, cin, cout, len, dtype, stream
-    "scgrhc_conv_in_relu": (_P,) * 6 + (_I,) * 5 + (_P,),
+    # x, w, b, y, c, ws, n, cin, cout, len, mode, dtype, stream
+    "scgrhc_layer_fwd": (_P,) * 6 + (_I,) * 6 + (_P,),
+    # x, w, b, dy, dx, dw, db, dc, part, ws, keep, stats, n, cin, cout, len, mode, nsplit,
+    # dtype, stream
+    "scgrhc_layer_bwd": (_P,) * 12 + (_I,) * 7 + (_P,),
     # x, w, b, c, part, sums, ws, n, cin, cout, len, dtype, stream
     "scgrhc_conv_in_relu_part": (_P,) * 7 + (_I,) * 5 + (_P,),
     # c, sums, y, n, cout, len, count, dtype, stream
     "scgrhc_conv_in_relu_apply": (_P,) * 3 + (_I,) * 5 + (_P,),
-    # x, w, b, dy, dx, dw, db, dc, part, ws, n, cin, cout, len, nsplit, dtype, stream
-    "scgrhc_conv_in_relu_bwd": (_P,) * 10 + (_I,) * 6 + (_P,),
-    # x, w, b, y, c, ws, n, cin, cout, len, mode, dtype, stream
-    "scgrhc_critic_layer_fwd": (_P,) * 6 + (_I,) * 6 + (_P,),
-    # x, w, b, dy, dx, dw, db, dc, part, ws, keep, stats, n, cin, cout, len, mode, nsplit,
-    # dtype, stream
-    "scgrhc_critic_layer_bwd": (_P,) * 12 + (_I,) * 7 + (_P,),
     # c, stats, dy, v, dcc, n, cout, len, mode, stream
     "scgrhc_critic_layer_dx_vjp": (_P,) * 5 + (_I,) * 4 + (_P,),
     # n, cin, cout, len, mode, pass, dtype, out (int[12])
-    "scgrhc_critic_plan": (_I,) * 7 + (_P,),
+    "scgrhc_layer_plan": (_I,) * 7 + (_P,),
     # n, cin, cout, dtype, out (int[3])
     "scgrhc_dw_plan": (_I,) * 4 + (_P,),
     # out (long long[3])

@@ -1,11 +1,14 @@
 """Plain versions and launch plumbing of the conv1d(k=3, padding=1) layer
-kernels, the Python side of ``scgrhc_torch/csrc/conv3.cuh``.
+kernels, the Python side of ``scgrhc_torch/csrc/conv_layer.cu`` over
+``conv3.cuh``.
 
 One layer is ``c = conv1d(x, w, padding=1) + b`` followed by a mode:
 ``linear`` (``c``), ``relu`` or ``in_relu`` (one-pass instance norm, then
 relu).  :mod:`.conv_block` (the generator's layer, always ``in_relu``) and
-:mod:`.critic_fused` (the critic's layer in all three modes) wrap the same
-kernels and take the same plain versions here, written from the Pallas
+:mod:`.critic_fused` (the critic's layer in all three modes) launch the
+same kernels through :func:`launch_fwd` and :func:`launch_bwd` (the
+layer's entry points, ``scgrhc_layer_fwd`` and ``scgrhc_layer_bwd``) and
+take the same plain versions here, written from the Pallas
 kernels' formulas (``scgrhc/ops/pallas/conv_block.py:82-122``,
 ``critic_fused.py:132-164``):
 
@@ -218,12 +221,12 @@ def scratch_numel(plan: ConvPlan) -> int:
 
 def c_plan(n: int, cin: int, cout: int, t: int, mode: str, pass_: str = "fwd",
            dtype=torch.float32) -> tuple[ConvPlan, int, int]:
-    """The C launchers' own plan (``scgrhc_critic_plan``) and split-weight
+    """The C launchers' own plan (``scgrhc_layer_plan``) and split-weight
     sizes (of the forward's product and of dx's), for holding
     :func:`conv_plan` and :func:`wsplit_numel` to them."""
     out = (ctypes.c_int * 12)()
-    _build.library().scgrhc_critic_plan(n, cin, cout, t, MODE_CODE[mode], PASSES.index(pass_),
-                                        DTYPE_CODE[dtype], out)
+    _build.library().scgrhc_layer_plan(n, cin, cout, t, MODE_CODE[mode], PASSES.index(pass_),
+                                       DTYPE_CODE[dtype], out)
     path, gx, gy, gz, rows, scratch, parts, tx, ty, tz, ws_fwd, ws_dx = out
     plan = ConvPlan(PATHS[path], (gx, gy, gz), rows, (n, cout, t) if scratch else None, parts,
                     (tx, ty, tz) if PATHS[path] == "wgmma" else None)
@@ -380,13 +383,12 @@ def _stream(x) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def launch_fwd(entry: str, what: str, x, w, b, mode: str, mode_arg: bool = True):
-    """The forward kernel ``entry`` on CUDA tensors → y (N, O, T) in x's
-    dtype, with the f32 scratch that :func:`conv_plan` asks for
+def launch_fwd(what: str, x, w, b, mode: str):
+    """The layer's forward (``scgrhc_layer_fwd``) on CUDA tensors → y (N, O,
+    T) in x's dtype, with the f32 scratch that :func:`conv_plan` asks for
     (:func:`scratch_numel`; or null) and the split weights where it takes
     the f32 core (:func:`wsplit_numel`; or null).  b None: no bias (the
-    conv kernels add none for a null bias).  ``mode_arg`` False: the entry
-    point takes no mode (the generator's, which is in_relu only)."""
+    conv kernels add none for a null bias)."""
     check_inputs(what, x, w, b)
     n, cin, t = x.shape
     o = w.shape[0]
@@ -395,31 +397,29 @@ def launch_fwd(entry: str, what: str, x, w, b, mode: str, mode_arg: bool = True)
     f32 = dict(dtype=torch.float32, device=x.device)
     c = None if plan.scratch is None else torch.empty(scratch_numel(plan), **f32)
     ws = torch.empty(wsplit_numel(cin, o), **f32) if plan.path == "wgmma" else None
-    extra = (MODE_CODE[mode],) if mode_arg else ()
     with torch.cuda.device(x.device):
-        err = getattr(_build.library(), entry)(
+        err = _build.library().scgrhc_layer_fwd(
             *(None if v is None else v.data_ptr() for v in (x, w, b, y, c, ws)), n, cin, o, t,
-            *extra, DTYPE_CODE[x.dtype], _stream(x),
+            MODE_CODE[mode], DTYPE_CODE[x.dtype], _stream(x),
         )
     _build.check(err, what)
     count_launches(plan, n)
     return y
 
 
-def launch_bwd(entry: str, what: str, x, w, b, dy, mode: str, need_dx: bool, need_dw: bool,
-               mode_arg: bool = True, keep: bool = False):
-    """The backward kernel ``entry`` on CUDA tensors → ``(dx, dw, db)`` as
-    :func:`layer_bwd_plain` gives them.  The f32 scratch for dc (N, O, T),
-    for dw's per-split partial sums (:func:`dw_plan`) and for the split
-    weights (:func:`bwd_wsplit_numel`) is allocated here.  ``mode_arg``
-    False: the entry point takes no mode and keeps nothing (the
-    generator's).  ``keep`` (relu and in_relu): ``(dx, dw, db, c, dc,
+def launch_bwd(what: str, x, w, b, dy, mode: str, need_dx: bool, need_dw: bool,
+               keep: bool = False):
+    """The layer's backward (``scgrhc_layer_bwd``) on CUDA tensors →
+    ``(dx, dw, db)`` as :func:`layer_bwd_plain` gives them.  The f32
+    scratch for dc (N, O, T), for dw's per-split partial sums
+    (:func:`dw_plan`) and for the split weights (:func:`bwd_wsplit_numel`)
+    is allocated here.  ``keep`` (relu and in_relu): ``(dx, dw, db, c, dc,
     stats)``, with what the dc pass made kept for the GP's second order: c
     (N, O, T) f32, dc (N, O, T) f32 and, in the in_relu mode, each row's
     (mean, E[c²] − mean²) before the clamp, (N, O, 2) f32 (None in relu)."""
     check_inputs(what, x, w, b, dy, need_dw)
-    if keep and (mode == "linear" or not mode_arg):
-        raise ValueError(f"{what}: keep takes the critic's relu or in_relu mode, got {mode!r}")
+    if keep and mode == "linear":
+        raise ValueError(f"{what}: keep takes the relu or in_relu mode, got {mode!r}")
     n, cin, t = x.shape
     o = w.shape[0]
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -435,13 +435,11 @@ def launch_bwd(entry: str, what: str, x, w, b, dy, mode: str, need_dx: bool, nee
     ws = torch.empty(ws_numel, **f32) if ws_numel else None
     c = torch.empty((n, o, t), **f32) if keep else None
     stats = torch.empty((n, o, 2), **f32) if keep and mode == "in_relu" else None
-    extra = (MODE_CODE[mode],) if mode_arg else ()
-    keep_args = (c, stats) if mode_arg else ()
     ptrs = [None if v is None else v.data_ptr()
-            for v in (x, w, b, dy, dx, dw, db, dc, part, ws, *keep_args)]
+            for v in (x, w, b, dy, dx, dw, db, dc, part, ws, c, stats)]
     with torch.cuda.device(x.device):
-        err = getattr(_build.library(), entry)(
-            *ptrs, n, cin, o, t, *extra, plan.nsplit, DTYPE_CODE[x.dtype], _stream(x)
+        err = _build.library().scgrhc_layer_bwd(
+            *ptrs, n, cin, o, t, MODE_CODE[mode], plan.nsplit, DTYPE_CODE[x.dtype], _stream(x)
         )
     _build.check(err, what)
     count_launches(conv_plan(n, cin, o, t, mode, "dc", x.dtype), n)

@@ -4,13 +4,15 @@ joins them.
 
 Replaces the TPU kernel ``scgrhc/ops/pallas/conv_block.py::conv_in_relu``:
 K1f its ``_fwd_kernel``, K1b its ``_bwd_kernel`` (the custom_vjp's
-``_cir_bwd``).  The CUDA source is ``scgrhc_torch/csrc/conv_in_relu.cu``
-over ``conv3.cuh``: the critic's layer kernels in the ``in_relu`` mode,
-the conv on the tensor-core core (f32 on Hopper's warpgroup MMA, from
-weights split into a scratch once a launch), c through an f32 scratch
-(N, O, T) and a row pass for the instance norm.  Its header says what bounds both on
-the H100 (operations, on the tensor cores) and why c may round-trip
-through device memory.  The plain versions are :mod:`.conv3`'s in the
+``_cir_bwd``).  The CUDA source is the layer's,
+``scgrhc_torch/csrc/conv_layer.cu`` over ``conv3.cuh``: K1f and K1b are
+its entry points in the ``in_relu`` mode, launched through
+:func:`.conv3.launch_fwd` and :func:`.conv3.launch_bwd` as the critic's
+layer is: the conv on the tensor-core core (f32 on Hopper's warpgroup
+MMA, from weights split into a scratch once a launch), c through an f32
+scratch (N, O, T) and a row pass for the instance norm.  Its header says
+what bounds both on the H100 (operations, on the tensor cores) and why c
+may round-trip through device memory.  The plain versions are :mod:`.conv3`'s in the
 ``in_relu`` mode; the wrappers take them on the CPU only.
 
 The layer is first-order only, like the TPU kernel: the generator is never
@@ -55,8 +57,7 @@ def conv_in_relu(x, w, b):
     (:func:`.conv3.check_inputs`)."""
     if conv3.on_cpu(x, "conv_in_relu"):
         return conv_in_relu_plain(x, w, b)
-    y = conv3.launch_fwd("scgrhc_conv_in_relu", "conv_in_relu", x, w, b, "in_relu",
-                         mode_arg=False)
+    y = conv3.launch_fwd("conv_in_relu", x, w, b, "in_relu")
     conv_in_relu.launches += 1
     return y
 
@@ -66,8 +67,7 @@ def conv_in_relu_bwd(x, w, b, dy, need_dx: bool = True):
     launch (its dc, dx and dw/db passes), dx skipped unless ``need_dx``."""
     if conv3.on_cpu(x, "conv_in_relu_bwd"):
         return conv_in_relu_bwd_plain(x, w, b, dy, need_dx)
-    out = conv3.launch_bwd("scgrhc_conv_in_relu_bwd", "conv_in_relu_bwd", x, w, b, dy,
-                           "in_relu", need_dx, True, mode_arg=False)
+    out = conv3.launch_bwd("conv_in_relu_bwd", x, w, b, dy, "in_relu", need_dx, True)
     conv_in_relu_bwd.launches += 1
     return out
 

@@ -4,8 +4,10 @@ Functions that make it twice differentiable for the gradient penalty.
 
 Replaces the TPU kernels of ``scgrhc/ops/pallas/critic_fused.py``: K2f its
 ``_fwd_kernel``, K2dx its ``_bwd_dx_kernel``, K2dw its
-``_bwd_dwdb_kernel``.  The CUDA source is ``scgrhc_torch/csrc/
-critic_layer.cu`` over ``conv3.cuh``.  The TPU kernels' flat, 128-column
+``_bwd_dwdb_kernel``.  The CUDA source is the layer's,
+``scgrhc_torch/csrc/conv_layer.cu`` over ``conv3.cuh``, launched through
+:func:`.conv3.launch_fwd` and :func:`.conv3.launch_bwd` as the
+generator's layer is.  The TPU kernels' flat, 128-column
 padded layout was Mosaic's constraint; the port keeps (N, C, T), and its
 values and gradients equal ``critic.apply_fused`` followed by
 ``from_flat`` on every real column.
@@ -42,7 +44,6 @@ from scgrhc_torch.ops.kernels import _build, conv3
 from scgrhc_torch.ops.nn import IN_EPS, stats_dtype
 
 MODES = conv3.MODES
-_FWD, _BWD = "scgrhc_critic_layer_fwd", "scgrhc_critic_layer_bwd"
 
 
 def critic_layer_plain(x, w, b, mode: str):
@@ -72,7 +73,7 @@ def critic_layer(x, w, b, mode: str):
     _check_mode(mode)
     if conv3.on_cpu(x, "critic_layer"):
         return critic_layer_plain(x, w, b, mode)
-    y = conv3.launch_fwd(_FWD, "critic_layer", x, w, b, mode)
+    y = conv3.launch_fwd("critic_layer", x, w, b, mode)
     critic_layer.launches += 1
     return y
 
@@ -89,8 +90,8 @@ def critic_layer_bwd_dx(x, w, b, dy, mode: str, keep: bool = False):
         dx = critic_layer_bwd_dx_plain(x, w, b, dy, mode)
         return (dx, ()) if keep else dx
     keep_c = keep and mode != "linear" and x.dtype == torch.float32
-    dx, _, _, *kept = conv3.launch_bwd(_BWD, "critic_layer_bwd_dx", x, w, b, dy, mode, True,
-                                       False, keep=keep_c)
+    dx, _, _, *kept = conv3.launch_bwd("critic_layer_bwd_dx", x, w, b, dy, mode, True, False,
+                                       keep=keep_c)
     critic_layer_bwd_dx.launches += 1
     return (dx, tuple(t for t in kept if t is not None)) if keep else dx
 
@@ -100,8 +101,7 @@ def critic_layer_bwd_dwdb(x, w, b, dy, mode: str):
     _check_mode(mode)
     if conv3.on_cpu(x, "critic_layer_bwd_dwdb"):
         return critic_layer_bwd_dwdb_plain(x, w, b, dy, mode)
-    _, dw, db = conv3.launch_bwd(_BWD, "critic_layer_bwd_dwdb", x, w, b, dy, mode, False,
-                                 True)
+    _, dw, db = conv3.launch_bwd("critic_layer_bwd_dwdb", x, w, b, dy, mode, False, True)
     critic_layer_bwd_dwdb.launches += 1
     return dw, db
 
@@ -114,7 +114,7 @@ def row_stats_plain(c):
 
 
 def dx_vjp_row_plain(c, stats, dy, v, mode: str):
-    """The row pass of K2dx's vjp (``csrc/critic_layer.cu``:
+    """The row pass of K2dx's vjp (``csrc/conv_layer.cu``:
     ``dx_vjp_row_kernel``) in plain PyTorch: from v = conv(u, w), the
     cotangents (on dy, on c) of ``dc = conv3.dc_from_dy(dy, c, mode)``, on
     c's relu masks and row statistics ``stats`` (:func:`row_stats_plain`).
@@ -163,7 +163,7 @@ def _conv_nobias(u, w, cpu: bool):
     if cpu:
         acc = stats_dtype(u.dtype)
         return F.conv1d(u.to(acc), w.to(acc), padding=1)
-    return conv3.launch_fwd(_FWD, "critic_layer_bwd_dx_vjp", u, w, None, "linear")
+    return conv3.launch_fwd("critic_layer_bwd_dx_vjp", u, w, None, "linear")
 
 
 def _bwd_linear(x, w, b, dy, need_dx: bool, need_dw: bool, cpu: bool):
@@ -171,8 +171,7 @@ def _bwd_linear(x, w, b, dy, need_dx: bool, need_dw: bool, cpu: bool):
     linear mode (dc = dy) on the card, the plain version on the CPU."""
     if cpu:
         return conv3.layer_bwd_plain(x, w, b, dy, "linear", need_dx, need_dw)
-    return conv3.launch_bwd(_BWD, "critic_layer_bwd_dx_vjp", x, w, b, dy, "linear", need_dx,
-                            need_dw)
+    return conv3.launch_bwd("critic_layer_bwd_dx_vjp", x, w, b, dy, "linear", need_dx, need_dw)
 
 
 def _dx_vjp_row(c, stats, dy, v, mode: str, cpu: bool):

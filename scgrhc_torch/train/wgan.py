@@ -34,9 +34,7 @@ before its Adam step.
 
 ``train_dtype: bfloat16`` keeps f32 master weights and Adam state, and
 casts the weights inside the losses (the generator's ``final`` stays f32,
-so predictions come back f32).  ``remat``, ``conv_backend`` and
-``critic_backend`` are read for compatibility only: the generator's layers
-always run K1f/K1b and the critic's K2f/K2dx/K2dw on the card.
+so predictions come back f32).
 """
 
 from __future__ import annotations
@@ -59,8 +57,10 @@ FUSE_MODES = ("off", "2b", "3b")
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The step's hyperparameters, the fields of ``scgrhc.train.wgan.
-    TrainConfig``."""
+    """The step's hyperparameters: the fields of ``scgrhc.train.wgan.
+    TrainConfig`` but its backend choices (``remat``, ``conv_backend``,
+    ``critic_backend``), which the port does not have: its layers always run
+    the CUDA kernels on the card."""
 
     n_critic: int = 2
     lambda_gp: float = 10.0
@@ -70,10 +70,7 @@ class TrainConfig:
     beta2: float = 0.999
     fix_g_adversarial: bool = False
     compute_dtype: str = "float32"
-    remat: bool = False  # compatibility only
-    conv_backend: str = "xla"  # compatibility only
     critic_fuse: str = "off"
-    critic_backend: str = "xla"  # compatibility only
     reuse_pred: bool = False
 
     def __post_init__(self):
@@ -94,9 +91,6 @@ class TrainConfig:
             fix_g_adversarial=bool(getattr(params, "fix_g_adversarial", False)),
             compute_dtype=str(getattr(params, "train_dtype", "float32")),
             critic_fuse=str(getattr(params, "critic_fuse", "off")),
-            remat=bool(getattr(params, "remat", False)),
-            conv_backend=str(getattr(params, "conv_backend", "xla")),
-            critic_backend=str(getattr(params, "critic_backend", "xla")),
             reuse_pred=bool(getattr(params, "reuse_pred", False)),
         )
 

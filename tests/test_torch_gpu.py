@@ -41,6 +41,10 @@ The data axis on one card: the comm helpers on CUDA tensors over NCCL and
 over gloo in a world of one rank (a ``file://`` store), data-parallel steps
 over NCCL equal bit for bit to the steps with no process group, and two
 processes building the kernels at once into one empty build directory.
+
+The training step: its phase spans timed on the card, its dw launches by
+path, and the whole step at n_critic 5 against the same step on the CPU,
+with the dropout masks and eps pinned through the step's seams.
 """
 
 import numpy as np
@@ -441,6 +445,14 @@ def test_critic_layer_kernels_bf16(cuda, mode):
         assert _rel(g, r, floor) <= BF16_TOL
 
 
+# The generator's biases that feed an instance norm: their gradient is zero
+# up to rounding, so its sign, and Adam's first move of them, is noise.
+G_IN_BIASES = frozenset(
+    {f"{blk}.{i}.bias" for blk in ("enc1", "enc2", "enc3", "bottleneck", "dec3", "dec2", "dec1")
+     for i in (0, 3)}
+    | {f"{a}.{s}.0.bias" for a in ("att3", "att2", "att1") for s in ("W_x", "W_g", "psi")})
+
+
 def test_generator_backward_reaches_every_parameter(cuda):
     """Through ConvInReLU (K1f forward, K1b backward) every generator
     parameter gets a finite gradient on the card, nonzero for every weight
@@ -462,13 +474,9 @@ def test_generator_backward_reaches_every_parameter(cuda):
     got = grads(gen, fused_block, x)
     torch.cuda.synchronize()
     assert k1f.conv_in_relu_bwd.launches == before + 14
-    normed = {f"{blk}.{i}.bias" for blk in ("enc1", "enc2", "enc3", "bottleneck", "dec3",
-                                            "dec2", "dec1") for i in (0, 3)}
-    normed |= {f"{a}.{s}.0.bias" for a in ("att3", "att2", "att1") for s in ("W_x", "W_g",
-                                                                            "psi")}
     for name, g in zip(names, got):
         assert torch.isfinite(g).all(), name
-        if name not in normed:
+        if name not in G_IN_BIASES:
             assert g.abs().max() > 0, name
     assert all(torch.equal(a, b) for a, b in zip(grads(gen, fused_block, x), got))
     plain32 = grads(gen, plain_block, x)
@@ -1213,37 +1221,49 @@ def test_collectives_on_cuda_tensors(cuda, tmp_path, device, backend):
         comm.destroy()
 
 
-def test_dp_steps_over_nccl_equal_the_steps_with_no_group(cuda, tmp_path):
-    """Two WGAN-GP steps through ``DataParallelTrainer`` in a world of one
-    rank over NCCL (the gradient buckets all-reduced on the card) equal the
-    same steps with no process group, bit for bit."""
+@pytest.mark.parametrize("b,n_critic,steps", [(4, 2, 2), (32, 5, 3)])
+def test_dp_steps_over_nccl_equal_the_steps_with_no_group(cuda, tmp_path, b, n_critic, steps):
+    """WGAN-GP steps through ``DataParallelTrainer`` in a world of one rank
+    over NCCL (the gradient buckets all-reduced on the card) equal the same
+    steps with no process group, bit for bit (weights, Adam state, losses),
+    and launch the kernels that ``wgan.launches_per_step`` counts; at B 4
+    and n_critic 2, and at ``chip_smoke.py``'s training configuration (B 32,
+    n_critic 5)."""
     from scgrhc_torch.parallel.dp import DataParallelTrainer
     from scgrhc_torch.parallel.mesh import make_mesh
 
-    cfg = wgan.TrainConfig(n_critic=2)
+    cfg = wgan.TrainConfig(n_critic=n_critic)
     g = torch.Generator(cuda).manual_seed(3)
-    scg, rhc = torch.rand(4, 4, 750, device=cuda, generator=g), torch.rand(4, 1, 750,
+    scg, rhc = torch.rand(b, 4, 750, device=cuda, generator=g), torch.rand(b, 1, 750,
                                                                            device=cuda, generator=g)
+    wrappers = {f.__name__: f for f in (k1f.conv_in_relu, k1f.conv_in_relu_bwd, k2.critic_layer,
+                                        k2.critic_layer_bwd_dx, k2.critic_layer_bwd_dwdb,
+                                        k2.critic_layer_bwd_dx_vjp)}
 
     def run(trainer):
         st = wgan.init_state(0, 4, cfg, cuda)
         if trainer is not None:
             trainer.place_state(st)
+        before = {k: f.launches for k, f in wrappers.items()}
         out = []
-        for i in range(2):
+        for i in range(steps):
             rng = wgan.step_rng(0, 0, i, cuda)
             d, gl = (wgan.train_step(st, scg, rhc, rng, cfg) if trainer is None
-                     else trainer.step(st, scg, rhc, torch.arange(4, device=cuda), rng, cfg))
+                     else trainer.step(st, scg, rhc, torch.arange(b, device=cuda), rng, cfg))
             out += [d, gl[None]]
-        return [*st.generator.parameters(), *st.critic.parameters(), *out]
+        launches = {k: f.launches - before[k] for k, f in wrappers.items()}
+        adam = [v for opt in (st.g_opt, st.d_opt) for s in opt.state.values()
+                for v in s.values() if torch.is_tensor(v)]
+        return [*st.generator.parameters(), *st.critic.parameters(), *adam, *out], launches
 
-    plain = run(None)
+    plain, _ = run(None)
     comm = _world_of_one(tmp_path, None)
     try:
-        dp = run(DataParallelTrainer(make_mesh()))
+        dp, launches = run(DataParallelTrainer(make_mesh()))
     finally:
         comm.destroy()
-    assert all(torch.equal(a, b) for a, b in zip(plain, dp))
+    assert len(dp) == len(plain) and all(torch.equal(x, y) for x, y in zip(plain, dp))
+    assert launches == {k: v * steps for k, v in wgan.launches_per_step(cfg).items()}
 
 
 _BUILD_RANK = r"""
@@ -1388,15 +1408,17 @@ def test_conv_in_relu_time_sharded_phases_reject(cuda):
         k1f.conv_in_relu_apply(c, sums[:10].contiguous(), 98, x.dtype)
 
 
-def test_apply_cp_over_nccl_world_one_equals_apply_continuous(cuda, tmp_path):
+@pytest.mark.parametrize("length", [30_000, 300_000])
+def test_apply_cp_over_nccl_world_one_equals_apply_continuous(cuda, tmp_path, length):
     """``models.cp.apply_cp`` in a world of one rank over NCCL (its 43
-    all-reduces and gathers on the card) equals ``apply_continuous`` on a
-    30,000-step record bit for bit, with 14 launches of each K1f phase."""
+    all-reduces and gathers on the card) equals ``apply_continuous`` bit for
+    bit, with 14 launches of each K1f phase, on a 30,000-step record and on
+    a 600-s one (300,000 steps at 500 Hz)."""
     from scgrhc_torch.models.cp import apply_continuous, apply_cp
     from scgrhc_torch.parallel.mesh import TIME_AXIS, make_mesh
 
     gen = Generator(4, torch.Generator().manual_seed(0)).to(cuda).eval()
-    x = torch.rand(4, 30_000, device=cuda, generator=torch.Generator(cuda).manual_seed(3))
+    x = torch.rand(4, length, device=cuda, generator=torch.Generator(cuda).manual_seed(3))
     comm = _world_of_one(tmp_path, None)
     try:
         before = (k1f.conv_in_relu_part.launches, k1f.conv_in_relu_apply.launches)
@@ -1408,7 +1430,7 @@ def test_apply_cp_over_nccl_world_one_equals_apply_continuous(cuda, tmp_path):
             before[0] + 14, before[1] + 14)
     finally:
         comm.destroy()
-    assert got.shape == (1, 1, 30_000) and torch.equal(got, want)
+    assert got.shape == (1, 1, length) and torch.equal(got, want)
 
 
 def test_orbax_checkpoint_round_trip_on_the_card(cuda, tmp_path):
@@ -1505,3 +1527,124 @@ def test_train_step_dw_launches_by_path(cuda):
     n = cfg.n_critic
     assert paths == {"wgmma": 14 + 19 * n, "stream": 3 * n}
     assert copies == {"tma": 13 + 19 * n, "cp.async": 1}
+
+
+# One WGAN-GP step on the card against the same step on the CPU (same
+# weights, masks, eps).  Gradients, as Adam's first moments after one step,
+# by relative L2: a gradient of the wrong sign reads 2, a zero one 1.  The
+# f32 envelope is set by the relu masks: where an x̂ sits within rounding of
+# 0, its mask can flip on one device and not on the other, and the critic's
+# input gradient, small beside its terms, moves by a few 1e-3 per flip
+# (readings 3.6e-3 for G, 4.1e-3 for D on an H100; the CPU's f32 step
+# against its f64 step, printed beside, reads 1.7e-3 for G and flipped no
+# critic mask).
+TOL_STEP_MOMENTS = 1e-2
+# The first critic loss is a forward value; the gradient penalty in it
+# moves with the same mask flips (reading 3.8e-4).
+TOL_STEP_LOSS0 = 2e-3  # relative
+# The losses after the first critic update: Adam's first steps move every
+# weight by about alpha, whatever the size of its gradient, so a gradient
+# within rounding of 0 moves a weight the other way on the other device
+# (reading 5.6e-3).  The same step with the critic's updates reversed is
+# read beside it (0.49) and must fall outside.
+TOL_STEP_LOSSES = 2e-2  # relative
+# The critic's biases that feed an instance norm (its in_relu layers).
+D_IN_BIASES = frozenset(f"d.model.{i}.bias" for i in (2, 5, 8))
+
+
+def _pinned_step(dev, dtype, inputs, n_critic: int, reverse_critic: bool = False):
+    """One WGAN-GP step from seed-7 weights on ``dev`` in ``dtype``, the
+    dropout masks and eps pinned through the step's seams.
+    ``reverse_critic`` applies each critic update against its gradient: a
+    wrong update, to read what the checks must catch.  Returns the losses
+    and the Adam first moments by parameter name (the critic's prefixed
+    ``d.``)."""
+    from scgrhc_torch.models import generator as gen_mod
+
+    scg, rhc, eps = inputs
+    cfg = wgan.TrainConfig(n_critic=n_critic, alpha=1e-4)
+    draws = {"mask": 0, "eps": 0}
+
+    def dropout(x, rate, rng_, train):
+        draws["mask"] += 1
+        m = np.random.default_rng(1000 + draws["mask"]).random(tuple(x.shape)) < 1.0 - rate
+        return x * torch.from_numpy(m).to(x) / (1.0 - rate)
+
+    def draw_eps(rng_, n, device):
+        draws["eps"] += 1
+        return torch.from_numpy(eps[draws["eps"] - 1]).to(device)
+
+    state = wgan.init_state(7, scg.shape[1], cfg, dev)
+    state.generator.to(dtype)
+    state.critic.to(dtype)
+
+    def apply(opt, params, loss, grad_span, reduce=None):
+        sign = -1.0 if reverse_critic and opt is state.d_opt else 1.0
+        for p, g in zip(params, torch.autograd.grad(loss, params)):
+            p.grad = sign * g
+        opt.step()
+        return loss.detach()
+
+    seams = (gen_mod.dropout, wgan._draw_eps, wgan._apply)
+    gen_mod.dropout, wgan._draw_eps, wgan._apply = dropout, draw_eps, apply
+    try:
+        d, g = wgan.train_step(state, torch.from_numpy(scg).to(dev, dtype),
+                               torch.from_numpy(rhc).to(dev, dtype), None, cfg)
+        losses = np.append(d.cpu().double().numpy(), float(g))
+    finally:
+        gen_mod.dropout, wgan._draw_eps, wgan._apply = seams
+    moments = {}
+    for prefix, module, opt in (("", state.generator, state.g_opt),
+                                ("d.", state.critic, state.d_opt)):
+        for name, p in module.named_parameters():
+            moments[prefix + name] = opt.state[p]["exp_avg"].detach().cpu().double().numpy()
+    return losses, moments
+
+
+def _moments_rel(a: dict, b: dict, critic: bool) -> float:
+    """Relative L2 distance of one model's first moments, the biases that
+    feed an instance norm left out."""
+    keys = [k for k in b if k.startswith("d.") == critic
+            and k not in G_IN_BIASES | D_IN_BIASES]
+    x, y = (np.concatenate([m[k].ravel() for k in keys]) for m in (a, b))
+    return float(np.linalg.norm(x - y) / np.linalg.norm(y))
+
+
+def test_train_step_at_n_critic_5_against_the_cpu(cuda):
+    """The WGAN-GP step at full width (B 4, 4 SCG channels, T 750) on the
+    card against the same step on the CPU, same weights, dropout masks and
+    eps: the gradients, as Adam's first moments after a step with n_critic
+    1 (the float64 CPU step printed beside for the f32 envelope), and the
+    losses of a whole step at n_critic 5, and beside them the same step on
+    the CPU with the critic's updates reversed, which must fall outside."""
+    n_critic = 5
+    rng = np.random.default_rng(11)
+    b = 4
+    scg = rng.random((b, 4, 750)).astype(np.float32)
+    rhc = rng.random((b, 1, 750)).astype(np.float32)
+    eps = [rng.random((b, 1, 1)).astype(np.float32) for _ in range(n_critic)]
+    inputs = (scg, rhc, eps)
+    f32, f64 = torch.float32, torch.float64
+
+    _, m_card = _pinned_step(cuda, f32, inputs, 1)
+    _, m_cpu = _pinned_step("cpu", f32, inputs, 1)
+    _, m_64 = _pinned_step("cpu", f64, inputs, 1)
+    mom = {f"{who}_{mod}": _moments_rel(x, y, mod == "d")
+           for who, (x, y) in (("card_vs_cpu", (m_card, m_cpu)), ("card_vs_f64", (m_card, m_64)),
+                               ("cpu_vs_f64", (m_cpu, m_64)))
+           for mod in ("g", "d")}
+    l_card, _ = _pinned_step(cuda, f32, inputs, n_critic)
+    l_cpu, _ = _pinned_step("cpu", f32, inputs, n_critic)
+    l_rev, _ = _pinned_step("cpu", f32, inputs, n_critic, reverse_critic=True)
+    rel = np.abs(l_card - l_cpu) / np.abs(l_cpu)
+    rel_rev = np.abs(l_rev - l_cpu) / np.abs(l_cpu)
+    # the critic losses after the first update (the generator's loss, last,
+    # is taken before its own update and moves little with the critic's)
+    later, later_rev = float(rel[1:n_critic].max()), float(rel_rev[1:n_critic].max())
+    print(f"first moments, relative L2: {mom}; losses card vs cpu {rel.tolist()}, the "
+          f"critic's updates reversed {rel_rev.tolist()}")
+    for mod in ("g", "d"):
+        assert mom[f"card_vs_cpu_{mod}"] <= TOL_STEP_MOMENTS, mom
+    assert rel[0] <= TOL_STEP_LOSS0, rel
+    assert max(later, rel[-1]) <= TOL_STEP_LOSSES, rel
+    assert later_rev > TOL_STEP_LOSSES, rel_rev
